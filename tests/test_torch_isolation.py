@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: no JAX at import, a clean static gate,
+and chip_smoke.py refusing to run without a CUDA device."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from zfista_tpu_torch.ops import precision
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import staticcheck  # noqa: E402
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import zfista_tpu_torch, zfista_tpu_torch.models, zfista_tpu_torch.interop\n"
+        "import zfista_tpu_torch.ops.fused, zfista_tpu_torch.ops._build\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
+        "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
+        "print(bad)\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_and_chip_smoke_are_staticcheck_clean():
+    findings = staticcheck.run([ROOT / "zfista_tpu_torch", ROOT / "chip_smoke.py"])
+    assert findings == []
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    r = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("setting", ["allow_tf32", "matmul_precision"])
+def test_products_refuse_tf32(setting):
+    a = torch.ones(3, 3)
+    v = torch.ones(3)
+    old_flag = torch.backends.cuda.matmul.allow_tf32
+    old_prec = torch.get_float32_matmul_precision()
+    try:
+        if setting == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="full-fp32"):
+            precision.matmul_hp(a, v)
+        with pytest.raises(RuntimeError, match="full-fp32"):
+            precision.dot_hp(v, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_flag
+        torch.set_float32_matmul_precision(old_prec)
+    assert float(precision.dot_hp(v, v)) == 3.0
+    assert torch.equal(precision.matmul_hp(a, v), torch.full((3,), 3.0))

@@ -1,0 +1,264 @@
+"""The port's fixed-step solver vs the JAX package's, float64 on the CPU.
+
+The slice end to end (``Lasso.solve_fixed_step``), one step continued from
+a JAX ``State`` carried across with ``interop``, ``check_every`` chunking
+(bitwise within the port), the closed-form toy of
+tests/test_solver_scalar.py, and the options this slice does not port.
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zfista_tpu.models import lasso as jl
+from zfista_tpu_torch import SolverOptions, interop, minimize_proximal_gradient
+from zfista_tpu_torch.core import solver
+from zfista_tpu_torch.models import Lasso
+from zfista_tpu_torch.models import lasso as tl
+from zfista_tpu_torch.ops.prox import soft_threshold
+
+F64 = torch.float64
+
+
+def _lasso(seed, m=40, n=120, k=5):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    x_true = np.zeros(n)
+    x_true[rng.choice(n, k, replace=False)] = rng.standard_normal(k)
+    b = A @ x_true + 0.01 * rng.standard_normal(m)
+    lr = 1.0 / (2 * np.linalg.norm(A, 2) ** 2)
+    return A, b, lr
+
+
+def _quiet(fn, *args, **kwargs):
+    """Run a solve whose max_iter cap is the point (status 0 warns)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return fn(*args, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "seed, opts",
+    [
+        (0, {}),
+        (1, {}),
+        (2, {}),
+        (3, {"tol_rel": 1e-6}),
+        (4, {"nesterov": False}),
+    ],
+)
+def test_slice_matches_jax(seed, opts):
+    """Same explicit lr on both sides (their power iterations draw different
+    start vectors): exact nit, x at 1e-9, fun at 1e-12."""
+    A, b, lr = _lasso(seed)
+    x0 = np.zeros(A.shape[1])
+    kw = dict(lr=lr, tol=1e-8, **opts)
+    rj = jl.Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
+    rt = Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
+    assert rj.status == 1
+    assert rt.nit == rj.nit
+    assert (rt.status, rt.success, rt.message) == (rj.status, rj.success, rj.message)
+    assert rt.nit_internal == rj.nit_internal
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt.fun, np.asarray(rj.fun), rtol=1e-12)
+    assert isinstance(rt.x, np.ndarray) and rt.x.dtype == np.float64
+    assert rt.lr == lr
+    assert rt.error_criterion == pytest.approx(rj.error_criterion, rel=0, abs=1e-11)
+
+
+def _port_step(A, b, lam, n):
+    p = interop.lasso_params_from_numpy(A, b, lam)
+    bound = solver._bind_params(
+        tl._lasso_f_p, tl._lasso_g_p, tl._lasso_jac_p, tl._lasso_prox_p, p
+    )
+    fv, gv, jv, pv, m, _ = solver._normalize_problem(
+        *bound, torch.zeros(n, dtype=F64)
+    )
+    step = solver._make_step(
+        fv, gv, jv, pv, m, tol=1e-8, tol_internal=1e-12,
+        max_iter_internal=100000, warm_start=False, nesterov=True,
+        nesterov_ratio=(0, 0.25), deprecated=False,
+    )
+    return step, fv, gv
+
+
+@pytest.mark.parametrize("k", [1, 5, 37])
+def test_one_port_step_continues_a_jax_state(k):
+    A, b, lr = _lasso(5)
+    n = A.shape[1]
+    x0 = np.zeros(n)
+    prob = jl.Lasso(A, b, 0.05)
+    sk = _quiet(prob.solve_fixed_step, x0, lr=lr, tol=1e-8, max_iter=k).state
+    sk1 = _quiet(prob.solve_fixed_step, x0, lr=lr, tol=1e-8, max_iter=k + 1).state
+    state = interop.state_from_numpy(sk)
+    back = interop.state_to_numpy(state)
+    for a, c in zip(back, sk):
+        assert np.array_equal(a, np.asarray(c)) and a.dtype == np.asarray(c).dtype
+
+    step, fv, gv = _port_step(A, b, 0.05, n)
+    new = step(state)
+    new = new._replace(F_x=fv(new.x) + gv(new.x))  # JAX recomputes F at the end
+    for name, got, ref in zip(solver.State._fields, interop.state_to_numpy(new), sk1):
+        np.testing.assert_allclose(
+            got, np.asarray(ref), rtol=1e-12, atol=1e-12, err_msg=name
+        )
+        assert got.dtype == np.asarray(ref).dtype, name
+
+
+@pytest.mark.parametrize("stop", ["converged", "max_iter"])
+def test_check_every_chunks_are_bitwise(stop):
+    A, b, lr = _lasso(6)
+    x0 = np.zeros(A.shape[1])
+    if stop == "converged":
+        kw = dict(lr=lr, tol=1e-8)
+    else:
+        kw = dict(lr=lr, tol=0, max_iter=101)
+    runs = {
+        ce: _quiet(Lasso(A, b, 0.05).solve_fixed_step, x0, check_every=ce, **kw)
+        for ce in (1, 7, 64)
+    }
+    ref = runs[1]
+    assert ref.status == (1 if stop == "converged" else 0)
+    for ce in (7, 64):
+        assert runs[ce].nit == ref.nit
+        for name, a, c in zip(solver.State._fields, ref.state, runs[ce].state):
+            assert np.array_equal(a, c), (ce, name)
+
+
+def _toy(l1_ratio):
+    """tests/test_solver_scalar.py's 1-D LASSO toy, in torch."""
+    A = torch.tensor([[-1.0], [0.0], [1.0]], dtype=F64)
+    b = torch.tensor([-1.0, 0.0, 1.0], dtype=F64)
+
+    def f(x):
+        r = A @ x - b
+        return torch.dot(r, r) / 6
+
+    def g(x):
+        return l1_ratio * torch.sum(torch.abs(x))
+
+    def jac_f(x):
+        return A.T @ (A @ x - b) / 3
+
+    def prox_wsum_g(weight, x):
+        return soft_threshold(x, l1_ratio * weight)
+
+    return f, g, jac_f, prox_wsum_g
+
+
+@pytest.mark.parametrize("autodiff", [False, True])
+def test_fixed_lr_closed_form(autodiff):
+    """decay_rate=1, lr=1/L=1.5: x* = 1 - 3*0.1/2 = 0.85."""
+    f, g, jac_f, prox = _toy(0.1)
+    res = minimize_proximal_gradient(
+        f, g, None if autodiff else jac_f, prox, np.array([0.3]),
+        lr=1.5, decay_rate=1, nesterov=True,
+    )
+    assert res.success and res.status == 1
+    np.testing.assert_array_almost_equal(res.x, [0.85], decimal=3)
+    assert np.ndim(res.fun) == 0  # scalar objective stays scalar
+    for field in ("x", "fun", "success", "status", "message", "nit",
+                  "nit_internal", "time", "weight", "state"):
+        assert field in res, field
+
+
+def test_solver_options_drive_the_facade():
+    f, g, jac_f, prox = _toy(0.1)
+    opts = SolverOptions(lr=1.5, decay_rate=1, nesterov=True, tol=1e-9)
+    res = minimize_proximal_gradient(
+        f, g, jac_f, prox, np.array([0.3]), **opts.kwargs()
+    )
+    np.testing.assert_allclose(res.x, [0.85], atol=1e-8)
+    assert opts.replace(tol=1e-3).tol == 1e-3 and opts.tol == 1e-9
+
+
+def test_lasso_step_goes_through_the_fused_wrapper(monkeypatch):
+    """The params-style Lasso prox reaches fused_prox_momentum; the same
+    problem through the Lasso methods composes prox and momentum.  On the
+    CPU both are the same arithmetic, so the results are bitwise equal."""
+    calls = []
+    real = solver.fused_prox_momentum
+
+    def counting(*args):
+        calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(solver, "fused_prox_momentum", counting)
+    A, b, lr = _lasso(7)
+    x0 = np.zeros(A.shape[1])
+    prob = Lasso(A, b, 0.05)
+    fused_res = prob.solve_fixed_step(x0, lr=lr, tol=1e-8)
+    assert len(calls) == fused_res.nit
+    calls.clear()
+    composed = minimize_proximal_gradient(
+        prob.f, prob.g, prob.jac_f, prob.prox_wsum_g,
+        torch.zeros(A.shape[1], dtype=F64),
+        lr=lr, tol=1e-8, decay_rate=1, nesterov=True,
+    )
+    assert calls == []
+    assert composed.nit == fused_res.nit
+    assert np.array_equal(composed.x, fused_res.x)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"decay_rate": 0.5},
+        {"return_all": True},
+        {"verbose": True},
+        {"iter_chunk": 10},
+        {"initial_state": "state"},
+        {"adaptive_restart": True},
+        {"project_momentum": True},
+        {"tol_internal_rel": 1e-6},
+    ],
+    ids=lambda kw: next(iter(kw)),
+)
+def test_unported_options_raise(kwargs):
+    f, g, jac_f, prox = _toy(0.1)
+    base = dict(lr=1.5, decay_rate=1, nesterov=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        minimize_proximal_gradient(
+            f, g, jac_f, prox, np.array([0.3]), **{**base, **kwargs}
+        )
+
+
+def test_multiobjective_raises():
+    def f(x):
+        return torch.stack([x[0] ** 2, (x[0] - 1) ** 2])
+
+    def g(x):
+        return torch.zeros(2, dtype=x.dtype)
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        minimize_proximal_gradient(
+            f, g, None, lambda w, x: x, np.array([0.3]), lr=0.1, decay_rate=1
+        )
+
+
+def test_invalid_arguments_raise():
+    f, g, jac_f, prox = _toy(0.1)
+    with pytest.raises(ValueError, match="check_every"):
+        minimize_proximal_gradient(
+            f, g, jac_f, prox, np.array([0.3]), decay_rate=1, check_every=0
+        )
+    with pytest.raises(ValueError, match="tol_rel"):
+        minimize_proximal_gradient(
+            f, g, jac_f, prox, np.array([0.3]), decay_rate=1, tol_rel=-1
+        )
+
+
+def test_jax_and_port_states_share_a_layout():
+    """interop relies on the two State types listing the same 12 fields."""
+    from zfista_tpu.core.solver import State as JaxState
+
+    assert solver.State._fields == JaxState._fields
+    assert len(solver.State._fields) == 12
+    # A port State converted to numpy rebuilds a JAX State directly.
+    A, b, lr = _lasso(8)
+    res = Lasso(A, b, 0.05).solve_fixed_step(np.zeros(A.shape[1]), lr=lr, tol=1e-6)
+    js = JaxState(*(jnp.asarray(v) for v in res.state))
+    assert int(js.nit) == res.nit

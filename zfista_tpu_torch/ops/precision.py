@@ -1,0 +1,45 @@
+"""Full-precision product helpers — the precision policy, in one place.
+
+PyTorch-port counterpart of :mod:`zfista_tpu.ops.precision`.  The JAX
+package runs every product that feeds an iterate, a gradient or a
+convergence decision at ``lax.Precision.HIGHEST``: reduced-precision
+products floor the solver's ``||x - y||_inf`` criterion at ~1e-3, so
+nothing converges and nothing reports an error.  On a CUDA card the same
+trap is TF32: a float32 ``torch.matmul`` keeps ~3 decimal digits when
+``torch.backends.cuda.matmul.allow_tf32`` is on or the float32 matmul
+precision is not ``"highest"``.
+
+These helpers run ``torch.matmul`` / ``torch.dot`` in full precision and
+RAISE when either global flag asks for less.  They never flip the flags
+themselves: the flags are process-wide, and a library that changes them
+changes every other caller's numbers too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _require_full_fp32() -> None:
+    if (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "zfista_tpu_torch needs full-fp32 matrix products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest') (TF32 products "
+            "floor the solver's convergence test at ~1e-3)"
+        )
+
+
+def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` in full precision (matrix-vector / matrix-matrix)."""
+    _require_full_fp32()
+    return torch.matmul(a, b)
+
+
+def dot_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.dot`` in full precision (vector-vector)."""
+    _require_full_fp32()
+    return torch.dot(a, b)
