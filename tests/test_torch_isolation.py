@@ -28,6 +28,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import zfista_tpu_torch, zfista_tpu_torch.models, zfista_tpu_torch.interop\n"
         "import zfista_tpu_torch.ops.fused, zfista_tpu_torch.ops._build\n"
+        "import zfista_tpu_torch.ops.tv, zfista_tpu_torch.ops.tv_cuda\n"
+        "import zfista_tpu_torch.models.deblur\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
         "print(bad)\n"

@@ -190,33 +190,48 @@ def _active(state: State, max_iter: int) -> Array:
     return ~(state.converged | state.failed) & (state.nit < max_iter)
 
 
-def make_while_driver(
-    step: Callable[[State], State], max_iter: int, check_every: int = 1
-) -> Callable[[State], State]:
-    """Run ``step`` until the state is inactive, reading the device's
-    convergence flag on the host once every ``check_every`` steps.
+def run_masked(
+    step: Callable[[Any], Any],
+    carry: Any,
+    active: Callable[[Any], Array],
+    check_every: int,
+) -> Any:
+    """Advance the NamedTuple ``carry`` by ``step`` while ``active``,
+    reading the device's flag on the host once every ``check_every``
+    steps.
 
     Inside a chunk each step is masked (one ``torch.where`` per field): a
-    state that converged, failed or hit ``max_iter`` mid-chunk stays frozen,
-    so the result is BITWISE IDENTICAL to ``check_every=1``, ``nit``
-    included.  The chunk enqueues its steps without waiting for the device,
+    carry that stopped mid-chunk stays frozen, so the result is BITWISE
+    IDENTICAL to ``check_every=1``, step count included.  The mask
+    SELECTS, never multiplies: a frozen step still runs (a prox call, for
+    instance), and whatever it computes, NaN included, never reaches the
+    carry.  The chunk enqueues its steps without waiting for the device,
     which is what the chunking buys on a CUDA card.
     """
 
-    def masked_step(state: State) -> State:
-        active = _active(state, max_iter)
-        new = step(state)
-        return State(*(torch.where(active, n, o) for n, o in zip(new, state)))
+    def masked_step(c: Any) -> Any:
+        a = active(c)
+        new = step(c)
+        return type(c)(*(torch.where(a, n, o) for n, o in zip(new, c)))
 
-    # A chunk is entered only from an active state, where the mask is the
+    # A chunk is entered only from an active carry, where the mask is the
     # identity: with one step per chunk it is left out.
     body = step if check_every == 1 else masked_step
+    while bool(active(carry)):  # the one host read per chunk
+        for _ in range(check_every):
+            carry = body(carry)
+    return carry
+
+
+def make_while_driver(
+    step: Callable[[State], State], max_iter: int, check_every: int = 1
+) -> Callable[[State], State]:
+    """Run ``step`` until the state is inactive (converged, failed or at
+    ``max_iter``), reading the convergence flag on the host once every
+    ``check_every`` steps (:func:`run_masked`)."""
 
     def run(state: State) -> State:
-        while bool(_active(state, max_iter)):  # the one host read per chunk
-            for _ in range(check_every):
-                state = body(state)
-        return state
+        return run_masked(step, state, lambda s: _active(s, max_iter), check_every)
 
     return run
 

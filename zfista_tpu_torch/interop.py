@@ -1,10 +1,11 @@
 """Carry problem data and solver state across from the JAX package.
 
-The JAX package's LASSO params tuple and its solver ``State`` are numpy
-arrays once fetched from the device (``jax.device_get``, or ``res.state``
-of a solve).  These functions turn them into the port's tensors on an
-explicit device and back, so a solve or a single step can be continued in
-the port from where the JAX package left it.  Nothing here imports JAX.
+The JAX package's LASSO and TV-deblur params tuples, its TV dual fields
+and its solver ``State`` are numpy arrays once fetched from the device
+(``jax.device_get``, or ``res.state`` of a solve).  These functions turn
+them into the port's tensors on an explicit device and back, so a solve,
+a single step or a warm-started TV prox can be continued in the port from
+where the JAX package left it.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +17,13 @@ import torch
 
 from zfista_tpu_torch.core.solver import State, state_to_numpy
 
-__all__ = ["lasso_params_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = [
+    "dual_from_numpy",
+    "lasso_params_from_numpy",
+    "state_from_numpy",
+    "state_to_numpy",
+    "tv_deblur_params_from_numpy",
+]
 
 
 def lasso_params_from_numpy(
@@ -48,4 +55,36 @@ def state_from_numpy(state: Any, *, device: Any = "cpu") -> State:
             torch.tensor(np.asarray(getattr(state, name)), device=device)
             for name in State._fields
         )
+    )
+
+
+def tv_deblur_params_from_numpy(
+    b: Any, *operands: Any, device: Any = "cpu", dtype: torch.dtype | None = None
+) -> tuple[torch.Tensor, ...]:
+    """The port's ``TVDeblur`` params tuple on ``device``: ``(b, Gr, Gc,
+    lam)`` for a separable blur or ``(b, K, lam)`` for a correlation
+    kernel, the layout of the JAX ``TVDeblur._params`` and of the
+    callables of :mod:`zfista_tpu_torch.models.deblur`.  ``dtype`` defaults
+    to ``b``'s.  The arrays are copied."""
+    if len(operands) not in (2, 3):
+        raise ValueError(
+            "expected (b, Gr, Gc, lam) or (b, K, lam); got b and "
+            f"{len(operands)} more"
+        )
+    b_t = torch.tensor(np.asarray(b), dtype=dtype, device=device)
+    return (b_t,) + tuple(
+        torch.tensor(np.asarray(v), dtype=b_t.dtype, device=device)
+        for v in operands
+    )
+
+
+def dual_from_numpy(
+    p: Any, q: Any, *, device: Any = "cpu"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A TV dual field ``(p, q)`` (e.g. the JAX ``prox_tv(...,
+    return_dual=True)`` one) as tensors on ``device``, for
+    ``prox_tv(..., dual0=...)``.  Dtypes kept, data copied."""
+    return (
+        torch.tensor(np.asarray(p), device=device),
+        torch.tensor(np.asarray(q), device=device),
     )

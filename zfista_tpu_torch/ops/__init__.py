@@ -1,4 +1,4 @@
-"""Proximal operators and the fused CUDA kernel (PyTorch port)."""
+"""Proximal operators, the TV prox and the CUDA kernels (PyTorch port)."""
 
 from zfista_tpu_torch.ops.fused import (
     fista_step_dense_fused,
@@ -6,6 +6,7 @@ from zfista_tpu_torch.ops.fused import (
     fused_prox_momentum_plain,
 )
 from zfista_tpu_torch.ops.prox import prox_l1, soft_threshold
+from zfista_tpu_torch.ops.tv import prox_tv, tv2d, tv_dual_gap
 
 __all__ = [
     "soft_threshold",
@@ -13,4 +14,7 @@ __all__ = [
     "fused_prox_momentum",
     "fused_prox_momentum_plain",
     "fista_step_dense_fused",
+    "prox_tv",
+    "tv2d",
+    "tv_dual_gap",
 ]

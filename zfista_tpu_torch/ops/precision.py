@@ -9,8 +9,8 @@ trap is TF32: a float32 ``torch.matmul`` keeps ~3 decimal digits when
 ``torch.backends.cuda.matmul.allow_tf32`` is on or the float32 matmul
 precision is not ``"highest"``.
 
-These helpers run ``torch.matmul`` / ``torch.dot`` in full precision and
-RAISE when either global flag asks for less.  They never flip the flags
+These helpers run ``torch.matmul`` / ``torch.dot`` / ``conv2d`` in full
+precision and RAISE when a global flag asks for less.  They never flip the flags
 themselves: the flags are process-wide, and a library that changes them
 changes every other caller's numbers too.
 """
@@ -43,3 +43,18 @@ def dot_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.dot`` in full precision (vector-vector)."""
     _require_full_fp32()
     return torch.dot(a, b)
+
+
+def conv2d_hp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.functional.conv2d`` (a correlation, unpadded) in full
+    precision.  A float32 convolution on a card goes through cuDNN, which
+    uses TF32 while ``torch.backends.cudnn.allow_tf32`` is on (its
+    default), so a float32 CUDA call raises unless it is off.  TF32 never
+    touches float64."""
+    if x.is_cuda and x.dtype == torch.float32 and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError(
+            "zfista_tpu_torch needs full-fp32 convolutions: set "
+            "torch.backends.cudnn.allow_tf32 = False (TF32 convolutions "
+            "floor the solver's convergence test at ~1e-3)"
+        )
+    return torch.nn.functional.conv2d(x, w)
