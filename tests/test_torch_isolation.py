@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch, zfista_tpu_torch.models, zfista_tpu_torch.interop\n"
         "import zfista_tpu_torch.ops.fused, zfista_tpu_torch.ops._build\n"
         "import zfista_tpu_torch.ops.tv, zfista_tpu_torch.ops.tv_cuda\n"
-        "import zfista_tpu_torch.models.deblur\n"
+        "import zfista_tpu_torch.models.deblur, zfista_tpu_torch.models.zoo\n"
+        "import zfista_tpu_torch.core.subproblem, zfista_tpu_torch.ops.prox\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
         "print(bad)\n"

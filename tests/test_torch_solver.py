@@ -2,8 +2,9 @@
 
 The slice end to end (``Lasso.solve_fixed_step``), one step continued from
 a JAX ``State`` carried across with ``interop``, ``check_every`` chunking
-(bitwise within the port), the closed-form toy of
-tests/test_solver_scalar.py, and the options this slice does not port.
+(bitwise within the port), and the closed-form toy of
+tests/test_solver_scalar.py.  The backtracking and multiobjective options
+are in tests/test_torch_multi.py.
 """
 
 import warnings
@@ -79,8 +80,9 @@ def _port_step(A, b, lam, n):
     )
     step = solver._make_step(
         fv, gv, jv, pv, m, tol=1e-8, tol_internal=1e-12,
-        max_iter_internal=100000, warm_start=False, nesterov=True,
-        nesterov_ratio=(0, 0.25), deprecated=False,
+        max_iter_internal=100000, max_backtrack_iter=100, warm_start=False,
+        decay_rate=1, nesterov=True, nesterov_ratio=(0, 0.25),
+        deprecated=False, track_objective=False,
     )
     return step, fv, gv
 
@@ -201,42 +203,6 @@ def test_lasso_step_goes_through_the_fused_wrapper(monkeypatch):
     assert calls == []
     assert composed.nit == fused_res.nit
     assert np.array_equal(composed.x, fused_res.x)
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"decay_rate": 0.5},
-        {"return_all": True},
-        {"verbose": True},
-        {"iter_chunk": 10},
-        {"initial_state": "state"},
-        {"adaptive_restart": True},
-        {"project_momentum": True},
-        {"tol_internal_rel": 1e-6},
-    ],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_unported_options_raise(kwargs):
-    f, g, jac_f, prox = _toy(0.1)
-    base = dict(lr=1.5, decay_rate=1, nesterov=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        minimize_proximal_gradient(
-            f, g, jac_f, prox, np.array([0.3]), **{**base, **kwargs}
-        )
-
-
-def test_multiobjective_raises():
-    def f(x):
-        return torch.stack([x[0] ** 2, (x[0] - 1) ** 2])
-
-    def g(x):
-        return torch.zeros(2, dtype=x.dtype)
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        minimize_proximal_gradient(
-            f, g, None, lambda w, x: x, np.array([0.3]), lr=0.1, decay_rate=1
-        )
 
 
 def test_invalid_arguments_raise():

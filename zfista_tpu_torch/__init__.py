@@ -5,9 +5,14 @@ factor) in eager PyTorch, with the hot elementwise chain of dense LASSO as
 a hand-written CUDA kernel for Hopper.  The JAX package :mod:`zfista_tpu`
 is the reference; this package never imports JAX.
 
-Ported so far: single-objective fixed-step solves
-(``minimize_proximal_gradient`` with ``decay_rate=1``) and
-:class:`zfista_tpu_torch.models.Lasso`.  See ROADMAP.md for the rest.
+Ported so far: the single solve (``minimize_proximal_gradient``: one or
+many objectives, fixed step or backtracking, every momentum option,
+history, trace, host chunking and resume), the prox library
+(:mod:`zfista_tpu_torch.ops.prox`), the problem zoo and
+:class:`~zfista_tpu_torch.models.Lasso` (:mod:`zfista_tpu_torch.models`),
+TV-regularized deblurring (:class:`~zfista_tpu_torch.models.TVDeblur`,
+:func:`~zfista_tpu_torch.ops.prox_tv`), and the CUDA kernels of the LASSO
+step and the TV prox.  The batch solver is next; see ROADMAP.md.
 """
 
 from zfista_tpu_torch.core.options import SolverOptions

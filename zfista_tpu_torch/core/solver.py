@@ -1,29 +1,37 @@
 r"""ISTA/FISTA with the generalized momentum factor, in eager PyTorch.
 
 PyTorch-port counterpart of :mod:`zfista_tpu.core.solver`: the outer
-iteration — subproblem, convergence check on
-:math:`\|x^k - y^k\|_\infty`, and the generalized momentum rule
+iteration — backtracking line search, (multiobjective) subproblem,
+convergence check on :math:`\|x^k - y^k\|_\infty`, and the generalized
+momentum rule
 
 .. math::
 
     t_{k+1} = \sqrt{t_k^2 - a\,t_k + b} + \tfrac12,\qquad
     y^{k+1} = x^k + \frac{t_k - 1}{t_{k+1}} (x^k - x^{k-1}).
 
-This slice ports the scalar fixed-step half: one objective (``m == 1``),
-``decay_rate == 1`` (the single closed-form prox step, accepted
-unconditionally), no history.  Every option outside it raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Where the JAX package compiles the whole solve into one XLA program, the
+port runs the same step eagerly: a :class:`State` of tensors on the
+solve's device advanced by a Python function.  Data-dependent loops need a
+host decision here:
 
-Where the JAX package compiles the whole solve into one ``lax.while_loop``,
-the port runs the same step eagerly: a :class:`State` of device tensors
-advanced by a Python function.  The device is never read inside a chunk of
-``check_every`` steps; the host reads the convergence flag once per chunk.
-Every step a run takes is computed from the same inputs in the same order,
-so any ``check_every`` gives a result bitwise equal to ``check_every=1``.
+* the backtracking line search is a host loop, one host read per trial
+  (its accept test);
+* the m>=3 dual's Newton loop and arc search are host loops
+  (:mod:`zfista_tpu_torch.core.subproblem`); the m=2 bisection reads
+  nothing;
+* the drivers read the state's ``active`` flag once per ``check_every``
+  steps (the while driver), once per step (the history driver) or once
+  per ``iter_chunk`` steps (the chunk driver, from the host copy it keeps).
+
+The fixed-step, single-objective step reads nothing at all.  Every step a
+run takes is computed from the same inputs in the same order, so any
+``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
+bitwise equal to the uninterrupted ``check_every=1`` solve.
 
 On dense LASSO (:meth:`zfista_tpu_torch.models.Lasso.solve_fixed_step`)
-the step runs the soft-threshold prox and the momentum extrapolation as
-one launch of the fused CUDA kernel
+the fixed-step step runs the soft-threshold prox and the momentum
+extrapolation as one launch of the fused CUDA kernel
 (:func:`zfista_tpu_torch.ops.fused.fused_prox_momentum`).
 """
 
@@ -40,16 +48,17 @@ from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.result import TERMINATION_MESSAGES, SolveResult
 from zfista_tpu_torch.core.subproblem import make_subproblem_solver
 from zfista_tpu_torch.ops.fused import fused_prox_momentum
+from zfista_tpu_torch.ops.precision import dot_hp
 
 # Private seam between the LASSO params callables and the step.  A
 # params-style prox ``prox(w, x, p)`` carrying ``_SOFT_THRESHOLD_LAM_OF``
 # computes ``soft_threshold(x, w * lam_of(p))``; once bound to its params
-# (and normalized) it carries ``_SOFT_THRESHOLD_LAM = lam``.  The fixed-lr
-# nesterov step then computes the prox and the extrapolation with one
-# fused kernel launch instead of composing them.
+# (and normalized, with one objective) it carries ``_SOFT_THRESHOLD_LAM =
+# lam``.  The fixed-lr nesterov step of a single-objective solve that
+# skips ``F`` then computes the prox and the extrapolation with one fused
+# kernel launch instead of composing them.
 _SOFT_THRESHOLD_LAM_OF = "_soft_threshold_lam_of"
 _SOFT_THRESHOLD_LAM = "_soft_threshold_lam"
-
 
 def _copy_soft_threshold_mark(src: Any, dst: Any) -> Any:
     lam = getattr(src, _SOFT_THRESHOLD_LAM, None)
@@ -76,6 +85,19 @@ class State(NamedTuple):
     failed: Array  # 0-d bool (line search exhausted)
 
 
+class _LS(NamedTuple):
+    """A line search's outcome.  ``done`` is on the host: the search's own
+    reads decided it."""
+
+    lr: Array
+    done: bool
+    x: Array
+    F_x: Array
+    w: Array
+    sub_fun: Array
+    nits: int | Array
+
+
 def _make_step(
     f: Callable[[Array], Array],
     g: Callable[[Array], Array],
@@ -86,81 +108,190 @@ def _make_step(
     tol: float,
     tol_rel: float = 0.0,
     tol_internal: float,
+    tol_internal_rel: float = 0.0,
     max_iter_internal: int,
+    max_backtrack_iter: int,
     warm_start: bool,
+    decay_rate: float,
     nesterov: bool,
     nesterov_ratio: tuple[float, float],
     deprecated: bool,
+    verbose: bool = False,
+    adaptive_restart: bool = False,
+    project_momentum: bool = False,
+    track_objective: bool = True,
+    max_iter: int | None = None,
 ) -> Callable[[State], State]:
-    """Build the fixed-lr (``decay_rate == 1``) outer-iteration step.
+    """Build the outer-iteration step, as the JAX ``_make_step`` (all
+    options fixed at build time).
 
-    This is the JAX step with ``track_objective=False``: nothing in the
-    scalar fixed-lr iteration reads ``F``, so the step never evaluates
-    ``f`` or ``g``.  The carried ``F_x`` goes stale and the facade
-    recomputes it once at the end.  The single subproblem solve is always
-    accepted, so the JAX step's failure select is the identity and is
-    left out; ``failed`` stays False.
+    ``track_objective=False`` (legal only for single-objective fixed-step
+    solves with no history or verbose consumer) skips ``F(x) = f(x) +
+    g(x)``: nothing in that iteration reads ``F``, so the carried ``F_x``
+    goes stale and the facade recomputes it once at the end.  The
+    trajectory is bitwise the same.
     """
+    m = n_objectives
     solve_sub = make_subproblem_solver(
         g,
         prox_wsum_g,
-        n_objectives,
+        m,
         tol=tol_internal,
         max_iter=max_iter_internal,
         deprecated=deprecated,
     )
+    fixed_lr = decay_rate == 1
     a, b = nesterov_ratio
     lam = getattr(prox_wsum_g, _SOFT_THRESHOLD_LAM, None)
-    fused = nesterov and lam is not None
+    fused = (
+        fixed_lr
+        and m == 1
+        and not track_objective
+        and nesterov
+        and lam is not None
+        and not adaptive_restart
+        and not project_momentum
+    )
+    # The only step that needs no f(y): the closed-form fixed-lr m == 1
+    # step that skips the model value.
+    need_f_y = not (fixed_lr and m == 1 and not track_objective)
+
+    def trial(state: State, lr: Array, w: Array, f_y, jac_y):
+        sub = solve_sub(lr, state.F_x, state.y, f_y, jac_y, w)
+        f_t = f(sub.x)
+        return sub, f_t, f_t + g(sub.x)
+
+    def accept_test(state: State, f_y, f_t, F_t, sub_fun) -> Array:
+        slack = sub_fun + tol_internal
+        if tol_internal_rel:
+            # Opt-in slack proportional to the comparison's own magnitude
+            # (default 0: the reference accept test, bitwise).
+            ref = f_y if deprecated else state.F_x
+            slack = slack + tol_internal_rel * torch.abs(ref)
+        lhs = f_t - f_y if deprecated else F_t - state.F_x
+        # NaN-safe: comparisons with NaN are False => reject.
+        return torch.all(lhs <= slack)
+
+    def line_search(state: State, f_y, jac_y) -> _LS:
+        if fixed_lr:
+            # decay_rate == 1: a single subproblem solve, accepted
+            # unconditionally.
+            if track_objective:
+                sub, _, F_t = trial(state, state.lr, state.w, f_y, jac_y)
+                sub_fun = sub.fun
+            else:
+                sub = solve_sub(state.lr, state.F_x, state.y, f_y, jac_y, state.w)
+                F_t, sub_fun = state.F_x, state.sub_fun  # stale, never read
+            w = sub.weight if warm_start else state.w
+            return _LS(state.lr, True, sub.x, F_t, w, sub_fun, sub.nit)
+
+        lr, w, nits = state.lr, state.w, 0
+        x, F_t, sub_fun = state.x, state.F_x, torch.zeros_like(state.t)
+        for _ in range(max_backtrack_iter):
+            sub, f_t, F_t = trial(state, lr, w, f_y, jac_y)
+            ok = accept_test(state, f_y, f_t, F_t, sub.fun)
+            w = sub.weight if warm_start else w
+            x, sub_fun, nits = sub.x, sub.fun, nits + sub.nit
+            if bool(ok):  # the one host read per trial
+                return _LS(lr, True, x, F_t, w, sub_fun, nits)
+            lr = lr * decay_rate
+        return _LS(lr, False, x, F_t, w, sub_fun, nits)
 
     def step(state: State) -> State:
-        grad = jac_f(state.y)[0]
-        if nesterov:
+        dev = state.x.device
+        f_y = f(state.y) if need_f_y else None
+        jac_y = jac_f(state.y)
+
+        if fused:
             t_k = state.t
             t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
             gamma = (t_k - 1) / t_new
-        if fused:
             # x = soft(y - lr*grad, lr*lam): the closed-form subproblem at
             # the prox weight lr, with the extrapolation in the same pass.
             x, y_new = fused_prox_momentum(
-                state.y, grad, state.x, state.lr, state.lr * lam, gamma
+                state.y, jac_y[0], state.x, state.lr, state.lr * lam, gamma
             )
             w = torch.ones_like(state.w) if warm_start else state.w
+            ls = _LS(state.lr, True, x, state.F_x, w, state.sub_fun, 1)
         else:
-            sub = solve_sub(
-                state.lr, state.F_x, state.y, None, grad[None], state.w
-            )
-            x = sub.x
-            w = sub.weight if warm_start else state.w
-            if nesterov:
-                y_new = x + gamma * (x - state.x)
-            else:
-                t_new = state.t
-                y_new = x
+            ls = line_search(state, f_y, jac_y)
 
-        err = torch.amax(torch.abs(x - state.y))
+        err = torch.amax(torch.abs(ls.x - state.y))
         if tol_rel:
-            converged_now = err < tol + tol_rel * torch.amax(torch.abs(x))
+            # Opt-in iterate-scaled criterion: ||x - y||_inf < tol +
+            # tol_rel * ||x||_inf (0 compiles to the reference test).
+            converged_now = err < tol + tol_rel * torch.amax(torch.abs(ls.x))
         else:
             converged_now = err < tol
-        # Converged step: keep the old y/t (the JAX step's freeze).  The
-        # kernel wrote y_new into a fresh tensor, so state.y is intact.
+        nit_internal = state.nit_internal + ls.nits
+
+        if not ls.done:
+            # Line search exhausted: freeze at the last accepted point; nit
+            # does not advance, the inner iterations spent still count.
+            if verbose:
+                _print_row(state, max_iter, state.nit, nit_internal, err, ls)
+            return state._replace(
+                nit_internal=nit_internal,
+                converged=torch.zeros((), dtype=torch.bool, device=dev),
+                failed=torch.ones((), dtype=torch.bool, device=dev),
+            )
+
+        if fused:
+            pass  # t_new and y_new came with the kernel's x
+        elif nesterov:
+            t_k = state.t
+            if adaptive_restart:
+                # O'Donoghue & Candes gradient-scheme restart: reset the
+                # momentum when the step opposes the previous direction.
+                osc = dot_hp(state.y - ls.x, ls.x - state.x) > 0
+                t_k = torch.where(osc, torch.ones_like(t_k), t_k)
+            t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
+            gamma = (t_k - 1) / t_new
+            y_new = ls.x + gamma * (ls.x - state.x)
+            if project_momentum:
+                # Feasible extrapolation: y through the zero-weight prox
+                # (for a box-constrained problem, the box projection).
+                y_new = prox_wsum_g(
+                    torch.zeros((m,), dtype=y_new.dtype, device=dev), y_new
+                )
+        else:
+            t_new = state.t
+            y_new = ls.x
+
+        nit_new = state.nit + 1
+        if verbose:
+            _print_row(state, max_iter, nit_new, nit_internal, err, ls)
+        # Converged step: keep the old y/t (the JAX step's freeze).
         return State(
-            x=x,
+            x=ls.x,
             y=torch.where(converged_now, state.y, y_new),
-            F_x=state.F_x,
-            lr=state.lr,
+            F_x=ls.F_x,
+            lr=ls.lr,
             t=torch.where(converged_now, state.t, t_new),
-            w=w,
+            w=ls.w,
             err=err,
-            sub_fun=state.sub_fun,
-            nit=state.nit + 1,
-            nit_internal=state.nit_internal + 1,
+            sub_fun=ls.sub_fun,
+            nit=nit_new,
+            nit_internal=nit_internal,
             converged=converged_now,
             failed=state.failed,
         )
 
     return step
+
+
+def _print_row(state: State, max_iter, nit, nit_internal, err, ls: _LS) -> None:
+    """One verbose row (the JAX step's five columns), or none when the
+    step ran on a frozen state (a masked chunk's discarded step)."""
+    frozen = bool(state.converged | state.failed) or (
+        max_iter is not None and int(state.nit) >= max_iter
+    )
+    if not frozen:
+        print(
+            f"|{int(nit):>6}|{int(nit_internal):>8}|{float(err):>+13.4e}"
+            f"|{float(ls.sub_fun):>+13.4e}|{float(ls.lr):>10.2e}|",
+            flush=True,
+        )
 
 
 def init_state(x0: Array, F0: Array, n_objectives: int, lr: Array) -> State:
@@ -190,6 +321,20 @@ def _active(state: State, max_iter: int) -> Array:
     return ~(state.converged | state.failed) & (state.nit < max_iter)
 
 
+def _masked(step: Callable[[Any], Any], active: Callable[[Any], Array]):
+    """``step`` with its result selected against the input where the input
+    is not ``active`` (one ``torch.where`` per field).  The mask SELECTS,
+    never multiplies: a frozen step still runs, and whatever it computes,
+    NaN included, never reaches the carry."""
+
+    def masked_step(c: Any) -> Any:
+        a = active(c)
+        new = step(c)
+        return type(c)(*(torch.where(a, n, o) for n, o in zip(new, c)))
+
+    return masked_step
+
+
 def run_masked(
     step: Callable[[Any], Any],
     carry: Any,
@@ -200,23 +345,15 @@ def run_masked(
     reading the device's flag on the host once every ``check_every``
     steps.
 
-    Inside a chunk each step is masked (one ``torch.where`` per field): a
-    carry that stopped mid-chunk stays frozen, so the result is BITWISE
-    IDENTICAL to ``check_every=1``, step count included.  The mask
-    SELECTS, never multiplies: a frozen step still runs (a prox call, for
-    instance), and whatever it computes, NaN included, never reaches the
-    carry.  The chunk enqueues its steps without waiting for the device,
-    which is what the chunking buys on a CUDA card.
+    Inside a chunk each step is masked (:func:`_masked`): a carry that
+    stopped mid-chunk stays frozen, so the result is BITWISE IDENTICAL to
+    ``check_every=1``, step count included.  The chunk enqueues its steps
+    without waiting for the device, which is what the chunking buys on a
+    CUDA card.
     """
-
-    def masked_step(c: Any) -> Any:
-        a = active(c)
-        new = step(c)
-        return type(c)(*(torch.where(a, n, o) for n, o in zip(new, c)))
-
     # A chunk is entered only from an active carry, where the mask is the
     # identity: with one step per chunk it is left out.
-    body = step if check_every == 1 else masked_step
+    body = step if check_every == 1 else _masked(step, active)
     while bool(active(carry)):  # the one host read per chunk
         for _ in range(check_every):
             carry = body(carry)
@@ -234,6 +371,35 @@ def make_while_driver(
         return run_masked(step, state, lambda s: _active(s, max_iter), check_every)
 
     return run
+
+
+def _run_history(step, state: State, max_iter: int, chunk: int):
+    """The history driver: step while active, recording ``(x, F_x, err)``
+    of every step that ran and did not fail the line search.
+
+    The JAX scan driver runs whole chunks of masked steps; here the host
+    reads ``active`` before every step instead, so a frozen state is never
+    stepped (each frozen backtracking step would re-run its line search).
+    The steps recorded, and the final state, are the same.  Records are
+    copied to the host once per ``chunk`` steps, as numpy rows.
+    """
+    xs, fs, errs, pending = [], [], [], []
+
+    def flush():
+        if pending:
+            x, F, e, rec = (torch.stack(v).cpu().numpy() for v in zip(*pending))
+            xs.extend(x[rec])
+            fs.extend(F[rec])
+            errs.extend(e[rec])
+            pending.clear()
+
+    while bool(_active(state, max_iter)):
+        state = step(state)
+        pending.append((state.x, state.F_x, state.err, ~state.failed))
+        if len(pending) >= chunk:
+            flush()
+    flush()
+    return state, xs, fs, errs
 
 
 def _bind_params(
@@ -266,7 +432,8 @@ def _normalize_problem(
     prox(w_vec, x). Returns (f, g, jac, prox, m, scalar_mode).
 
     One eager call of ``f`` at ``x0`` gives the output shape (the JAX
-    version traces ``jax.eval_shape``)."""
+    version traces ``jax.eval_shape``).  The fused-step mark is carried
+    over to a single-objective prox only."""
     out = f(x0)
     scalar_mode = out.dim() == 0
     if scalar_mode:
@@ -292,7 +459,8 @@ def _normalize_problem(
             prox_v = lambda w, x: prox_wsum_g(w[0], x)
         else:
             prox_v = prox_wsum_g
-    prox_v = _copy_soft_threshold_mark(prox_wsum_g, prox_v)
+    if m == 1:
+        prox_v = _copy_soft_threshold_mark(prox_wsum_g, prox_v)
     return f_v, g_v, jac_v, prox_v, m, scalar_mode
 
 
@@ -305,6 +473,12 @@ def _solve_device(x0: Any, params: Any) -> torch.device:
         if isinstance(leaf, torch.Tensor):
             return leaf.device
     return torch.device("cpu")
+
+
+def _to_device(v: Any, dev: torch.device) -> Array:
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    return torch.tensor(np.asarray(v), device=dev)
 
 
 def minimize_proximal_gradient(
@@ -336,44 +510,41 @@ def minimize_proximal_gradient(
     project_momentum: bool = False,
     params: Any = None,
 ) -> SolveResult:
-    r"""Minimize :math:`F(x) = f(x) + g(x)` with one objective, fixed step.
+    r"""Minimize :math:`F(x) = f(x) + g(x)` (scalar- or vector-valued).
 
     The JAX package's facade, with its signature and defaults, over eager
     PyTorch.  ``f``, ``g``, ``jac_f`` and ``prox_wsum_g`` take and return
-    tensors; ``jac_f=None`` derives the gradient with ``torch.func``.
+    tensors; ``jac_f=None`` derives the Jacobian with ``torch.func``.
     ``params`` (optional tuple) is passed as every callable's trailing
     argument.  The solve runs on ``x0``'s device when ``x0`` is a tensor,
-    else on that of the first tensor in ``params``, else on the CPU.
+    else on that of the first tensor in ``params``, else on the CPU; every
+    tensor of the solve stays there.
 
-    Ported: ``decay_rate=1`` (fixed step ``lr``), one objective, ISTA or
-    FISTA (``nesterov``) with any ``nesterov_ratio``, ``tol``/``tol_rel``,
-    ``check_every``.  ``None`` picks 64 for a solve on a CUDA device (one
-    host read of the convergence flag per 64 steps) and 1 elsewhere; every
-    value gives bitwise the same result.  Backtracking (``decay_rate !=
-    1``), several objectives, ``return_all``, ``verbose``, ``iter_chunk``,
-    ``initial_state``, ``adaptive_restart``, ``project_momentum`` and
-    ``tol_internal_rel`` raise ``NotImplementedError``.
+    Options, as in the JAX package: backtracking (``decay_rate < 1``) or a
+    fixed step (``decay_rate == 1``), ``max_backtrack_iter``,
+    ``warm_start``, ISTA or FISTA (``nesterov``) with any
+    ``nesterov_ratio``, ``adaptive_restart``, ``project_momentum``,
+    ``deprecated``, ``tol``/``tol_rel``, ``tol_internal``/
+    ``tol_internal_rel``, ``return_all`` (histories ``allvecs``,
+    ``allfuns``, ``allerrs`` of every step that did not fail its line
+    search, starting at the resume point on a resumed solve), ``verbose``
+    (a five-column row per step), ``initial_state`` (resume from a
+    :class:`State`, tensors or numpy, e.g. ``res.state``; pass the same
+    options), ``check_every`` and ``iter_chunk``.
+
+    ``check_every=None`` picks 64 for a single-objective fixed-step solve
+    on a CUDA device (one host read of the convergence flag per 64 steps)
+    and 1 elsewhere.  ``iter_chunk`` runs at most that many steps between
+    host copies of the state; when the device faults inside a chunk, the
+    solve returns the last chunk's host copy with ``success=False``,
+    status 2 and a "device fault" message, without touching the device
+    again.  Every ``check_every``/``iter_chunk`` gives bitwise the result
+    of ``check_every=1``.
 
     Returns a :class:`SolveResult` with fields
     ``x, fun, success, status, message, nit, nit_internal, time, weight``
     as numpy values, and ``state``, the final :class:`State` as numpy.
     """
-    unported = {
-        "decay_rate != 1 (backtracking line search)": decay_rate != 1,
-        "return_all (history driver)": return_all,
-        "verbose (iteration trace)": verbose,
-        "iter_chunk (host-chunked driver)": iter_chunk is not None,
-        "initial_state (resume)": initial_state is not None,
-        "adaptive_restart": adaptive_restart,
-        "project_momentum": project_momentum,
-        "tol_internal_rel (line-search accept slack)": tol_internal_rel != 0,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to zfista_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 4)"
-            )
     if deprecated:
         warnings.warn(
             "The `deprecated` subproblem condition has no global-convergence "
@@ -386,12 +557,19 @@ def minimize_proximal_gradient(
             raise ValueError(f"check_every must be >= 1, got {check_every}")
     if tol_rel < 0:
         raise ValueError(f"tol_rel must be >= 0, got {tol_rel}")
+    if tol_internal_rel < 0:
+        raise ValueError(f"tol_internal_rel must be >= 0, got {tol_internal_rel}")
+    if iter_chunk is not None and int(iter_chunk) < 1:
+        raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
     start = _time.perf_counter()
 
     dev = _solve_device(x0, params)
     x0 = torch.as_tensor(x0, device=dev)
     if not x0.is_floating_point():
         x0 = x0.to(torch.get_default_dtype())
+    # The host copy of x0 for the result, taken before the device does
+    # any work (a faulted solve must not read the device again).
+    x0_res = x0.detach().cpu().numpy().copy()
     if params is not None:
         f_b, g_b, jac_b, prox_b = _bind_params(f, g, jac_f, prox_wsum_g, params)
     else:
@@ -416,7 +594,21 @@ def minimize_proximal_gradient(
             )
             else 1
         )
+    # Single-objective fixed-step solves with no per-iteration consumer of
+    # F skip the objective in the step and recompute it once at the end.
+    skip_F = decay_rate == 1 and m == 1 and not return_all and not verbose
     max_iter = int(max_iter)
+    if iter_chunk is not None and not return_all:
+        iter_chunk = int(iter_chunk)
+        if check_every > 1 and iter_chunk < max_iter:
+            warnings.warn(
+                "check_every > 1 is ignored when iter_chunk bounds the "
+                "kernel (the host-chunked driver re-dispatches every "
+                "iter_chunk steps).",
+                stacklevel=2,
+            )
+            check_every = 1
+
     step = _make_step(
         f_v,
         g_v,
@@ -426,20 +618,93 @@ def minimize_proximal_gradient(
         tol=tol,
         tol_rel=float(tol_rel),
         tol_internal=tol_internal,
+        tol_internal_rel=float(tol_internal_rel),
         max_iter_internal=int(max_iter_internal),
+        max_backtrack_iter=int(max_backtrack_iter),
         warm_start=warm_start,
+        decay_rate=decay_rate,
         nesterov=nesterov,
         nesterov_ratio=tuple(nesterov_ratio),
         deprecated=deprecated,
+        verbose=verbose,
+        adaptive_restart=bool(adaptive_restart),
+        project_momentum=bool(project_momentum),
+        track_objective=not skip_F,
+        max_iter=max_iter,
     )
-    lr_t = torch.as_tensor(lr, dtype=x0.dtype, device=dev)
-    state = init_state(x0, f_v(x0) + g_v(x0), m, lr_t)
-    state = make_while_driver(step, max_iter, check_every)(state)
-    # The step skips F (see _make_step): recompute it once at the end.
-    state = state._replace(F_x=f_v(state.x) + g_v(state.x))
 
-    host = state_to_numpy(state)
-    x0_res = x0.detach().cpu().numpy().copy()
+    if verbose:
+        hdr = ["niter", "nit int", "max|xk - yk|", "subprob func", "lr"]
+        widths = [6, 8, 13, 13, 10]
+        print("|" + "|".join(h.center(w) for h, w in zip(hdr, widths)) + "|")
+        print("|" + "|".join("-" * w for w in widths) + "|")
+
+    if initial_state is not None:
+        state = State(*(_to_device(v, dev) for v in initial_state))
+    else:
+        lr_t = torch.as_tensor(lr, dtype=x0.dtype, device=dev)
+        state = init_state(x0, f_v(x0) + g_v(x0), m, lr_t)
+
+    device_faulted = False
+    allvecs = allfuns = allerrs = None
+    if return_all:
+        if check_every != 1:
+            warnings.warn(
+                "check_every > 1 is ignored when return_all=True (the "
+                "history driver records every iteration).",
+                stacklevel=2,
+            )
+        chunk = int(history_chunk)
+        if chunk < 1:
+            raise ValueError(f"history_chunk must be >= 1, got {chunk}")
+        if iter_chunk is not None:
+            chunk = min(chunk, int(iter_chunk))
+        # The history head: the resume iterate on a resumed solve, so that
+        # allvecs[k] and allfuns[k] stay paired.
+        head_x = x0_res if initial_state is None else state.x.cpu().numpy()
+        head_F = state.F_x.cpu().numpy()
+        state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
+        allvecs = [head_x] + xs
+        allfuns_arr = [head_F] + fs
+        if scalar_mode:
+            allfuns = [float(v[0]) for v in allfuns_arr]
+        else:
+            allfuns = allfuns_arr
+    elif iter_chunk is not None and iter_chunk < max_iter:
+        # Host-chunked driving: at most iter_chunk masked steps between
+        # host copies of the state.  Frozen steps no-op, so the result is
+        # bitwise the while driver's.  The host copy taken after each good
+        # chunk is the partial result if the device faults in the next.
+        masked = _masked(step, lambda s: _active(s, max_iter))
+        host = state_to_numpy(state)
+        while bool(_active(host, max_iter)):
+            try:
+                for _ in range(iter_chunk):
+                    state = masked(state)
+                host = state_to_numpy(state)
+            except torch.AcceleratorError as exc:  # how CUDA faults surface
+                warnings.warn(
+                    f"device fault after {int(host.nit)} iterations — "
+                    f"returning partial result (success=False). Original "
+                    f"error: {type(exc).__name__}: {str(exc)[:200]}",
+                    stacklevel=2,
+                )
+                # Stay off the device from here on: the partial result is
+                # the host copy.  Under skip_F its F_x was never updated,
+                # so NaN is the honest objective.
+                host = host._replace(failed=np.asarray(True))
+                if skip_F:
+                    host = host._replace(F_x=np.full_like(host.F_x, np.nan))
+                device_faulted = True
+                break
+    else:
+        state = make_while_driver(step, max_iter, check_every)(state)
+
+    if not device_faulted:
+        if skip_F:
+            # The step skips F (see _make_step): recompute it once at the end.
+            state = state._replace(F_x=f_v(state.x) + g_v(state.x))
+        host = state_to_numpy(state)
     elapsed = _time.perf_counter() - start
 
     fun = host.F_x[0] if scalar_mode else host.F_x
@@ -459,15 +724,21 @@ def minimize_proximal_gradient(
         lr=float(host.lr),
         error_criterion=float(host.err),
         time=elapsed,
-        allvecs=None,
-        allfuns=None,
-        allerrs=None,
+        allvecs=allvecs,
+        allfuns=allfuns,
+        allerrs=allerrs,
         state=host,
     )
     if bool(host.failed):
         res.success = False
         res.status = 2
-        res.message = TERMINATION_MESSAGES[2]
+        # A device fault is not a line-search failure.
+        res.message = (
+            f"Error: device fault — partial result at iteration "
+            f"{int(host.nit)} (success=False)."
+            if device_faulted
+            else TERMINATION_MESSAGES[2]
+        )
     elif bool(host.converged):
         res.success = True
         res.status = 1

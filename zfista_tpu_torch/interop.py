@@ -5,21 +5,26 @@ and its solver ``State`` are numpy arrays once fetched from the device
 (``jax.device_get``, or ``res.state`` of a solve).  These functions turn
 them into the port's tensors on an explicit device and back, so a solve,
 a single step or a warm-started TV prox can be continued in the port from
-where the JAX package left it.  Nothing here imports JAX.
+where the JAX package left it; :func:`problem_from_spec` builds the port's
+zoo problem matching a JAX one.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any
 
 import numpy as np
 import torch
 
 from zfista_tpu_torch.core.solver import State, state_to_numpy
+from zfista_tpu_torch.models import zoo
+from zfista_tpu_torch.models.base import Problem
 
 __all__ = [
     "dual_from_numpy",
     "lasso_params_from_numpy",
+    "problem_from_spec",
     "state_from_numpy",
     "state_to_numpy",
     "tv_deblur_params_from_numpy",
@@ -88,3 +93,37 @@ def dual_from_numpy(
         torch.tensor(np.asarray(p), device=device),
         torch.tensor(np.asarray(q), device=device),
     )
+
+
+def problem_from_spec(problem: Any) -> Problem:
+    """The port's zoo problem of the same class as ``problem`` (a
+    :mod:`zfista_tpu.models.zoo` instance), built from its constructor
+    arguments: ``n_features``, ``n_objectives``, the raw ``l1_ratios`` and
+    ``l1_shifts`` as passed, and ``bounds``.  Reads attributes only.  The
+    two problems have the same ``name``.
+
+    Raises ``ValueError`` for a class the zoo does not have, or for
+    attributes the class's constructor cannot reproduce (e.g. an SD with
+    other bounds).
+    """
+    name = type(problem).__name__
+    cls = getattr(zoo, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, Problem)):
+        raise ValueError(f"no zoo problem named {name!r} in zfista_tpu_torch")
+    spec = {
+        "n_features": problem.n_features,
+        "n_objectives": problem.n_objectives,
+        "l1_ratios": problem._l1_ratios_raw,
+        "l1_shifts": problem._l1_shifts_raw,
+        "bounds": problem.bounds,
+    }
+    accepted = inspect.signature(cls).parameters
+    out = cls(**{k: v for k, v in spec.items() if k in accepted})
+    if out.name != getattr(problem, "name", out.name) or (
+        out.n_objectives,
+        out.n_features,
+    ) != (problem.n_objectives, problem.n_features):
+        raise ValueError(
+            f"{name}'s constructor cannot reproduce {problem!r} (got {out!r})"
+        )
+    return out
