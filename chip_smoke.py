@@ -28,16 +28,18 @@ Phases:
    agreement with a float64 numpy FISTA loop, convergence, and
    ``check_every`` chunking bitwise equal to per-step checking;
 5. the card's own times of the LASSO slice and of its kernel;
-6. the three FGP kernels against the plain loop, bitwise, from 24x40 to
-   2048x2048, both discretizations, cold and warm duals; serial and
-   pipelined tiles bitwise equal; the dual-gap certificate;
+6. the three FGP kernels against the plain loop, bitwise, from 1x105 to
+   2048x2048 (the tile windows' edges; float64 at 256x256 through the
+   whole-image kernel and at 600x520), both discretizations, cold and warm
+   duals; serial and pipelined tiles bitwise equal; the dual-gap
+   certificate;
 7. the TV slice through the public entry points: a 500-iteration
    ``TVDeblur.solve`` (launch counts), agreement with a float64 plain-loop
-   solve, PSNR, ``check_every`` bitwise, and ``solve_warm`` at 256x256 and
-   at 2048x2048 on tv_bench's scene;
-8. the card's own times: each FGP kernel and the plain loop per prox call
-   from 256x256 to 2048x2048, and the TV solves' wall time, kernel
-   against plain;
+   solve, PSNR, ``check_every`` bitwise, and ``solve_warm`` at 256x256, at
+   2048x2048 and (pipelined tiles pinned) at 768x768 on tv_bench's scene;
+8. the card's own times: each FGP kernel, the plain loop and the bound per
+   prox call from 256x256 to 2048x2048 at 30 and 8 dual iterations, and
+   the TV solves' wall time, kernel against plain;
 9. backtracking LASSO at full width (``decay_rate=0.5``, ``lr=1``): nit,
    trials per iteration, iter/s against the fixed-step solve, host reads
    per iteration, device busy share; float64 on the card against float64
@@ -84,20 +86,56 @@ KERNEL_REPLACES = "zfista_tpu/ops/fused.py:62"
 #: (eps 6e-8) amplified over 200 momentum steps.
 AGREE_ITERS, AGREE_RTOL = 200, 1e-4
 SOURCES = ("fused_prox_momentum", "fgp_resident", "fgp_tiles")
-#: Phase 6: images on which every FGP kernel is held against the plain loop.
+#: Phase 6: images on which every FGP kernel is held against the plain loop
+#: (the whole-image kernel where its bands fit shared memory).
 TV_CHECK_CASES = (
     ((24, 40), torch.float32),
     ((100, 224), torch.float32),
     ((256, 256), torch.float32),
+    ((360, 360), torch.float32),
     ((768, 768), torch.float32),
     ((1024, 1024), torch.float32),
     ((2048, 2048), torch.float32),
+    # The tile windows' edges: serial 64x120 (interior 48x104), pipelined
+    # 64x60 (interior 48x44) in float32; 64x60 and 64x30 in float64.
+    ((1, 105), torch.float32),
+    ((49, 1), torch.float32),
+    ((47, 103), torch.float32),
+    ((48, 104), torch.float32),
+    ((49, 105), torch.float32),
+    ((65, 119), torch.float32),
+    ((97, 209), torch.float32),
+    ((49, 45), torch.float32),
     ((100, 224), torch.float64),
+    ((49, 45), torch.float64),
+    ((97, 15), torch.float64),
+    ((256, 256), torch.float64),  # the cameraman through the whole-image kernel
+    ((600, 520), torch.float64),  # a tile-kernel size
 )
-#: Phase 7: the cameraman's side, and tv_bench's scene sizes for solve_warm.
-CAMERAMAN, TV_BENCH_SIZES = 256, (2048, 768)
-#: Phase 8: image sides at which each prox call is timed.
-TV_TIME_SIZES = (256, 384, 512, 768, 1024, 2048)
+#: Phase 7: the cameraman's side, and the sides and prox methods of the
+#: solve_warm runs on tv_bench's scene: "auto" picks the serial tiles at
+#: 2048x2048; the pipelined tiles win at no size (tv_cuda.choose), so
+#: their run pins them.
+CAMERAMAN = 256
+TV_BENCH_RUNS = ((2048, "auto"), (768, "cuda_tiles_pipelined"))
+#: Phase 8: image sides and dual iterations at which each prox call is
+#: timed (the main path runs 30 in TVDeblur.solve, 8 in solve_warm).
+TV_TIME_SIZES = (256, 384, 512, 640, 768, 1024, 2048)
+TV_TIME_ITERS = (30, 8)
+#: NVIDIA's H100 SXM data sheet: HBM3 bandwidth and the non-tensor-core
+#: float32 and float64 rates (the bounds of the kernels line).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: Operations per cell: one FGP iteration (div 5, grad 2, the two descent
+#: steps 4, projection 7, momentum 6) and the pass that recovers u (5).
+FLOPS_PER_CELL_ITER, FLOPS_PER_CELL_U = 24, 5
+#: Fields one prox call must move: v, p0, q0 in; u, p, q out.
+FIELDS_MOVED = 6
+#: Cycles the stream is held before a timed FGP chain (~20 ms at the H100's
+#: clocks): the host queues every call meanwhile, so the events time the
+#: device, not the host's launch rate (a prox call costs the host tens of
+#: microseconds, more than a small image's kernel).
+HOLD_CYCLES = 40_000_000
 #: The FGP kernels: their source, and the TPU kernel body each replaces.
 TV_KERNELS = {
     "fgp_resident": (
@@ -160,11 +198,17 @@ def sync_time(fn) -> float:
 
 
 def event_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``, by CUDA events over ``reps``."""
+    """Device milliseconds per call of ``fn``, by CUDA events over ``reps``.
+    The stream is held ~40 ms first, so that the host queues the calls
+    meanwhile and they run back to back: a call that costs the host more
+    than its kernel costs the card is still timed on the card (as long as
+    ``reps`` launches fit the launch queue)."""
     for _ in range(10):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(80_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -177,6 +221,57 @@ def psnr(x: np.ndarray, truth: np.ndarray) -> float:
     """Peak signal-to-noise ratio in dB against a truth image with peak 1."""
     mse = float(np.mean((np.reshape(x, truth.shape) - truth) ** 2))
     return float(10 * np.log10(1.0 / mse))
+
+
+def fgp_bound(shape: tuple[int, int], dtype: torch.dtype, n_iter: int) -> tuple[float, str]:
+    """The least ms the card could take for one prox call, and what binds:
+    the 6 fields moved once over the HBM rate, or the operations over the
+    non-tensor-core rate of ``dtype``."""
+    n = shape[0] * shape[1]
+    item = torch.empty((), dtype=dtype).element_size()
+    t_bytes = FIELDS_MOVED * n * item / PEAK_BYTES_PER_S
+    t_ops = n * (FLOPS_PER_CELL_ITER * n_iter + FLOPS_PER_CELL_U) / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chain_ms(fn, v0, lam, n_iter: int, calls: int = 20) -> float:
+    """Device ms per prox call over ``calls`` chained calls (each call's u
+    is the next call's v), by CUDA events, after one warm-up call.  The
+    stream is held first (:data:`HOLD_CYCLES`) so that the calls run back
+    to back; a chain that takes the host longer to queue than the hold
+    (the plain loop) is timed at the host's rate."""
+    z = torch.zeros_like(v0)
+    fn(lam, v0, z, z, n_iter)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    v = v0
+    for _ in range(calls):
+        v = fn(lam, v, z, z, n_iter)[0]
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def fgp_times(dev, side: int, n_iter: int, names) -> dict[str, list[float]]:
+    """Device ms per prox call of each FGP kernel in ``names`` on a
+    ``side`` x ``side`` float32 image (numpy seed 8, lam 0.05, zero duals),
+    timed in turns: each name in order, then in reverse.  It drives only
+    the wrappers ``fgp_resident`` and ``fgp_tiles`` of the
+    ``zfista_tpu_torch`` it imports, so run from the root of another tree
+    of the repository with this file copied there, it times that tree's
+    kernels the same way."""
+    fns = tv_kernel_fns()
+    rng = np.random.default_rng(8)
+    lam = torch.tensor(0.05, device=dev)
+    v0 = torch.tensor(rng.standard_normal((side, side)), dtype=torch.float32, device=dev)
+    runs: dict[str, list[float]] = {k: [] for k in names}
+    for order in (list(names), list(reversed(names))):
+        for k in order:
+            runs[k].append(chain_ms(fns[k], v0, lam, n_iter))
+    return runs
 
 
 def tv_kernel_fns() -> dict:
@@ -203,11 +298,16 @@ def phase6(dev) -> dict[str, float]:
     division, so they are bitwise equal to it; any difference is a fault."""
     from zfista_tpu_torch.ops import tv, tv_cuda
 
-    kernels = tv_kernel_fns()
     counts = tv_cuda.launch_counts
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(6)
-    max_err = dict.fromkeys(kernels, 0.0)
+    max_err = dict.fromkeys(tv_kernel_fns(), 0.0)
     for shape, dtype in TV_CHECK_CASES:
+        kernels = {
+            name: fn
+            for name, fn in tv_kernel_fns().items()
+            if name != "fgp_resident" or tv_cuda.fits_resident(shape, dtype, sms)
+        }
         v = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
         near = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
         lam = torch.tensor(0.15, dtype=dtype, device=dev)
@@ -238,6 +338,7 @@ def phase6(dev) -> dict[str, float]:
                     calls += 1
                     sweeps += -(-n_iter // tv_cuda.HALO) + 1  # sweeps + u pass
         want = {"fgp_resident": calls, "fgp_tiles": sweeps, "fgp_tiles_pipelined": sweeps}
+        want = {name: want[name] for name in kernels}
         log(
             f"phase 6: {shape[0]}x{shape[1]} {str(dtype)[6:]}: max_abs_err {err} "
             "(tolerance 0, bitwise; iso/aniso, n_iter 30 and 8, zero and warm "
@@ -279,14 +380,15 @@ def zero(counts: dict[str, int]) -> None:
         counts[name] = 0
 
 
-def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
+def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
     """The TV slice through the public entry points.  Each FGP kernel's
-    main-path run is the first run below that ``auto`` sends to it: the
+    main-path run is the first run below that goes through it: the
     500-iteration ``solve`` (the whole-image kernel at 256x256) and the
-    ``solve_warm`` runs on tv_bench's scene (the tile kernels).  Every
+    ``solve_warm`` runs on tv_bench's scene (the serial tiles by ``auto``
+    at 2048x2048, the pipelined tiles pinned at 768x768).  Every
     count is set to 0 just before each run and read just after.  Returns
     each kernel's launches in its main-path run, and that run's image
-    side."""
+    side and dual iterations per prox call."""
     from zfista_tpu_torch.models import TVDeblur
     from zfista_tpu_torch.models import deblur as td
     from zfista_tpu_torch.ops import tv_cuda
@@ -325,7 +427,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
     kern = kinds[meta["prox_kernel"]]
     if launched[kern] < 500:
         raise AssertionError(f"TV slice run launched the kernels {launched}")
-    main_launches, runs = {kern: launched[kern]}, {kern: CAMERAMAN}
+    main_launches, runs = {kern: launched[kern]}, {kern: (CAMERAMAN, kw["prox_iter"])}
     lr = res.lr
 
     short = quiet(TVDeblur(b32, **kw).solve, lr=lr, max_iter=AGREE_ITERS, tol=0)
@@ -367,11 +469,11 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
             raise AssertionError(f"check_every=64 differs from 1 in State.{name}")
     log("phase 7: check_every=64 is bitwise equal to check_every=1 (x, nit, State)")
 
-    scenes = [(CAMERAMAN, td.gaussian_kernel(), observed, 2e-4)]
-    scenes += [(n, *tv_bench_scene(n, dev), 1e-3) for n in TV_BENCH_SIZES]
-    for size, kernel, obs, tv_ratio in scenes:
+    scenes = [(CAMERAMAN, td.gaussian_kernel(), observed, 2e-4, "auto")]
+    scenes += [(n, *tv_bench_scene(n, dev), 1e-3, m) for n, m in TV_BENCH_RUNS]
+    for size, kernel, obs, tv_ratio, method in scenes:
         b = torch.tensor(obs, dtype=torch.float32, device=dev)
-        prob = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel)
+        prob = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method)
         kind = prob.checkpoint_meta()["prox_kernel"]
         zero(counts)
         t0 = time.perf_counter()
@@ -385,7 +487,8 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
         same = np.array_equal(w["x"], wp["x"])
         log(
             f"phase 7 [{card}]: solve_warm(max_iter=200, prox_iter=8) at {size}x{size} f32: "
-            f"auto picks {kind}; nit={w['nit']} fun={w['fun']!r} wall {wall:.3f} s; "
+            f"prox_method {method!r} runs {kind}; nit={w['nit']} fun={w['fun']!r} "
+            f"wall {wall:.3f} s; "
             f"launches {used}; == plain-prox solve_warm bitwise: {same}"
         )
         if w["nit"] != 200 or not np.all(np.isfinite(w["x"])) or not same:
@@ -394,54 +497,49 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
             raise AssertionError(f"solve_warm at {size} launched {used}")
         if kinds[kind] not in runs:
             main_launches[kinds[kind]] = used[kinds[kind]]
-            runs[kinds[kind]] = size
+            runs[kinds[kind]] = (size, 8)
 
     for name in TV_KERNELS:
         if not main_launches.get(name):
             raise AssertionError(f"the TV slice never launched {name}")
-    log(f"phase 7: main-path launches {main_launches} at image sides {runs}")
+    log(f"phase 7: main-path launches {main_launches} at (image side, n_iter) {runs}")
     return main_launches, runs
 
 
-def chain_ms(fn, v0, lam, calls: int = 20) -> float:
-    """Device ms per prox call over ``calls`` chained calls (each call's u
-    is the next call's v), by CUDA events, after one warm-up call."""
-    z = torch.zeros_like(v0)
-    fn(lam, v0, z, z, 30)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    v = v0
-    for _ in range(calls):
-        v = fn(lam, v, z, z, 30)[0]
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / calls
-
-
-def phase8(dev, card: str) -> dict[int, dict[str, float]]:
-    """The card's times of the TV slice.  Returns ms per prox call
-    (n_iter=30) by image size and implementation."""
+def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
+    """The card's times of the TV slice.  Returns device ms per prox call by
+    (image side, n_iter) and implementation: each FGP kernel (the
+    whole-image kernel where its bands fit), the plain loop, and the
+    bound."""
     from zfista_tpu_torch.models import TVDeblur
     from zfista_tpu_torch.models import deblur as td
     from zfista_tpu_torch.ops import tv_cuda
 
-    fns = {"fgp_plain": tv_cuda.fgp_plain, **tv_kernel_fns()}
-    rng = np.random.default_rng(8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lam = torch.tensor(0.05, device=dev)
-    ms: dict[int, dict[str, float]] = {}
+    ms: dict[tuple[int, int], dict[str, float]] = {}
     for n in TV_TIME_SIZES:
-        v0 = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
-        runs: dict[str, list[float]] = {k: [] for k in fns}
-        for order in (list(fns), list(reversed(fns))):
-            for k in order:
-                runs[k].append(chain_ms(fns[k], v0, lam))
-        ms[n] = {k: min(v) for k, v in runs.items()}
-        log(
-            f"phase 8 [{card}]: prox call {n}x{n} f32 n_iter=30, ms per call (20 chained "
-            f"calls, CUDA events, runs {{k: [..]}}): "
-            + ", ".join(f"{k} {min(v):.4f} {[round(x, 4) for x in v]}" for k, v in runs.items())
+        names = [
+            name
+            for name in tv_kernel_fns()
+            if name != "fgp_resident" or tv_cuda.fits_resident((n, n), torch.float32, sms)
+        ]
+        v0 = torch.tensor(
+            np.random.default_rng(8).standard_normal((n, n)), dtype=torch.float32, device=dev
         )
+        for n_iter in TV_TIME_ITERS:
+            runs = fgp_times(dev, n, n_iter, names)
+            plain = chain_ms(tv_cuda.fgp_plain, v0, lam, n_iter, calls=5)
+            b_ms, b_by = fgp_bound((n, n), torch.float32, n_iter)
+            ms[n, n_iter] = {k: min(v) for k, v in runs.items()}
+            ms[n, n_iter].update(fgp_plain=plain, bound_ms=b_ms)
+            log(
+                f"phase 8 [{card}]: prox call {n}x{n} f32 n_iter={n_iter}, device ms per "
+                f"call (20 chained calls, CUDA events, runs {{k: [..]}}): "
+                + ", ".join(f"{k} {min(v):.4f} {[round(x, 4) for x in v]}" for k, v in runs.items())
+                + f"; plain {plain:.4f} (host-bound); bound {b_ms:.4f} ({b_by}); auto picks "
+                + tv_cuda.choose((n, n), torch.float32, sms)
+            )
 
     truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64)
     observed = td.make_blur(td.gaussian_kernel())(truth_t).numpy()
@@ -971,7 +1069,7 @@ def main() -> None:
     for n in (N, 10_000_000):
         y, g, x = (torch.randn(n, device=dev) for _ in range(3))
         scal = [torch.tensor(v, device=dev) for v in (0.1, 0.05, 0.3)]
-        reps = 2000 if n == N else 100
+        reps = 500 if n == N else 100
         k_ms = event_ms(lambda: fused.fused_prox_momentum(y, g, x, *scal), reps)
         p_ms = event_ms(lambda: fused.fused_prox_momentum_plain(y, g, x, *scal), reps)
         kern_ms[n] = (k_ms, p_ms)
@@ -981,9 +1079,15 @@ def main() -> None:
             f"plain {p_ms * 1e3:.2f} us"
         )
 
+    t0 = time.perf_counter()
     tv_err = phase6(dev)
+    log(f"phase 6 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tv_launches, tv_runs = phase7(dev, smi)
+    log(f"phase 7 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tv_ms = phase8(dev, smi)
+    log(f"phase 8 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
 
     # -- phases 9-11: the multiobjective solve with backtracking ---------------
     for n_phase, run in (
@@ -1005,11 +1109,18 @@ def main() -> None:
             "max_abs_err": max(max_err, step_err),
             "ms": kern_ms[N][0],
             "plain_ms": kern_ms[N][1],
+            # y, g, x read and x, y written once, float32.
+            "bound_ms": 1e3 * 5 * N * 4 / PEAK_BYTES_PER_S,
+            "bound_by": "bytes",
+            # No single PyTorch call computes the soft-threshold and the
+            # momentum step together.
+            "library_ms": None,
         }
     ]
     for name, (source, replaces) in TV_KERNELS.items():
-        # Each kernel's time at the size its main-path run used.
-        n = tv_runs[name]
+        # Each kernel's time at the size and n_iter its main-path run used.
+        n, n_iter = tv_runs[name]
+        b_ms, b_by = fgp_bound((n, n), torch.float32, n_iter)
         kernels.append(
             {
                 "name": name,
@@ -1018,8 +1129,13 @@ def main() -> None:
                 "replaces": replaces,
                 "launches": tv_launches[name],
                 "max_abs_err": tv_err[name],
-                "ms": tv_ms[n][name],
-                "plain_ms": tv_ms[n]["fgp_plain"],
+                "n_iter": n_iter,
+                "ms": tv_ms[n, n_iter][name],
+                "plain_ms": tv_ms[n, n_iter]["fgp_plain"],
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                # No PyTorch call computes an FGP iteration.
+                "library_ms": None,
             }
         )
     print(json.dumps({"kernels": kernels}))

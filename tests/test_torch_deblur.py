@@ -92,7 +92,7 @@ def test_host_helpers_match_jax():
 def test_model_pieces_match_jax(isotropic):
     _, observed, kernel = _scene(size=24)
     kw = dict(tv_ratio=1e-3, kernel=kernel, prox_iter=20, isotropic=isotropic)
-    pt = TVDeblur(observed, **kw)
+    pt = TVDeblur(observed, device="cpu", **kw)
     pj = jd.TVDeblur(observed, **kw)
     x = np.random.default_rng(3).standard_normal(24 * 24)
     xt, xj = torch.tensor(x), jnp.asarray(x)
@@ -122,7 +122,7 @@ def test_solve_matches_jax(seed, tol, max_iter):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         rj = jd.TVDeblur(observed, **kw).solve(lr=lr, tol=tol, max_iter=max_iter)
-        rt = TVDeblur(observed, **kw).solve(lr=lr, tol=tol, max_iter=max_iter)
+        rt = TVDeblur(observed, device="cpu", **kw).solve(lr=lr, tol=tol, max_iter=max_iter)
     assert rt.status == rj.status == (1 if tol == 1e-4 else 0)
     assert rt.nit == rj.nit
     assert rt.nit_internal == rj.nit_internal
@@ -136,7 +136,7 @@ def test_solve_warm_matches_jax(seed, tol):
     _, observed, kernel = _scene(seed=seed)
     kw = dict(tv_ratio=1e-3, kernel=kernel)
     wj = jd.TVDeblur(observed, **kw).solve_warm(max_iter=1000, tol=tol, prox_iter=8)
-    wt = TVDeblur(observed, **kw).solve_warm(max_iter=1000, tol=tol, prox_iter=8)
+    wt = TVDeblur(observed, device="cpu", **kw).solve_warm(max_iter=1000, tol=tol, prox_iter=8)
     assert wt["nit"] == wj["nit"] < 1000
     np.testing.assert_allclose(wt["x"], wj["x"], rtol=0, atol=1e-9)
     np.testing.assert_allclose(wt["fun"], wj["fun"], rtol=1e-12)
@@ -149,7 +149,7 @@ def test_solve_warm_requires_separable_kernel():
     k = rng.random((5, 5))
     _, observed, _ = _scene(size=16)
     with pytest.raises(ValueError, match="separable"):
-        TVDeblur(observed, kernel=k / k.sum()).solve_warm()
+        TVDeblur(observed, device="cpu", kernel=k / k.sum()).solve_warm()
 
 
 @pytest.mark.parametrize("stop", ["converged", "max_iter"])
@@ -157,7 +157,7 @@ def test_check_every_is_bitwise(stop):
     """check_every 1 and 64 give the same State (solve) and the same carry
     (solve_warm's driver), nit included."""
     _, observed, kernel = _scene(size=16, seed=2)
-    prob = TVDeblur(observed, tv_ratio=1e-3, kernel=kernel, prox_iter=10)
+    prob = TVDeblur(observed, device="cpu", tv_ratio=1e-3, kernel=kernel, prox_iter=10)
     kw = dict(tol=1e-3) if stop == "converged" else dict(tol=0, max_iter=70)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -214,13 +214,13 @@ def test_masked_chunk_keeps_a_frozen_steps_nan_out():
 def test_checkpoint_meta_on_cpu():
     _, observed, kernel = _scene(size=16)
     for method in ("auto", "pallas", "xla"):
-        meta = TVDeblur(observed, kernel=kernel, prox_method=method).checkpoint_meta()
+        meta = TVDeblur(observed, device="cpu", kernel=kernel, prox_method=method).checkpoint_meta()
         assert meta["prox_kernel"] == "plain"
         assert meta["backend"] == "cpu"
         assert meta["prox_method"] == method
         assert meta["problem"] == "TVDeblur"
     with pytest.raises(ValueError, match="interpreter"):
-        TVDeblur(observed, prox_method="pallas_interpret")
+        TVDeblur(observed, device="cpu", prox_method="pallas_interpret")
 
 
 @pytest.mark.parametrize("separable", [True, False])

@@ -34,7 +34,7 @@ def _close(t, j):
 def test_lasso_methods_match_jax(l2):
     A, b, x = _problem(0)
     jp = jl.Lasso(A, b, 0.05, l2)
-    tp = Lasso(A, b, 0.05, l2)
+    tp = Lasso(A, b, 0.05, l2, device="cpu")
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
     _close(tp.f(xt), jp.f(xj))
     _close(tp.jac_f(xt), jp.jac_f(xj))
@@ -100,9 +100,9 @@ def test_operator_norm_sq_matches_numpy(seed):
 
 def test_lipschitz_and_integer_operator():
     A, b, _ = _problem(0)
-    prob = Lasso(A, b, 0.05, 0.3)
+    prob = Lasso(A, b, 0.05, 0.3, device="cpu")
     L = 2 * np.linalg.norm(A, 2) ** 2 + 0.3
     assert prob.lipschitz(500) == pytest.approx(L, rel=1e-12)
     # An integer operator is promoted, so λ is not truncated to 0.
-    iprob = Lasso(np.ones((3, 2), np.int64), np.ones(3), 0.5)
+    iprob = Lasso(np.ones((3, 2), np.int64), np.ones(3), 0.5, device="cpu")
     assert iprob.A.is_floating_point() and iprob.b.dtype == iprob.A.dtype

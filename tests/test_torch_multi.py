@@ -79,7 +79,7 @@ def test_backtracking_lasso_matches_jax(seed, opts):
     A, b = _lasso(seed)
     x0 = np.zeros(A.shape[1])
     rj = jl.Lasso(A, b, 0.05).solve(jnp.asarray(x0), tol=1e-9, **opts)
-    rt = tl.Lasso(A, b, 0.05).solve(torch.tensor(x0), tol=1e-9, **opts)
+    rt = tl.Lasso(A, b, 0.05, device="cpu").solve(torch.tensor(x0), tol=1e-9, **opts)
     assert rj.status == 1 and rt.status == 1
     assert (rt.nit, rt.nit_internal) == (rj.nit, rj.nit_internal)
     assert rt.nit_internal > rt.nit  # the line search backtracked
@@ -181,7 +181,7 @@ def test_return_all_scalar_objective_and_failed_steps():
         minimize_proximal_gradient,
         lambda x: torch.sum((x - 1.0) ** 2), lambda x: 0.1 * torch.sum(torch.abs(x)),
         None, lambda w, x: soft_threshold(x, 0.1 * w), np.array([3.0, -2.0]),
-        nesterov=True, return_all=True,
+        nesterov=True, return_all=True, device="cpu",
     )
     assert rt.status == 1 and all(isinstance(v, float) for v in rt.allfuns)
     assert len(rt.allfuns) == rt.nit + 1
@@ -265,7 +265,7 @@ def test_device_fault_returns_the_last_good_chunk(where):
         kw = dict(nesterov=True, tol_internal=TOL_INTERNAL)
     else:
         A, b = _lasso(3)
-        p = tl.Lasso(A, b, 0.05)
+        p = tl.Lasso(A, b, 0.05, device="cpu")
         f, g, jac, prox = p.f, p.g, p.jac_f, p.prox_wsum_g
         x0 = torch.zeros(A.shape[1], dtype=F64)
         kw = dict(decay_rate=1, lr=0.1, nesterov=True)

@@ -58,7 +58,7 @@ def test_slice_matches_jax(seed, opts):
     x0 = np.zeros(A.shape[1])
     kw = dict(lr=lr, tol=1e-8, **opts)
     rj = jl.Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
-    rt = Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
+    rt = Lasso(A, b, 0.05, device="cpu").solve_fixed_step(x0, **kw)
     assert rj.status == 1
     assert rt.nit == rj.nit
     assert (rt.status, rt.success, rt.message) == (rj.status, rj.success, rj.message)
@@ -119,7 +119,7 @@ def test_check_every_chunks_are_bitwise(stop):
     else:
         kw = dict(lr=lr, tol=0, max_iter=101)
     runs = {
-        ce: _quiet(Lasso(A, b, 0.05).solve_fixed_step, x0, check_every=ce, **kw)
+        ce: _quiet(Lasso(A, b, 0.05, device="cpu").solve_fixed_step, x0, check_every=ce, **kw)
         for ce in (1, 7, 64)
     }
     ref = runs[1]
@@ -157,7 +157,7 @@ def test_fixed_lr_closed_form(autodiff):
     f, g, jac_f, prox = _toy(0.1)
     res = minimize_proximal_gradient(
         f, g, None if autodiff else jac_f, prox, np.array([0.3]),
-        lr=1.5, decay_rate=1, nesterov=True,
+        lr=1.5, decay_rate=1, nesterov=True, device="cpu",
     )
     assert res.success and res.status == 1
     np.testing.assert_array_almost_equal(res.x, [0.85], decimal=3)
@@ -171,7 +171,7 @@ def test_solver_options_drive_the_facade():
     f, g, jac_f, prox = _toy(0.1)
     opts = SolverOptions(lr=1.5, decay_rate=1, nesterov=True, tol=1e-9)
     res = minimize_proximal_gradient(
-        f, g, jac_f, prox, np.array([0.3]), **opts.kwargs()
+        f, g, jac_f, prox, np.array([0.3]), device="cpu", **opts.kwargs()
     )
     np.testing.assert_allclose(res.x, [0.85], atol=1e-8)
     assert opts.replace(tol=1e-3).tol == 1e-3 and opts.tol == 1e-9
@@ -191,7 +191,7 @@ def test_lasso_step_goes_through_the_fused_wrapper(monkeypatch):
     monkeypatch.setattr(solver, "fused_prox_momentum", counting)
     A, b, lr = _lasso(7)
     x0 = np.zeros(A.shape[1])
-    prob = Lasso(A, b, 0.05)
+    prob = Lasso(A, b, 0.05, device="cpu")
     fused_res = prob.solve_fixed_step(x0, lr=lr, tol=1e-8)
     assert len(calls) == fused_res.nit
     calls.clear()
@@ -225,6 +225,40 @@ def test_jax_and_port_states_share_a_layout():
     assert len(solver.State._fields) == 12
     # A port State converted to numpy rebuilds a JAX State directly.
     A, b, lr = _lasso(8)
-    res = Lasso(A, b, 0.05).solve_fixed_step(np.zeros(A.shape[1]), lr=lr, tol=1e-6)
+    res = Lasso(A, b, 0.05, device="cpu").solve_fixed_step(np.zeros(A.shape[1]), lr=lr, tol=1e-6)
     js = JaxState(*(jnp.asarray(v) for v in res.state))
     assert int(js.nit) == res.nit
+
+
+@pytest.mark.parametrize("entry", ["facade", "lasso", "tv_deblur", "problem"])
+def test_entry_points_put_numpy_data_on_the_card(entry, monkeypatch):
+    """Data given as numpy goes to ``device="cuda"`` by default: with no
+    card that raises (nothing falls back to the CPU); ``device="cpu"``
+    asks for the CPU, and a CPU tensor keeps its device."""
+    from zfista_tpu_torch.models import JOS1, TVDeblur
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f, g, jac_f, prox = _toy(0.1)
+    A, b, lr = _lasso(9)
+    img = np.random.default_rng(9).standard_normal((12, 10))
+    x0 = np.array([0.3])
+    calls = {
+        "facade": lambda **kw: minimize_proximal_gradient(
+            f, g, jac_f, prox, x0, lr=1.5, decay_rate=1, **kw
+        ),
+        "lasso": lambda **kw: Lasso(A, b, 0.05, **kw).A,
+        "tv_deblur": lambda **kw: TVDeblur(img, **kw).b,
+        "problem": lambda **kw: JOS1(n_features=3).solve(
+            np.full(3, 0.5), max_iter=3, **kw
+        ),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    x = out if isinstance(out, torch.Tensor) else torch.as_tensor(out.x)
+    assert x.device.type == "cpu"
+    if entry == "facade":
+        res = minimize_proximal_gradient(
+            f, g, jac_f, prox, torch.tensor([0.3], dtype=F64), lr=1.5, decay_rate=1
+        )
+        assert res.success

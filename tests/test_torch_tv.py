@@ -134,6 +134,48 @@ def test_fgp_plain_matches_pallas_interpret(isotropic):
             assert _rel(a.numpy(), b) <= RTOL
 
 
+@pytest.mark.parametrize("isotropic", [True, False])
+def test_fgp_resident_plain_matches_pallas_interpret(isotropic):
+    """The whole-image kernel's band plan against the TPU kernel in
+    interpret mode (bands of 2, 4 and 24 rows: 12, 6 and 1 CTAs)."""
+    assert [tv_cuda.resident_plan((24, 40), F64, s)[:2] for s in (12, 6, 1)] == [
+        (2, 12), (4, 6), (24, 1)
+    ]
+    rng = np.random.default_rng(12)
+    v = rng.standard_normal((24, 40))
+    p0, q0 = _dual(rng, v.shape)
+    ref = tv_pallas.fgp_pallas(
+        jnp.asarray(0.15), jnp.asarray(v), jnp.asarray(p0), jnp.asarray(q0),
+        n_iter=9, isotropic=isotropic, interpret=True,
+    )
+    for sms in (12, 6, 1):
+        got = tv_cuda.fgp_resident_plain(
+            0.15, torch.tensor(v), torch.tensor(p0), torch.tensor(q0), 9, isotropic, sms
+        )
+        for a, b in zip(got, ref):
+            assert _rel(a.numpy(), b) <= RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "shape, sms", [((24, 40), 12), ((37, 53), 5), ((1, 31), 3), ((65, 7), 132), ((5, 9), 3)]
+)
+def test_fgp_resident_plain_is_bitwise_fgp_plain(shape, sms, dtype):
+    """Bands of ceil(H / SMs) rows, halo rows refreshed every iteration:
+    bitwise the whole-image loop, cold and warm, both discretizations;
+    ragged last bands, one-row bands and a one-row image included."""
+    rng = np.random.default_rng(sum(shape) + sms)
+    v = torch.tensor(rng.standard_normal(shape), dtype=dtype)
+    p0, q0 = (torch.tensor(d, dtype=dtype) for d in _dual(rng, shape))
+    z = torch.zeros_like(v)
+    for iso in (True, False):
+        for dual in ((z, z), (p0, q0)):
+            ref = tv_cuda.fgp_plain(0.2, v, *dual, 7, iso)
+            got = tv_cuda.fgp_resident_plain(0.2, v, *dual, 7, iso, sms)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("pipelined", [False, True])
 def test_fgp_tiles_plain_matches_pallas_strips_interpret(pipelined):
     """tests/test_tv.py's strip shape: (160, 128), n_iter=8."""
@@ -151,13 +193,15 @@ def test_fgp_tiles_plain_matches_pallas_strips_interpret(pipelined):
         assert _rel(a.numpy(), b) <= RTOL
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_iter", [8, 30])
 @pytest.mark.parametrize("shape", [(100, 224), (160, 128)])
-def test_fgp_tiles_plain_is_bitwise_fgp_plain(shape, n_iter, dtype):
-    """The CUDA tile kernels' plan — tiles with 8-cell halos, sweeps of 8
-    then the remainder, t handed across sweeps — is exact: bitwise the
-    whole-image loop, cold and warm, both discretizations."""
+def test_fgp_tiles_plain_is_bitwise_fgp_plain(shape, n_iter, dtype, pipelined):
+    """The CUDA tile kernels' plans — tiles with 8-cell halos, sweeps of 8
+    then the remainder, t handed across sweeps, the serial or the
+    pipelined kernel's window — are exact: bitwise the whole-image loop,
+    cold and warm, both discretizations."""
     rng = np.random.default_rng(n_iter)
     v = torch.tensor(rng.standard_normal(shape), dtype=dtype)
     p0, q0 = (torch.tensor(d, dtype=dtype) for d in _dual(rng, shape))
@@ -165,7 +209,7 @@ def test_fgp_tiles_plain_is_bitwise_fgp_plain(shape, n_iter, dtype):
     for iso in (True, False):
         for dual in ((z, z), (p0, q0)):
             ref = tv_cuda.fgp_plain(0.2, v, *dual, n_iter, iso)
-            got = tv_cuda.fgp_tiles_plain(0.2, v, *dual, n_iter, iso)
+            got = tv_cuda.fgp_tiles_plain(0.2, v, *dual, n_iter, iso, pipelined)
             for a, b in zip(got, ref):
                 assert torch.equal(a, b)
 
@@ -179,9 +223,71 @@ def test_fgp_tiles_plain_ragged_shapes(dtype):
         v = torch.tensor(rng.standard_normal(shape), dtype=dtype)
         z = torch.zeros_like(v)
         ref = tv_cuda.fgp_plain(0.3, v, z, z, 11, True)
-        got = tv_cuda.fgp_tiles_plain(0.3, v, z, z, 11, True)
+        for pipelined in (False, True):
+            got = tv_cuda.fgp_tiles_plain(0.3, v, z, z, 11, True, pipelined)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+
+
+def _straddling_shapes(dtype, pipelined):
+    """Shapes at the edges of one tile's window and interior: one row, one
+    column, and the interior's rows and columns less, equal and plus one."""
+    ir, ic = tv_cuda.tile_interior(dtype, pipelined)
+    wr, wc = tv_cuda.tile_window(dtype, pipelined)
+    return [
+        (1, ic + 1), (ir + 1, 1), (ir - 1, ic - 1), (ir, ic), (ir + 1, ic + 1),
+        (2 * ir + 1, 2 * ic - 1), (wr + 1, wc - 1),
+    ]
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fgp_tiles_plain_straddles_the_window(dtype, pipelined):
+    """Bitwise the whole-image loop on shapes one cell either side of the
+    window's and interior's edges, warm dual, a full and a partial sweep."""
+    rng = np.random.default_rng(3)
+    for shape in _straddling_shapes(dtype, pipelined):
+        v = torch.tensor(rng.standard_normal(shape), dtype=dtype)
+        p0, q0 = (torch.tensor(d, dtype=dtype) for d in _dual(rng, shape))
+        ref = tv_cuda.fgp_plain(0.25, v, p0, q0, 11, True)
+        got = tv_cuda.fgp_tiles_plain(0.25, v, p0, q0, 11, True, pipelined)
         for a, b in zip(got, ref):
-            assert torch.equal(a, b)
+            assert torch.equal(a, b), shape
+
+
+def _skip_division(p, q):
+    """The kernels' projection: the division by max(1, nrm) is skipped
+    where nrm < 1 (csrc/fgp_tiles.cu, csrc/fgp_resident.cu project)."""
+    nrm = torch.sqrt(p * p + q * q)
+    keep = nrm < 1.0
+    return torch.where(keep, p, p / nrm), torch.where(keep, q, q / nrm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_division_skip_is_bitwise_project(dtype):
+    """p / max(1, nrm) == (p if nrm < 1 else p / nrm) bitwise: at and
+    around the unit circle (nrm = 1 and 1 -+ 1 ulp), at +-0, +-inf, NaN and
+    subnormals."""
+    fi = torch.finfo(dtype)
+    one = torch.tensor(1.0, dtype=dtype)
+    below = torch.nextafter(one, torch.tensor(0.0, dtype=dtype))
+    above = torch.nextafter(one, torch.tensor(2.0, dtype=dtype))
+    sub = fi.tiny / 4
+    special = [0.0, -0.0, 1.0, -1.0, float(below), float(above), -float(below),
+               float("inf"), -float("inf"), float("nan"), sub, -sub, fi.tiny,
+               fi.max, 0.6, 0.8, 3.0, -1e-300 if dtype == torch.float64 else -1e-40]
+    vals = torch.tensor(special, dtype=dtype)
+    p, q = torch.meshgrid(vals, vals, indexing="ij")
+    # Points on the circle by rotation, nudged by an ulp either way.
+    ang = torch.linspace(0, 6.3, 97, dtype=dtype)
+    ring = [torch.cos(ang), torch.sin(ang)]
+    p = torch.cat([p.reshape(-1), ring[0], torch.nextafter(ring[0], 2 * ring[0])])
+    q = torch.cat([q.reshape(-1), ring[1], torch.nextafter(ring[1], 2 * ring[1])])
+    want = tv_cuda._project(p, q, True)
+    got = _skip_division(p, q)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int64 if dtype == torch.float64 else torch.int32),
+                           b.view(torch.int64 if dtype == torch.float64 else torch.int32))
 
 
 def test_cpu_wrappers_take_plain_versions_and_never_count():
@@ -209,35 +315,55 @@ def test_methods_and_dispatch_rules():
         tv.prox_tv(0.1, v, method="pallas_interpret")
     with pytest.raises(ValueError, match="method"):
         tv.prox_tv(0.1, v, method="nope")
-    # The whole-image kernel while 12 fields fit half the L2; tiles past it.
-    assert tv_cuda.fits_l2((512, 512), torch.float32)
-    assert not tv_cuda.fits_l2((1024, 1024), torch.float32)
-    assert tv_cuda.fits_l2((512, 512), torch.float64)
-    assert not tv_cuda.fits_l2((600, 600), torch.float64)
-    # The whole-image kernel while it fits and the tiles would leave over
-    # half the SMs idle; then pipelined tiles while the serial kernel's
-    # tiles fit one wave (2 CTAs per SM); serial tiles beyond.  An H100 has
-    # 132 SMs.
+    # The whole-image kernel while one band of ceil(H / SMs) rows, with a
+    # halo row above and below, fits a CTA's 227 KB (7 fields); the serial
+    # tiles beyond.  An H100 has 132 SMs.
     f32 = torch.float32
-    assert tv_cuda.n_tiles((256, 256), f32) == 36
-    assert tv_cuda.choose((256, 256), f32, 132) == "cuda_resident"
-    assert tv_cuda.choose((256, 256), f32, 72) == "cuda_tiles_pipelined"
-    assert tv_cuda.choose((512, 512), f32, 132) == "cuda_tiles_pipelined"
-    assert tv_cuda.choose((24, 40), torch.float64, 132) == "cuda_resident"
-    assert tv_cuda.n_tiles((768, 768), f32) == 256
-    assert tv_cuda.choose((768, 768), f32, 132) == "cuda_tiles_pipelined"
-    assert tv_cuda.choose((768, 768), f32, 100) == "cuda_tiles"
+    # (rows per CTA, CTAs, rows per warp, warps, bytes): bands per warp as
+    # short as 32 warps allow, at most 16 rows.
+    assert tv_cuda.resident_plan((256, 256), f32, 132) == (2, 128, 1, 18, 7 * 4 * 4 * 256)
+    assert tv_cuda.resident_plan((24, 40), F64, 132) == (1, 24, 1, 2, 7 * 8 * 3 * 40)
+    assert tv_cuda.resident_plan((1, 40), F64, 132) == (1, 1, 1, 2, 7 * 8 * 3 * 40)
+    assert tv_cuda.resident_plan((2048, 64), f32, 132)[:4] == (16, 128, 2, 24)
+    assert tv_cuda.resident_plan((5280, 1000), f32, 132)[:4] == (40, 132, 16, 32)
+    assert tv_cuda.fits_resident((768, 768), f32, 132)
+    assert not tv_cuda.fits_resident((1024, 1024), f32, 132)
+    assert tv_cuda.fits_resident((512, 512), F64, 132)
+    assert not tv_cuda.fits_resident((768, 768), F64, 132)
+    assert tv_cuda.fits_resident((600, 520), F64, 132)
+    for shape in ((24, 40), (256, 256), (768, 768)):
+        assert tv_cuda.choose(shape, f32, 132) == "cuda_resident"
+    assert tv_cuda.choose((256, 256), F64, 132) == "cuda_resident"
     for shape in ((1024, 1024), (2048, 2048), (3, 10**6)):
         assert tv_cuda.choose(shape, f32, 132) == "cuda_tiles"
-    # On a card with many more SMs the L2 guard, not the SM rule, binds.
-    assert tv_cuda.choose((512, 512), f32, 1000) == "cuda_resident"
-    assert tv_cuda.choose((1024, 1024), f32, 10_000) == "cuda_tiles_pipelined"
-    assert tv_cuda.n_tiles((100, 224), torch.float64) == 3 * 14
+    # Fewer SMs, taller bands: the shared-memory bound comes sooner.
+    assert tv_cuda.choose((768, 768), f32, 72) == "cuda_tiles"
+    # The serial tiles: 64 x 120 windows (48 x 104 interiors) in float32,
+    # 64 x 60 in float64; the pipelined tiles 64 x 60 and 64 x 30.
+    assert tv_cuda.n_tiles((256, 256), f32) == 6 * 3
+    assert tv_cuda.n_tiles((2048, 2048), f32) == 43 * 20
+    assert tv_cuda.n_tiles((768, 768), f32, pipelined=True) == 16 * 18
+    assert tv_cuda.n_tiles((100, 224), F64) == 3 * 6
+    assert tv_cuda.tile_interior(f32) == (48, 104)
+    assert tv_cuda.tile_interior(F64) == (48, 44)
+    assert tv_cuda.tile_interior(f32, pipelined=True) == (48, 44)
+    assert tv_cuda.tile_interior(F64, pipelined=True) == (48, 14)
     assert tv_cuda.resolve((2048, 2048), f32, "cpu") == "plain"
     assert tv_cuda.resolve((2048, 2048), f32, torch.device("cpu")) == "plain"
     assert set(tv_cuda.KERNEL_NAMES) >= {"cuda_resident", "cuda_tiles", "plain"}
-    assert tv_cuda.tile_interior(torch.float32) == (48, 48)
-    assert tv_cuda.tile_interior(torch.float64) == (48, 16)
+    # A card whose CTAs may use less shared memory takes the tiles sooner.
+    assert tv_cuda.choose((512, 512), f32, 132) == "cuda_resident"
+    assert tv_cuda.choose((512, 512), f32, 132, smem_optin=80_000) == "cuda_tiles"
+    # The pipelined tiles are pinned by a method of their own; on a CPU
+    # tensor it is the plain loop, bitwise.
+    assert tv.PIPELINED in tv_cuda.KERNEL_NAMES
+    w = torch.tensor(np.random.default_rng(9).standard_normal((9, 11)))
+    ref = tv.prox_tv(0.1, w, n_iter=6, method="xla")
+    assert torch.equal(tv.prox_tv(0.1, w, n_iter=6, method=tv.PIPELINED), ref)
+    assert torch.equal(tv_cuda.fgp(0.1, w, w * 0, w * 0, 6, pipelined=True)[0], ref)
+    for method in ("cuda_resident", "cuda_tiles"):
+        with pytest.raises(ValueError, match="method"):
+            tv.prox_tv(0.1, w, method=method)
 
 
 def test_sweep_plan_replays_t_like_the_plain_loop():

@@ -464,15 +464,29 @@ def _normalize_problem(
     return f_v, g_v, jac_v, prox_v, m, scalar_mode
 
 
-def _solve_device(x0: Any, params: Any) -> torch.device:
+def data_device(device: Any) -> torch.device:
+    """The device that data given as numpy arrays or Python values go to:
+    ``device`` (the entry points' default is ``"cuda"``).  Raises if that is
+    a CUDA device and there is none: nothing falls back to the CPU; pass
+    ``device="cpu"`` or CPU tensors for a CPU solve."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "zfista_tpu_torch: no CUDA device for data given as numpy or Python "
+            "values; pass device='cpu' (or CPU tensors) to solve on the CPU"
+        )
+    return dev
+
+
+def _solve_device(x0: Any, params: Any, device: Any) -> torch.device:
     """The solve's device, from the tensors passed in: ``x0``'s if it is a
-    tensor, else that of the first tensor in ``params``, else the CPU."""
+    tensor, else that of the first tensor in ``params``, else ``device``."""
     if isinstance(x0, torch.Tensor):
         return x0.device
     for leaf in params if isinstance(params, (tuple, list)) else (params,):
         if isinstance(leaf, torch.Tensor):
             return leaf.device
-    return torch.device("cpu")
+    return data_device(device)
 
 
 def _to_device(v: Any, dev: torch.device) -> Array:
@@ -509,6 +523,7 @@ def minimize_proximal_gradient(
     adaptive_restart: bool = False,
     project_momentum: bool = False,
     params: Any = None,
+    device: Any = "cuda",
 ) -> SolveResult:
     r"""Minimize :math:`F(x) = f(x) + g(x)` (scalar- or vector-valued).
 
@@ -517,8 +532,10 @@ def minimize_proximal_gradient(
     tensors; ``jac_f=None`` derives the Jacobian with ``torch.func``.
     ``params`` (optional tuple) is passed as every callable's trailing
     argument.  The solve runs on ``x0``'s device when ``x0`` is a tensor,
-    else on that of the first tensor in ``params``, else on the CPU; every
-    tensor of the solve stays there.
+    else on that of the first tensor in ``params``, else on ``device``
+    (default ``"cuda"``; a machine with no card raises, and
+    ``device="cpu"`` asks for the CPU); every tensor of the solve stays
+    there.
 
     Options, as in the JAX package: backtracking (``decay_rate < 1``) or a
     fixed step (``decay_rate == 1``), ``max_backtrack_iter``,
@@ -563,7 +580,7 @@ def minimize_proximal_gradient(
         raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
     start = _time.perf_counter()
 
-    dev = _solve_device(x0, params)
+    dev = _solve_device(x0, params, device)
     x0 = torch.as_tensor(x0, device=dev)
     if not x0.is_floating_point():
         x0 = x0.to(torch.get_default_dtype())

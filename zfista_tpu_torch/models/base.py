@@ -131,10 +131,12 @@ class Problem:
         return self._prox(weight, x)
 
     # -- solver entry points --------------------------------------------------
-    def minimize_proximal_gradient(self, x0, **kwargs):
-        """Solve from ``x0`` (on ``x0``'s device when it is a tensor)."""
+    def minimize_proximal_gradient(self, x0, device: Any = "cuda", **kwargs):
+        """Solve from ``x0``: on its device when it is a tensor (a CPU tensor
+        asks for the CPU), else on ``device`` (default ``"cuda"``; a machine
+        with no card raises)."""
         return minimize_proximal_gradient(
-            self.f, self.g, self.jac_f, self.prox_wsum_g, x0, **kwargs
+            self.f, self.g, self.jac_f, self.prox_wsum_g, x0, device=device, **kwargs
         )
 
     solve = minimize_proximal_gradient

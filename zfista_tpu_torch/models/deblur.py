@@ -28,10 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from zfista_tpu_torch._typing import Array
-from zfista_tpu_torch.core.solver import minimize_proximal_gradient, run_masked
+from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient, run_masked
 from zfista_tpu_torch.ops import tv_cuda
 from zfista_tpu_torch.ops.precision import conv2d_hp, matmul_hp
-from zfista_tpu_torch.ops.tv import check_method, prox_tv, tv2d
+from zfista_tpu_torch.ops.tv import PIPELINED, check_method, prox_tv, tv2d
 
 
 def gaussian_kernel(size: int = 9, sigma: float = 4.0) -> np.ndarray:
@@ -163,11 +163,11 @@ def synthetic_cameraman(
     return torch.as_tensor(img, dtype=dtype, device=device)
 
 
-def _as_image(observed: Any) -> Array:
+def _as_image(observed: Any, device: Any) -> Array:
     if isinstance(observed, torch.Tensor):
         b = observed
     else:  # a copy: the caller's array may change later
-        b = torch.tensor(np.asarray(observed))
+        b = torch.tensor(np.asarray(observed), device=data_device(device))
     if not b.is_floating_point():
         b = b.to(torch.get_default_dtype())
     return b
@@ -181,11 +181,14 @@ class TVDeblur:
     :func:`zfista_tpu_torch.ops.tv.prox_tv` (``prox_iter`` dual iterations
     per outer prox call), so it is INEXACT; with the fixed step
     ``lr = 1/L`` the inexactness acts as a small perturbation.  The solve
-    runs on ``observed``'s device (pass a CUDA tensor for the card).
+    runs on ``observed``'s device: a tensor keeps its own (a CPU tensor
+    asks for the CPU), and a numpy image goes to ``device`` (default
+    ``"cuda"``; a machine with no card raises).
 
     ``prox_method``: ``"auto"`` (default) and ``"pallas"`` run a CUDA FGP
     kernel per prox call on a CUDA image and the plain loop on a CPU one;
-    ``"xla"`` forces the plain loop everywhere.
+    ``"cuda_tiles_pipelined"`` pins the pipelined tile kernel on a CUDA
+    image; ``"xla"`` forces the plain loop everywhere.
     """
 
     def __init__(
@@ -196,8 +199,9 @@ class TVDeblur:
         prox_iter: int = 30,
         isotropic: bool = True,
         prox_method: str = "auto",
+        device: Any = "cuda",
     ) -> None:
-        self.b = _as_image(observed)
+        self.b = _as_image(observed, device)
         if self.b.ndim != 2:
             raise ValueError("observed must be a 2-D image")
         self.kernel = gaussian_kernel() if kernel is None else kernel
@@ -251,8 +255,10 @@ class TVDeblur:
         loop bitwise on the card, but a resume that wants bitwise
         continuation should still compare the recorded kernel.
         """
-        if self.prox_method == "xla":
+        if self.prox_method == "xla" or self.b.device.type != "cuda":
             resolved = "plain"
+        elif self.prox_method == PIPELINED:
+            resolved = PIPELINED
         else:
             resolved = tv_cuda.resolve(tuple(self.b.shape), self.b.dtype, self.b.device)
         return {

@@ -15,10 +15,13 @@ iteration (matvec-only).
 
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 from zfista_tpu_torch._typing import Array
-from zfista_tpu_torch.core.solver import minimize_proximal_gradient
+from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.base import Problem
 from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp
 from zfista_tpu_torch.ops.prox import soft_threshold
@@ -55,12 +58,17 @@ class Lasso(Problem):
     Matches the reference's test formulation ``f = ||Ax-b||²`` (no 1/2),
     so ``∇f = 2 Aᵀ(Ax−b)`` and ``L = 2 λ_max(AᵀA)``.
 
-    ``A`` and ``b`` may be numpy arrays (kept on the CPU) or tensors; the
-    solve runs on ``A``'s device.
+    ``A`` and ``b`` may be tensors, which keep their device (a CPU tensor
+    asks for the CPU), or numpy arrays, which go to ``device`` (default
+    ``"cuda"``; a machine with no card raises).  The solve runs on ``A``'s
+    device.
     """
 
-    def __init__(self, A, b, l1_ratio: float, l2_ratio: float = 0.0) -> None:
-        A = torch.as_tensor(A)
+    def __init__(
+        self, A, b, l1_ratio: float, l2_ratio: float = 0.0, device: Any = "cuda"
+    ) -> None:
+        if not isinstance(A, torch.Tensor):
+            A = torch.as_tensor(np.asarray(A), device=data_device(device))
         if not A.is_floating_point():
             # An integer A would truncate the λ/μ scalars packed with it
             # into the params tuple (a silently unregularized solve).
@@ -100,6 +108,13 @@ class Lasso(Problem):
         """``L = 2 λ_max(AᵀA) (+ μ)`` — use ``lr = 1/L`` with
         ``decay_rate=1`` for the fixed-step fast path."""
         return float(2 * operator_norm_sq(self.A, n_iter, generator) + self.l2_ratio)
+
+    def minimize_proximal_gradient(self, x0, **kwargs):
+        """Solve from ``x0``, cast to ``A``'s dtype and moved to its device."""
+        x0 = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
+        return super().minimize_proximal_gradient(x0, **kwargs)
+
+    solve = minimize_proximal_gradient
 
     def solve_fixed_step(self, x0, **kwargs):
         """Fixed-step FISTA at ``lr = 1/L`` (no backtracking) — the

@@ -5,8 +5,8 @@ Build model, the same as :mod:`zfista_tpu.native` uses for its g++ kernels:
 ``extern "C"`` interface, which :mod:`ctypes` loads.  No PyTorch headers
 and no ``ninja`` are involved, so a build takes seconds.  The library is
 cached under ``zfista_tpu_torch/_build/`` keyed by a hash of the source,
-the flags and the compiler version, so a rebuild happens only when one of
-them changes.
+its headers, the flags and the compiler version, so a rebuild happens
+only when one of them changes.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.  The
 caller asked for a CUDA kernel on a CUDA tensor, and a silent substitute
@@ -72,11 +72,13 @@ def _nvcc_version(nvcc: str) -> bytes:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``_build/`` (if not cached) and
-    return the library's path."""
+    return the library's path.  The cache key covers the source and the
+    headers (``csrc/*.cuh``) it may include."""
     src = CSRC / f"{name}.cu"
     nvcc = find_nvcc()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode() + _nvcc_version(nvcc)
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode() + _nvcc_version(nvcc)
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{tag}.so"
     if out.exists():

@@ -19,6 +19,9 @@ Where the dual loop runs (``method``):
   temporally blocked 2-D tiles); on a CPU tensor, the plain loop, as the
   JAX package runs its XLA loop off the TPU.  2-D tiles cover any image
   shape, so on a card ``"auto"`` always reaches a kernel;
+* ``"cuda_tiles_pipelined"`` (the port's own): the pipelined tile kernel
+  on a CUDA tensor, which ``"auto"`` picks at no size; the plain loop on a
+  CPU one;
 * ``"pallas_interpret"``: raises.  The port has no kernel interpreter; its
   CPU path is the plain loop.
 
@@ -32,7 +35,11 @@ import torch
 
 from zfista_tpu_torch._typing import Array, Scalar
 
-METHODS = ("auto", "xla", "pallas", "pallas_interpret")
+#: The method that pins the pipelined tile kernel, which ``"auto"`` picks
+#: at no size (:func:`zfista_tpu_torch.ops.tv_cuda.choose`); on a CPU
+#: tensor it runs the plain loop like ``"auto"``.
+PIPELINED = "cuda_tiles_pipelined"
+METHODS = ("auto", "xla", "pallas", "pallas_interpret", PIPELINED)
 
 
 def _grad2d(u: Array) -> tuple[Array, Array]:
@@ -69,8 +76,8 @@ def check_method(method: str) -> str:
     """``method`` if the port runs it, else ValueError."""
     if method not in METHODS:
         raise ValueError(
-            "method must be 'auto', 'xla', 'pallas' or 'pallas_interpret';"
-            f" got {method!r}"
+            "method must be 'auto', 'xla', 'pallas', 'pallas_interpret' or "
+            f"{PIPELINED!r}; got {method!r}"
         )
     if method == "pallas_interpret":
         raise ValueError(
@@ -111,8 +118,12 @@ def prox_tv(
         p0 = q0 = torch.zeros_like(v)
     else:
         p0, q0 = dual0
-    fgp = tv_cuda.fgp_plain if method == "xla" else tv_cuda.fgp
-    u, p, q = fgp(lam, v, p0, q0, n_iter=n_iter, isotropic=isotropic)
+    if method == "xla":
+        u, p, q = tv_cuda.fgp_plain(lam, v, p0, q0, n_iter=n_iter, isotropic=isotropic)
+    else:
+        u, p, q = tv_cuda.fgp(
+            lam, v, p0, q0, n_iter=n_iter, isotropic=isotropic, pipelined=method == PIPELINED
+        )
     u = torch.where(lam > 0, u, v)
     if return_dual:
         return u, (p, q)

@@ -9,9 +9,10 @@ the JAX package, callers handle ``lam <= 0`` (``prox_tv`` returns ``v``).
 The three kernels, one for each TPU kernel:
 
 * :func:`fgp_resident` (``csrc/fgp_resident.cu``) replaces ``fgp_pallas``:
-  all ``n_iter`` iterations in ONE cooperative launch, the fields kept in
-  the 50 MB L2 and a grid-wide barrier between iterations.  Taken for
-  small images (:func:`choose` is the rule; :func:`fits_l2` bounds it).
+  all ``n_iter`` iterations in ONE cooperative launch, one band of rows
+  per SM held in shared memory, the bands' edge rows exchanged and a grid
+  barrier between iterations.  Taken for small images (:func:`choose` is
+  the rule; :func:`fits_resident` bounds it).
 * :func:`fgp_tiles` (``csrc/fgp_tiles.cu``) replaces ``fgp_pallas_strips``:
   temporal blocking over 2-D tiles with an ``HALO``-cell halo on all four
   sides; one sweep advances every tile ``HALO`` iterations in shared
@@ -19,15 +20,17 @@ The three kernels, one for each TPU kernel:
   ``pipelined=False`` is one CTA per tile (the serial strip kernel);
   ``pipelined=True`` is persistent CTAs that prefetch the next tile's
   window with ``cp.async`` while the current one computes (the
-  double-buffered strip kernel).  Both run one ``__device__`` tile
-  function, so they are bitwise equal by construction.
+  double-buffered strip kernel; a smaller window, and :func:`choose` no
+  longer picks it).  Both run one ``__device__`` tile function, so they
+  are bitwise equal by construction.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel or raises.  :func:`fgp_plain` is the whole-image eager
 loop (the XLA ``fori_loop``'s counterpart).  :func:`fgp_tiles_plain` is the
-tile kernel's decomposition — tiles, halos, sweeps of ``HALO`` iterations
-then a remainder, the momentum scalar handed from sweep to sweep — in
-eager PyTorch, so the CPU suite can check the tiling plan bitwise against
+tile kernels' decomposition — tiles, halos, sweeps of ``HALO`` iterations
+then a remainder, the momentum scalar handed from sweep to sweep — and
+:func:`fgp_resident_plain` the whole-image kernel's bands, in eager
+PyTorch, so the CPU suite can check both plans bitwise against
 :func:`fgp_plain`.  The kernels are built with ``-fmad=false`` and compute
 the plain loop's operations in its order, so on the card all of them equal
 :func:`fgp_plain` bitwise.
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -60,26 +63,36 @@ launch_counts: dict[str, int] = {
 #: ``HALO`` iterations a tile's interior is the whole-image iterate.
 HALO = 8
 
-#: Shared-memory window of one tile, halo included, by dtype (rows, cols).
-#: Must match ``Window<T>`` in csrc/fgp_tiles.cu (the launcher checks).
-#: Six window fields (v, p, q, r, s and the stencil's w) are 96 KB in
-#: either dtype, two CTAs per SM; the pipelined kernel's second slot of
-#: five fields makes 176 KB, one CTA per SM.
+#: Shared-memory window of one tile of the serial kernel, halo included,
+#: by dtype (rows, cols).  Must match ``Window<T, false>`` in
+#: csrc/fgp_tiles.cu (the launcher checks).  Columns are 30 per warp
+#: column (warps overlap by two lanes); the window holds v, p, q and two
+#: copies of r, s: 215 KB in either dtype, one CTA per SM.
 TILE_WINDOW: dict[torch.dtype, tuple[int, int]] = {
-    torch.float32: (64, 64),
-    torch.float64: (64, 32),
+    torch.float32: (64, 120),
+    torch.float64: (64, 60),
+}
+#: The pipelined kernel's window (``Window<T, true>``): two slots of five
+#: fields and one shared second copy of r, s make 184 KB.
+PIPELINED_WINDOW: dict[torch.dtype, tuple[int, int]] = {
+    torch.float32: (64, 60),
+    torch.float64: (64, 30),
 }
 
-#: The whole-image kernel keeps 12 fields live (v, p0, q0, two sets of
-#: p/q/r/s, u).  It is taken only while they fit in half the H100's 50 MB
-#: L2 (512² float32 is 12.6 MB, 1024² is 50.3 MB), and :func:`choose`
-#: narrows that further by measurement.
-L2_BUDGET_BYTES = 24 * 2**20
-RESIDENT_FIELDS = 12
-
-#: CTAs of the serial tile kernel that share one SM (96 KB of shared
-#: memory each); the pipelined kernel runs one persistent CTA per SM.
-SERIAL_CTAS_PER_SM = 2
+#: The whole-image kernel cuts the image into one band of rows per SM and
+#: holds each band, with a halo row above and below, in its CTA's shared
+#: memory: ``RESIDENT_FIELDS`` fields of ``ceil(H / SMs) + 2`` rows, within
+#: what one CTA may opt in to (227 KB on an H100, ``SMEM_OPTIN_BYTES``;
+#: :func:`resolve` reads the card's own).  The bands exchange their edge
+#: rows every iteration.  :func:`resident_plan` is the only plan: the
+#: wrapper hands it to csrc/fgp_resident.cu, which checks it.
+RESIDENT_FIELDS = 7
+SMEM_OPTIN_BYTES = 232_448
+#: Columns one warp owns in the column walk (csrc/fgp_walk.cuh kLanes), the
+#: warps of one whole-image CTA, and the most rows one warp walks.
+WALK_LANES = 30
+RESIDENT_WARPS = 32
+RESIDENT_BAND_MAX = 16
 
 #: ``checkpoint_meta`` names of the kernels :func:`resolve` can pick.
 KERNEL_NAMES = ("cuda_resident", "cuda_tiles", "cuda_tiles_pipelined", "plain")
@@ -89,53 +102,96 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_CELLS = 2**30
 
 
-def fits_l2(shape: tuple[int, ...], dtype: torch.dtype) -> bool:
-    """True if the whole-image kernel's fields fit its L2 budget."""
-    n = 1
-    for d in shape:
-        n *= int(d)
+class ResidentPlan(NamedTuple):
+    """The whole-image kernel's launch: ``rows`` image rows per CTA, ``ctas``
+    CTAs, ``band`` rows per warp, ``warps`` per CTA, ``smem`` bytes of
+    shared memory per CTA."""
+
+    rows: int
+    ctas: int
+    band: int
+    warps: int
+    smem: int
+
+
+def resident_plan(shape: tuple[int, ...], dtype: torch.dtype, sm_count: int) -> ResidentPlan:
+    """The whole-image kernel's plan for an image of ``shape`` on
+    ``sm_count`` SMs: one band of rows per SM, cut into bands per warp as
+    short as :data:`RESIDENT_WARPS` warps allow (shorter walks per
+    iteration), at most :data:`RESIDENT_BAND_MAX` rows."""
+    H, W = (int(d) for d in shape)
+    rows = -(-H // sm_count)
     item = torch.empty((), dtype=dtype).element_size()
-    return RESIDENT_FIELDS * n * item <= L2_BUDGET_BYTES
+    groups = -(-W // WALK_LANES)
+    per_col = max(RESIDENT_WARPS // groups, 1)
+    band = min(-(-rows // per_col), RESIDENT_BAND_MAX)
+    warps = min(groups * -(-rows // band), RESIDENT_WARPS)
+    return ResidentPlan(
+        rows, -(-H // rows), band, warps, RESIDENT_FIELDS * item * (rows + 2) * W
+    )
 
 
-def tile_interior(dtype: torch.dtype) -> tuple[int, int]:
+def fits_resident(
+    shape: tuple[int, ...], dtype: torch.dtype, sm_count: int,
+    smem_optin: int = SMEM_OPTIN_BYTES,
+) -> bool:
+    """True if the whole-image kernel can hold the image: one band per SM
+    fits the ``smem_optin`` bytes a CTA may use (on an H100: 768² float32
+    and 512² float64 do, 1024² float32 does not)."""
+    H, W = (int(d) for d in shape)
+    return H >= 1 and W >= 1 and resident_plan(shape, dtype, sm_count).smem <= smem_optin
+
+
+def tile_window(dtype: torch.dtype, pipelined: bool = False) -> tuple[int, int]:
+    """Rows and columns of one tile's window, halo included."""
+    return (PIPELINED_WINDOW if pipelined else TILE_WINDOW)[dtype]
+
+
+def tile_interior(dtype: torch.dtype, pipelined: bool = False) -> tuple[int, int]:
     """Rows and columns of one tile's interior (its window less the halo)."""
-    wh, ww = TILE_WINDOW[dtype]
+    wh, ww = tile_window(dtype, pipelined)
     return wh - 2 * HALO, ww - 2 * HALO
 
 
-def n_tiles(shape: tuple[int, ...], dtype: torch.dtype) -> int:
-    """Tiles one sweep of the tile kernels cuts an image into."""
-    th, tw = tile_interior(dtype)
+def n_tiles(shape: tuple[int, ...], dtype: torch.dtype, pipelined: bool = False) -> int:
+    """Tiles one sweep of a tile kernel cuts an image into."""
+    th, tw = tile_interior(dtype, pipelined)
     H, W = (int(d) for d in shape)
     return -(-H // th) * -(-W // tw)
 
 
-def choose(shape: tuple[int, ...], dtype: torch.dtype, sm_count: int) -> str:
-    """The dispatch rule on a card with ``sm_count`` SMs, measured on an
-    NVIDIA H100 80GB HBM3 at 700 W (ms per 30-iteration call, float32;
-    PERF.md).  The tile kernels run one CTA per tile, so:
+def choose(
+    shape: tuple[int, ...], dtype: torch.dtype, sm_count: int,
+    smem_optin: int = SMEM_OPTIN_BYTES,
+) -> str:
+    """The dispatch rule on a card with ``sm_count`` SMs and ``smem_optin``
+    bytes of shared memory per CTA, measured on an
+    NVIDIA H100 80GB HBM3 at 700 W (device ms per prox call, float32,
+    n_iter 30; PERF.md, chip_smoke.py phase 8):
 
-    * the whole-image kernel while its fields fit the L2 budget AND the
-      tiles would leave over half the SMs idle (256² float32: 36 tiles,
-      0.090 ms against the pipelined tiles' 0.138; 512²: 121 tiles, 0.190
-      against 0.141);
-    * the pipelined tiles while the serial kernel would run all its tiles
-      in one wave (there its co-resident CTAs cannot overlap one another's
-      loads, and the prefetch can: 768², 256 tiles, 0.231 against 0.253);
-    * the serial tiles beyond (1024², 484 tiles: 0.401 against 0.522).
+    * the whole-image kernel while one band of rows per SM fits a CTA's
+      shared memory (:func:`fits_resident`): 256² 0.073 against the serial
+      tiles' 0.172, 512² 0.115 against 0.184, 768² 0.165 against 0.179;
+    * the serial tiles beyond (1024² 0.328, 2048² 1.102).
 
-    On the H100 (132 SMs) the SM rule binds first, at about 384² (7 MB of
-    fields in float32), far under the L2 budget.  :func:`fits_l2` is the
-    guard for a card with more SMs, where the SM rule alone would take the
-    whole-image kernel past the L2.
+    The pipelined tiles have no band: their two slots leave room for a
+    64 x 60 window only, so past one round of tiles per SM they lose to
+    the serial kernel's 64 x 120 (768² 0.268 against 0.179), and below it
+    they tie the whole-image kernel at best (512², 132 tiles: 0.114 against
+    0.115; at n_iter 8 0.032 against 0.036, a band this rule, blind to
+    n_iter, does not draw).  ``prox_tv(method="cuda_tiles_pipelined")``
+    still runs them.
     """
-    tiles = n_tiles(shape, dtype)
-    if fits_l2(shape, dtype) and 2 * tiles < sm_count:
+    if fits_resident(shape, dtype, sm_count, smem_optin):
         return "cuda_resident"
-    if tiles <= SERIAL_CTAS_PER_SM * sm_count:
-        return "cuda_tiles_pipelined"
     return "cuda_tiles"
+
+
+def _card(device: Any) -> tuple[int, int]:
+    """SMs of the CUDA ``device``, and the shared memory one CTA may opt in
+    to."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
 def resolve(shape: tuple[int, ...], dtype: torch.dtype, device: Any) -> str:
@@ -145,23 +201,22 @@ def resolve(shape: tuple[int, ...], dtype: torch.dtype, device: Any) -> str:
     device = torch.device(device)
     if device.type != "cuda":
         return "plain"
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return choose(shape, dtype, sms)
+    return choose(shape, dtype, *_card(device))
 
 
 def fgp(
     lam: Scalar, v: Array, p0: Array, q0: Array, n_iter: int = 50,
-    isotropic: bool = True,
+    isotropic: bool = True, pipelined: bool = False,
 ) -> tuple[Array, Array, Array]:
-    """The dual loop by the kernel :func:`resolve` picks for ``v``."""
+    """The dual loop by the kernel :func:`resolve` picks for ``v``, or by
+    the pipelined tiles when ``pipelined``; a CPU tensor takes the plain
+    loop either way."""
     kind = resolve(tuple(v.shape), v.dtype, v.device)
     if kind == "plain":
         return fgp_plain(lam, v, p0, q0, n_iter, isotropic)
-    if kind == "cuda_resident":
+    if kind == "cuda_resident" and not pipelined:
         return fgp_resident(lam, v, p0, q0, n_iter, isotropic)
-    return fgp_tiles(
-        lam, v, p0, q0, n_iter, isotropic, pipelined=kind == "cuda_tiles_pipelined"
-    )
+    return fgp_tiles(lam, v, p0, q0, n_iter, isotropic, pipelined=pipelined)
 
 
 # ---------------------------------------------------------------------------
@@ -216,10 +271,10 @@ def fgp_plain(
 
 @functools.cache
 def _sweeps(
-    n_iter: int, dtype: torch.dtype, device: torch.device
+    n_iter: int, dtype: torch.dtype, device: torch.device, halo: int = HALO
 ) -> tuple[tuple[float, int], ...]:
     """``(t at the sweep's start, iterations)`` for each tile sweep of an
-    ``n_iter`` loop: sweeps of ``HALO``, then the remainder.
+    ``n_iter`` loop: sweeps of ``halo``, then the remainder.
 
     ``t`` does not depend on the data and restarts at 1 on every call, so
     its start values are replayed once per ``(n_iter, dtype, device)`` with
@@ -234,7 +289,7 @@ def _sweeps(
     out = []
     done = 0
     while done < n_iter:
-        k = min(HALO, n_iter - done)
+        k = min(halo, n_iter - done)
         out.append((float(t), k))
         for _ in range(k):
             t = _t_next(t)
@@ -292,39 +347,63 @@ def _advance_window(
     return [p, q, r, s]
 
 
-def fgp_tiles_plain(
-    lam: Scalar, v: Array, p0: Array, q0: Array, n_iter: int = 50,
-    isotropic: bool = True,
+def _tiled_plain(
+    lam: Scalar, v: Array, p0: Array, q0: Array, n_iter: int, isotropic: bool,
+    window: tuple[int, int], halo: int,
 ) -> tuple[Array, Array, Array]:
-    """The tile kernel's plan in eager PyTorch, bitwise equal to
-    :func:`fgp_plain`.
-
-    Each sweep cuts the image into tiles whose interiors cover it; a tile's
-    window adds ``HALO`` cells on every side (cells outside the image are
-    zero).  The sweep reads one buffer set and writes its interior into
-    fresh tensors — outputs never alias inputs, or a later tile's halo would
-    see an earlier tile's new values.  The window is the kernel's
-    (:data:`TILE_WINDOW`).
-    """
+    """Temporal blocking in eager PyTorch: sweeps of ``halo`` iterations
+    (then the remainder) over tiles whose ``window`` adds ``halo`` cells on
+    every side of the interior; cells outside the image are zero.  Each
+    sweep reads one buffer set and writes its interiors into fresh tensors
+    — outputs never alias inputs, or a later tile's halo would see an
+    earlier tile's new values."""
     lam = _lam_of(lam, v)
     step = _step_of(lam)
     H, W = v.shape
-    wh, ww = TILE_WINDOW[v.dtype]
-    th, tw = tile_interior(v.dtype)
+    wh, ww = window
+    th, tw = wh - 2 * halo, ww - 2 * halo
     p, q, r, s = p0, q0, p0, q0
-    for t0, k in _sweeps(int(n_iter), v.dtype, v.device):
+    for t0, k in _sweeps(int(n_iter), v.dtype, v.device, halo):
         t = torch.tensor(t0, dtype=v.dtype, device=v.device)
         out = [torch.empty_like(v) for _ in range(4)]
         for i0 in range(0, H, th):
             for j0 in range(0, W, tw):
-                r0, c0 = i0 - HALO, j0 - HALO
+                r0, c0 = i0 - halo, j0 - halo
                 win = [_window(f, r0, c0, wh, ww) for f in (v, p, q, r, s)]
                 new = _advance_window(win, r0, c0, H, W, lam, step, t, k, isotropic)
                 i1, j1 = min(i0 + th, H), min(j0 + tw, W)
                 for o, f in zip(out, new):
-                    o[i0:i1, j0:j1] = f[HALO : HALO + i1 - i0, HALO : HALO + j1 - j0]
+                    o[i0:i1, j0:j1] = f[halo : halo + i1 - i0, halo : halo + j1 - j0]
         p, q, r, s = out
     return v - lam * _div2d(p, q), p, q
+
+
+def fgp_tiles_plain(
+    lam: Scalar, v: Array, p0: Array, q0: Array, n_iter: int = 50,
+    isotropic: bool = True, pipelined: bool = False,
+) -> tuple[Array, Array, Array]:
+    """The tile kernels' plan in eager PyTorch, bitwise equal to
+    :func:`fgp_plain`: tiles with ``HALO``-cell halos, sweeps of ``HALO``
+    iterations, the serial or the pipelined kernel's window
+    (:func:`tile_window`)."""
+    return _tiled_plain(
+        lam, v, p0, q0, n_iter, isotropic, tile_window(v.dtype, pipelined), HALO
+    )
+
+
+def fgp_resident_plain(
+    lam: Scalar, v: Array, p0: Array, q0: Array, n_iter: int = 50,
+    isotropic: bool = True, sm_count: int = 132,
+) -> tuple[Array, Array, Array]:
+    """The whole-image kernel's plan in eager PyTorch, bitwise equal to
+    :func:`fgp_plain`: one band of ``ceil(H / sm_count)`` rows per SM
+    (:func:`resident_plan`), a halo row above and below refreshed from the
+    neighbours every iteration.  Used by no main path; the CPU suite checks
+    the plan."""
+    rows = resident_plan(tuple(v.shape), v.dtype, sm_count).rows
+    return _tiled_plain(
+        lam, v, p0, q0, n_iter, isotropic, (rows + 2, v.shape[1] + 2), 1
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +472,10 @@ def fgp_resident(
     isotropic: bool = True,
 ) -> tuple[Array, Array, Array]:
     """All ``n_iter`` dual iterations in one cooperative launch of
-    csrc/fgp_resident.cu (the counterpart of ``fgp_pallas``).  CPU tensors
-    take :func:`fgp_plain`."""
+    csrc/fgp_resident.cu (the counterpart of ``fgp_pallas``): one band of
+    rows per SM, held in shared memory, a grid barrier per iteration.
+    Raises for an image whose bands do not fit (:func:`fits_resident`).
+    CPU tensors take :func:`fgp_plain`."""
     if v.device.type == "cpu":
         return fgp_plain(lam, v, p0, q0, n_iter, isotropic)
     lam = _checked("fgp_resident", lam, v, p0, q0)
@@ -404,17 +485,25 @@ def fgp_resident(
     q = torch.empty_like(v)
     if v.numel() == 0:
         return u, p, q
-    # The second buffer set and the first set's r/s: the kernel ping-pongs
-    # between (p, q, scratch[0:2]) and scratch[2:6], ending in (p, q).
-    scratch = torch.empty((6, H, W), dtype=v.dtype, device=v.device)
+    sms, optin = _card(v.device)
+    if not fits_resident((H, W), v.dtype, sms, optin):
+        raise ValueError(
+            f"fgp_resident: one band of a {H}x{W} {v.dtype} image per SM does "
+            "not fit a CTA's shared memory (fits_resident); the tile kernels take it"
+        )
+    plan = resident_plan((H, W), v.dtype, sms)
+    # The exchange buffer of the bands' edge rows: [2 copies][CTAs][r, s
+    # of the first row, r, s of the last][W].
+    xchg = torch.empty((2, plan.ctas, 4, W), dtype=v.dtype, device=v.device)
     fn = _entry(
         "fgp_resident", f"zt_fgp_resident_{_SUFFIX[v.dtype]}", 8,
-        (ctypes.c_int,) * 4,
+        (ctypes.c_int,) * 8,
     )
     code = fn(
         v.data_ptr(), p0.data_ptr(), q0.data_ptr(), lam.data_ptr(),
-        p.data_ptr(), q.data_ptr(), scratch.data_ptr(), u.data_ptr(),
+        p.data_ptr(), q.data_ptr(), u.data_ptr(), xchg.data_ptr(),
         H, W, int(n_iter), int(bool(isotropic)),
+        plan.rows, plan.ctas, plan.band, plan.warps,
         v.device.index, _stream(v),
     )
     _raise_on(code, "fgp_resident", "fgp_resident")
@@ -432,12 +521,12 @@ def fgp_tiles(
     ``u``.  ``pipelined`` picks the persistent, prefetching kernel; the two
     are bitwise equal.  CPU tensors take :func:`fgp_tiles_plain`."""
     if v.device.type == "cpu":
-        return fgp_tiles_plain(lam, v, p0, q0, n_iter, isotropic)
+        return fgp_tiles_plain(lam, v, p0, q0, n_iter, isotropic, pipelined)
     lam = _checked("fgp_tiles", lam, v, p0, q0)
     H, W = v.shape
     name = "fgp_tiles_pipelined" if pipelined else "fgp_tiles"
     sfx = _SUFFIX[v.dtype]
-    wh, ww = TILE_WINDOW[v.dtype]
+    wh, ww = tile_window(v.dtype, pipelined)
     sweep = _entry(
         "fgp_tiles",
         f"zt_fgp_tiles_{'pipelined' if pipelined else 'serial'}_{sfx}",
