@@ -22,24 +22,32 @@ Phases:
 
 1. the card (``nvidia-smi``) and the kernels' build from ``csrc/``, one
    ``nvcc`` per source, all started together;
-2. the fused prox-momentum kernel against its plain version, several sizes;
+2. the fused LASSO kernel's three entries (prox + momentum, the raw step's
+   tail, the solver's step tail) against their plain versions, bitwise,
+   float32 and float64, n from 1 to 10^7, on active, converging, stopped
+   and NaN-carrying states;
 3. one dense FISTA step, fused against plain, at the full problem size;
-4. the LASSO slice through the public entry point: launch counts,
-   agreement with a float64 numpy FISTA loop, convergence, and
-   ``check_every`` chunking bitwise equal to per-step checking;
-5. the card's own times of the LASSO slice and of its kernel;
+4. the LASSO slice through the public entry point: launch counts (the
+   step tail once per step), agreement with a float64 numpy FISTA loop,
+   the routed ``tol_rel`` solve bitwise equal to the fused tail's,
+   convergence, and ``check_every`` chunking bitwise equal to per-step
+   checking;
+5. the card's own times of the LASSO slice and of its kernel's entries,
+   and (run after phase 9) device events and busy time per iteration of
+   the public path and the raw loops, by torch.profiler;
 6. the three FGP kernels against the plain loop, bitwise, from 1x105 to
-   2048x2048 (the tile windows' edges; float64 at 256x256 through the
-   whole-image kernel and at 600x520), both discretizations, cold and warm
-   duals; serial and pipelined tiles bitwise equal; the dual-gap
-   certificate;
+   2048x2048 (the tile windows' edges in float32 and float64; float64 at
+   256x256 through the whole-image kernel and at 600x520), both
+   discretizations, cold and warm duals; serial and pipelined tiles
+   bitwise equal; the dual-gap certificate;
 7. the TV slice through the public entry points: a 500-iteration
    ``TVDeblur.solve`` (launch counts), agreement with a float64 plain-loop
    solve, PSNR, ``check_every`` bitwise, and ``solve_warm`` at 256x256, at
    2048x2048 and (pipelined tiles pinned) at 768x768 on tv_bench's scene;
 8. the card's own times: each FGP kernel, the plain loop and the bound per
-   prox call from 256x256 to 2048x2048 at 30 and 8 dual iterations, and
-   the TV solves' wall time, kernel against plain;
+   prox call from 256x256 to 2048x2048 at 30 and 8 dual iterations, one
+   tile sweep per round of tiles, and the TV solves' wall time, kernel
+   against plain;
 9. backtracking LASSO at full width (``decay_rate=0.5``, ``lr=1``): nit,
    trials per iteration, iter/s against the fixed-step solve, host reads
    per iteration, device busy share; float64 on the card against float64
@@ -80,7 +88,16 @@ M, N, LAM = 2000, 10_000, 0.01
 #: once per matvec (it exceeds the 50 MB L2); the n-vectors add <1 MB.
 BYTES_PER_ITER = 2 * M * N * 4
 KERNEL_SOURCE = "zfista_tpu_torch/csrc/fused_prox_momentum.cu"
-KERNEL_REPLACES = "zfista_tpu/ops/fused.py:62"
+#: The fused LASSO kernel's entries (zfista_tpu_torch.ops.fused wrappers):
+#: the TPU function each replaces.
+LASSO_KERNELS = {
+    "fused_prox_momentum": "zfista_tpu/ops/fused.py:62",
+    "fista_tail": "zfista_tpu/ops/fused.py:144",
+    "lasso_step_tail": "zfista_tpu/ops/fused.py:62",
+}
+#: Phase 2: vector lengths (edge cases, the main path's n, one past it, and
+#: 10^7, past the L2).
+FUSED_CHECK_SIZES = (1, 1000, N, 10_001, 10_000_000)
 #: First iterations of the slice compared with the float64 numpy loop, and
 #: the bound on their relative 2-norm difference: float32 rounding
 #: (eps 6e-8) amplified over 200 momentum steps.
@@ -97,7 +114,8 @@ TV_CHECK_CASES = (
     ((1024, 1024), torch.float32),
     ((2048, 2048), torch.float32),
     # The tile windows' edges: serial 64x120 (interior 48x104), pipelined
-    # 64x60 (interior 48x44) in float32; 64x60 and 64x30 in float64.
+    # 80x60 (interior 64x44) in float32; 64x60 (48x44) and 80x30 (64x14) in
+    # float64.
     ((1, 105), torch.float32),
     ((49, 1), torch.float32),
     ((47, 103), torch.float32),
@@ -106,9 +124,17 @@ TV_CHECK_CASES = (
     ((65, 119), torch.float32),
     ((97, 209), torch.float32),
     ((49, 45), torch.float32),
+    ((63, 43), torch.float32),
+    ((64, 44), torch.float32),
+    ((65, 45), torch.float32),
+    ((81, 59), torch.float32),
+    ((129, 87), torch.float32),
     ((100, 224), torch.float64),
     ((49, 45), torch.float64),
     ((97, 15), torch.float64),
+    ((65, 15), torch.float64),
+    ((64, 14), torch.float64),
+    ((81, 29), torch.float64),
     ((256, 256), torch.float64),  # the cameraman through the whole-image kernel
     ((600, 520), torch.float64),  # a tile-kernel size
 )
@@ -274,6 +300,58 @@ def fgp_times(dev, side: int, n_iter: int, names) -> dict[str, list[float]]:
     return runs
 
 
+def sweep_ms(dev, side: int, k: int, pipelined: bool, reps: int = 50) -> tuple[float, int]:
+    """Device ms of ONE tile sweep of ``k`` <= 8 iterations on a ``side`` x
+    ``side`` float32 image (numpy seed 8, lam 0.05, a feasible dual; no pass
+    for u), and the rounds of tiles it makes: tiles over SMs, rounded up
+    (the pipelined kernel's persistent CTAs walk that many tiles each; the
+    serial kernel's CTAs come in that many waves).  CUDA events over
+    ``reps`` launches behind a stream hold; every launch reads the same
+    buffers, so it times whatever the entry does with them."""
+    import ctypes
+
+    from zfista_tpu_torch.ops import _build, tv_cuda
+
+    rng = np.random.default_rng(8)
+    v, p, q = (
+        torch.tensor(rng.uniform(-0.5, 0.5, (side, side)), dtype=torch.float32, device=dev)
+        for _ in range(3)
+    )
+    lam = torch.tensor(0.05, device=dev)
+    dst = [torch.empty_like(v) for _ in range(4)]
+    wh, ww = tv_cuda.tile_window(torch.float32, pipelined)
+    sweep = _build.entry(
+        "fgp_tiles",
+        f"zt_fgp_tiles_{'pipelined' if pipelined else 'serial'}_f32",
+        10,
+        (ctypes.c_double,) + (ctypes.c_int,) * 6,
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        code = sweep(
+            v.data_ptr(), p.data_ptr(), q.data_ptr(), p.data_ptr(), q.data_ptr(),
+            lam.data_ptr(), *(f.data_ptr() for f in dst),
+            1.0, side, side, k, 1, wh, ww, dev.index, stream,
+        )
+        if code != 0:
+            raise RuntimeError(f"tile sweep launch failed: cudaError {code}")
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        launch()
+    stop.record()
+    stop.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rounds = -(-tv_cuda.n_tiles((side, side), torch.float32, pipelined) // sms)
+    return start.elapsed_time(stop) / reps, rounds
+
+
 def tv_kernel_fns() -> dict:
     from zfista_tpu_torch.ops import tv_cuda
 
@@ -289,6 +367,132 @@ def quiet(fn, *args, **kwargs):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         return fn(*args, **kwargs)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (so +0 != -0), except that a NaN equals any NaN: the
+    kernels write the canonical one, ``torch.amax`` hands on whichever it
+    met."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    same = (a.view(bits) == b.view(bits)) | (torch.isnan(a) & torch.isnan(b))
+    return bool(torch.all(same))
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the entries that are not NaN in both."""
+    d = torch.abs(a.double() - b.double())
+    d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+    return float(torch.max(d)) if d.numel() else 0.0
+
+
+def step_tail_cases(y, g, x, dtype, dev) -> dict:
+    """Phase 2's states for the solver's step tail: keyword arguments of
+    ``fused.lasso_step_tail`` by case name."""
+
+    def scalar(v, dt=dtype):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    base = dict(
+        y=y, grad=g, x=x, t=scalar(3.7), lr=scalar(0.1), lam=scalar(0.5),
+        err=scalar(0.25), nit=scalar(41, torch.int32),
+        nit_internal=scalar(43, torch.int32), converged=scalar(False, torch.bool),
+        failed=scalar(False, torch.bool), a=0.25, b=0.3, tol=0.0, max_iter=1000,
+    )
+    y_nan = y.clone()
+    y_nan[y.numel() // 2] = float("nan")
+    return {
+        "active": base,
+        "converging": dict(base, tol=1e30),
+        "converged": dict(base, converged=scalar(True, torch.bool)),
+        "failed": dict(base, failed=scalar(True, torch.bool)),
+        "at max_iter": dict(base, max_iter=41),
+        "NaN, active": dict(base, y=y_nan, tol=1e30),
+        "NaN, stopped": dict(base, y=y_nan, err=scalar(float("nan")), max_iter=7),
+    }
+
+
+def phase2(dev) -> dict[str, float]:
+    """The fused LASSO kernel's three entries against their plain versions
+    on the card.  Stated tolerance: 0.  The kernel is built with
+    -fmad=false and the plain versions compute in the same operation order,
+    so they are bitwise equal; any difference is a fault."""
+    from zfista_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(1)
+    counts = fused.launch_counts
+    max_err = dict.fromkeys(LASSO_KERNELS, 0.0)
+
+    def held(name, got, ref, what):
+        err = max(abs_err(a, b) for a, b in zip(got, ref))
+        max_err[name] = max(max_err[name], err)
+        if err != 0.0 or not all(same_bits(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{name} vs plain, {what}: max_abs_err {err!r}")
+
+    for dtype in (torch.float32, torch.float64):
+        for n in FUSED_CHECK_SIZES:
+            y, g, x = (
+                torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+                for _ in range(3)
+            )
+            before = dict(counts)
+            scal = [torch.tensor(v, dtype=dtype, device=dev) for v in (0.1, 0.05, 0.3)]
+            held(
+                "fused_prox_momentum",
+                fused.fused_prox_momentum(y, g, x, *scal),
+                fused.fused_prox_momentum_plain(y, g, x, *scal),
+                f"{dtype} n={n}",
+            )
+            scal = [torch.tensor(v, dtype=dtype, device=dev) for v in (3.7, 0.1, 0.5)]
+            held(
+                "fista_tail",
+                fused.fista_tail(y, g, x, *scal),
+                fused.fista_tail_plain(y, g, x, *scal),
+                f"{dtype} n={n}",
+            )
+            cases = step_tail_cases(y, g, x, dtype, dev)
+            flags = {}
+            for what, kw in cases.items():
+                got = fused.lasso_step_tail(**kw)
+                ref = fused.lasso_step_tail_plain(**kw)
+                held("lasso_step_tail", got, ref, f"{dtype} n={n}, {what}")
+                flags[what] = (bool(got.converged), int(got.nit), float(got.err))
+            torch.cuda.synchronize()
+            launched = {k: counts[k] - before[k] for k in counts}
+            log(
+                f"phase 2: {str(dtype)[6:]} n={n}: fused_prox_momentum, fista_tail and "
+                f"lasso_step_tail (states {list(cases)}) == plain bitwise (tolerance 0); "
+                f"launches +{launched}; step tail (converged, nit, err) {flags}"
+            )
+            want = {"fused_prox_momentum": 1, "fista_tail": 1, "lasso_step_tail": len(cases)}
+            if launched != want:
+                raise AssertionError(f"phase 2 launches {launched}, expected {want}")
+            if not (flags["converging"][0] and not flags["active"][0]
+                    and flags["active"][1] == 42 and flags["at max_iter"][1] == 41
+                    and math.isnan(flags["NaN, active"][2])):
+                raise AssertionError(f"phase 2: step tail flags {flags}")
+
+    # err < tol is taken in the tensor's dtype: float32(1e-5) is below the
+    # double 1e-5, so a float32 err of exactly float32(1e-5) converges only
+    # in a comparison that keeps tol in double.
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    e = torch.tensor([1e-5], dtype=torch.float32, device=dev)
+    kw = step_tail_cases(0 * one, -e, 0 * one, torch.float32, dev)["active"]
+    kw.update(lr=one[0].clone(), lam=0 * one[0], tol=1e-5)
+    got, ref = fused.lasso_step_tail(**kw), fused.lasso_step_tail_plain(**kw)
+    held("lasso_step_tail", got, ref, "err == float32(tol)")
+    log(
+        f"phase 2: err == float32(tol) = {float(got.err)!r} against tol 1e-5: converged "
+        f"{bool(got.converged)} in the kernel, {bool(ref.converged)} in the plain version"
+    )
+    torch.cuda.synchronize()
+    left = [int(v) for s_ in fused._SCRATCH.values() for v in s_.cpu()]
+    if any(left):
+        raise AssertionError(f"phase 2: the step tail left its scratch words at {left}")
+    return max_err
 
 
 def phase6(dev) -> dict[str, float]:
@@ -394,9 +598,9 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
     from zfista_tpu_torch.ops import tv_cuda
 
     counts = tv_cuda.launch_counts
-    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64)
-    truth = truth_t.numpy()
-    observed = td.make_blur(td.gaussian_kernel())(truth_t).numpy()
+    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64, device=dev)
+    truth = truth_t.cpu().numpy()
+    observed = td.make_blur(td.gaussian_kernel())(truth_t).cpu().numpy()
     observed = observed + 1e-3 * np.random.default_rng(0).standard_normal(observed.shape)
     b32 = torch.tensor(observed, dtype=torch.float32, device=dev)
     b64 = torch.tensor(observed, dtype=torch.float64, device=dev)
@@ -541,8 +745,22 @@ def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
                 + tv_cuda.choose((n, n), torch.float32, sms)
             )
 
-    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64)
-    observed = td.make_blur(td.gaussian_kernel())(truth_t).numpy()
+    for n, _ in TV_BENCH_RUNS:
+        for k in (tv_cuda.HALO, TV_TIME_ITERS[0] % tv_cuda.HALO):
+            parts = []
+            for pipelined in (False, True):
+                t_ms, rounds = sweep_ms(dev, n, k, pipelined)
+                parts.append(
+                    f"{'pipelined' if pipelined else 'serial'} {t_ms:.4f} in {rounds} "
+                    f"round(s) of tiles, {t_ms / rounds:.4f} per round"
+                )
+            log(
+                f"phase 8 [{card}]: one tile sweep of {k} iterations at {n}x{n} f32, "
+                f"device ms (50 launches, CUDA events): " + "; ".join(parts)
+            )
+
+    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64, device=dev)
+    observed = td.make_blur(td.gaussian_kernel())(truth_t).cpu().numpy()
     observed = observed + 1e-3 * np.random.default_rng(0).standard_normal(observed.shape)
     b32 = torch.tensor(observed, dtype=torch.float32, device=dev)
     solves = {
@@ -580,23 +798,77 @@ def count_host_reads(fn) -> tuple:
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy_us(fn) -> float:
-    """Device time (µs) of ``fn()`` by torch.profiler: the sum of the device
-    events' own time (kernels and copies; one stream, no overlap), as the
-    profiler table's "Self CUDA time total" sums them."""
+def device_events(fn) -> tuple[int, float]:
+    """``fn()``'s device events by torch.profiler: how many there were
+    (kernel launches and copies) and the sum of their own time in µs (one
+    stream, no overlap), as the profiler table's "Self CUDA time total"
+    sums them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return float(
-        sum(
-            e.self_device_time_total
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-        )
+    on_device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    return (
+        sum(e.count for e in on_device),
+        float(sum(e.self_device_time_total for e in on_device)),
     )
+
+
+def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]:
+    """Per iteration of the fixed-step LASSO slice (the module's problem at
+    full width): wall µs without the profiler (three runs in turns, the
+    least), then device events and their busy µs with it, for the public
+    path (``Lasso.solve_fixed_step``, tol 0, ``iters`` iterations) and the
+    raw loops over the fused and the plain dense step.  It drives only the
+    port's public functions, so run from the root of another tree of the
+    repository with this file copied there, it measures that tree."""
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.models.lasso import fista_step_dense
+    from zfista_tpu_torch.ops import fused
+
+    A_np, b_np = make_problem()
+    A, b = torch.as_tensor(A_np, device=dev), torch.as_tensor(b_np, device=dev)
+    prob = Lasso(A, b, LAM)
+    lr_f = 1.0 / prob.lipschitz()
+    lr = torch.tensor(lr_f, dtype=torch.float32, device=dev)
+    lam = torch.tensor(LAM, dtype=torch.float32, device=dev)
+    x0 = torch.zeros(N, dtype=torch.float32, device=dev)
+
+    def raw(step):
+        def run():
+            c = (x0, x0, torch.tensor(1.0, device=dev))
+            for _ in range(iters):
+                c = step(A, b, lam, lr, c)
+        return run
+
+    runs = {
+        "public": lambda: quiet(prob.solve_fixed_step, x0, lr=lr_f, tol=0, max_iter=iters),
+        "raw_fused": raw(fused.fista_step_dense_fused),
+        "raw_plain": raw(fista_step_dense),
+    }
+    for fn in runs.values():
+        fn()
+    walls: dict[str, list[float]] = {k: [] for k in runs}
+    for order in (list(runs), list(reversed(runs)), list(runs)):
+        for k in order:
+            walls[k].append(1e6 * sync_time(runs[k]) / iters)
+    out = {}
+    for k, fn in runs.items():
+        n_events, busy = device_events(fn)
+        out[k] = {
+            "wall_us": min(walls[k]),
+            "launches": n_events / iters,
+            "busy_us": busy / iters,
+        }
+        log(
+            f"lasso loops [{card}]: {k}, {iters} iterations: wall {min(walls[k]):.1f} us/iteration "
+            f"(least of {[round(w, 1) for w in walls[k]]}, no profiler); torch.profiler: "
+            f"{n_events / iters:.2f} device events/iteration, busy {busy / iters:.1f} us/iteration "
+            f"(share of that wall {busy / iters / min(walls[k]):.3f})"
+        )
+    return out
 
 
 def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
@@ -635,7 +907,7 @@ def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
     for k, fn in runs.items():
         r, n_reads = count_host_reads(fn)
         reads[k] = n_reads / r.nit
-    busy = {k: device_busy_us(lambda: quiet(fn)) for k, fn in runs.items()}
+    busy = {k: device_events(lambda: quiet(fn))[1] for k, fn in runs.items()}
     for k in runs:
         wall_us = 1e6 * iters / statistics.mean(rates[k])
         share = busy[k] / wall_us if busy[k] else float("nan")
@@ -927,39 +1199,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.3f} s (in parallel)"
     )
 
-    # -- phase 2: kernel vs plain on the card --------------------------------
-    # Sizes: edge cases, the main path's n=10,000, and 10^7 (past the L2).
-    # Stated tolerance: 0.  The kernel is built with -fmad=false and the
-    # plain version computes in the same operation order, so they are
-    # bitwise equal; any difference is a fault.
-    rng = np.random.default_rng(1)
-    max_err = 0.0
-    for dtype in (torch.float32, torch.float64):
-        for n in (1, 1000, N, 10_001, 10_000_000):
-            y, g, x = (
-                torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
-                for _ in range(3)
-            )
-            scal = [torch.tensor(v, dtype=dtype, device=dev) for v in (0.1, 0.05, 0.3)]
-            before = fused.launch_counts["fused_prox_momentum"]
-            xk, yk = fused.fused_prox_momentum(y, g, x, *scal)
-            launched = fused.launch_counts["fused_prox_momentum"] - before
-            xp, yp = fused.fused_prox_momentum_plain(y, g, x, *scal)
-            torch.cuda.synchronize()
-            err = max(
-                float(torch.max(torch.abs(xk - xp))),
-                float(torch.max(torch.abs(yk - yp))),
-            )
-            max_err = max(max_err, err)
-            log(
-                f"phase 2: fused_prox_momentum {str(dtype)[6:]} n={n}: "
-                f"max_abs_err={err!r} (tolerance 0, bitwise), launches +{launched}"
-            )
-            if err != 0.0 or launched != 1:
-                raise AssertionError(
-                    f"kernel vs plain: err {err!r}, launches {launched}"
-                )
-            del y, g, x, xk, yk, xp, yp
+    # -- phase 2: the fused LASSO kernel vs its plain versions on the card -----
+    lasso_err = phase2(dev)
 
     # -- phase 3: the dense step at the full problem size --------------------
     A_np, b_np = make_problem()
@@ -969,8 +1210,8 @@ def main() -> None:
     L = prob.lipschitz()
     lr = torch.tensor(1.0 / L, dtype=torch.float32, device=dev)
     lam = torch.tensor(LAM, dtype=torch.float32, device=dev)
-    zero = torch.zeros(N, dtype=torch.float32, device=dev)
-    carry = (zero, zero, torch.tensor(1.0, device=dev))
+    zeros_n = torch.zeros(N, dtype=torch.float32, device=dev)
+    carry = (zeros_n, zeros_n, torch.tensor(1.0, device=dev))
     for _ in range(3):  # a carry with nonzero momentum
         carry = fista_step_dense(A, b, lam, lr, carry)
     ref = fista_step_dense(A, b, lam, lr, carry)
@@ -985,19 +1226,21 @@ def main() -> None:
 
     # -- phase 4: the slice through the public entry point --------------------
     x0 = torch.zeros(N, dtype=torch.float32, device=dev)
-    fused.launch_counts["fused_prox_momentum"] = 0
+    lasso_launches = {}
+    zero(fused.launch_counts)  # the main-path solve starts here
     res = Lasso(A, b, LAM).solve_fixed_step(x0, tol=0, max_iter=4000)
     torch.cuda.synchronize()
-    main_launches = fused.launch_counts["fused_prox_momentum"]
+    launched = dict(fused.launch_counts)  # ... and ends here
+    lasso_launches["lasso_step_tail"] = launched["lasso_step_tail"]
     log(
         f"phase 4: Lasso.solve_fixed_step(tol=0, max_iter=4000): nit={res.nit} "
         f"status={res.status} fun={float(res.fun[0])!r} lr={res.lr!r} "
-        f"kernel launches={main_launches}"
+        f"kernel launches={launched}"
     )
     if res.nit != 4000 or not np.all(np.isfinite(res.x)) or res.x.shape != (N,):
         raise AssertionError("slice run: wrong nit or non-finite x")
-    if main_launches < 4000:
-        raise AssertionError(f"slice run launched the kernel {main_launches} times")
+    if launched["lasso_step_tail"] < 4000:
+        raise AssertionError(f"slice run launched the kernels {launched}")
 
     short = Lasso(A, b, LAM).solve_fixed_step(
         x0, lr=res.lr, tol=0, max_iter=AGREE_ITERS
@@ -1010,6 +1253,26 @@ def main() -> None:
     )
     if not rel <= AGREE_RTOL:
         raise AssertionError("slice disagrees with the float64 numpy loop")
+
+    # With tol_rel the step keeps its tail in eager launches around the
+    # kernel's first entry (prox + extrapolation): the same iterates, bitwise.
+    zero(fused.launch_counts)
+    routed = Lasso(A, b, LAM).solve_fixed_step(
+        x0, lr=res.lr, tol=0, tol_rel=1e-30, max_iter=AGREE_ITERS
+    )
+    launched = dict(fused.launch_counts)
+    lasso_launches["fused_prox_momentum"] = launched["fused_prox_momentum"]
+    log(
+        f"phase 4: the same {AGREE_ITERS} iterations with tol_rel=1e-30 (the tail in eager "
+        f"launches): nit={routed.nit}, kernel launches={launched}; x, t, err bitwise "
+        f"equal to the fused tail's: "
+        f"{all(np.array_equal(a, c) for a, c in zip(routed.state, short.state))}"
+    )
+    if launched["fused_prox_momentum"] < AGREE_ITERS or launched["lasso_step_tail"]:
+        raise AssertionError(f"tol_rel solve launched {launched}")
+    for name, a, c in zip(routed.state._fields, routed.state, short.state):
+        if not np.array_equal(a, c):
+            raise AssertionError(f"tol_rel solve differs from the fused tail in State.{name}")
 
     conv = {}
     for ce in (None, 1, 64):
@@ -1051,8 +1314,13 @@ def main() -> None:
         "raw_fused": raw(fused.fista_step_dense_fused),
         "raw_plain": raw(fista_step_dense),
     }
+    zero(fused.launch_counts)  # the raw loop's first run is its main-path run
     for fn in runs.values():  # warm-up: cuBLAS handles, allocator pools
         fn()
+    torch.cuda.synchronize()
+    lasso_launches["fista_tail"] = fused.launch_counts["fista_tail"]
+    if lasso_launches["fista_tail"] != iters:
+        raise AssertionError(f"the raw fused loop launched {dict(fused.launch_counts)}")
     rates: dict[str, list[float]] = {k: [] for k in runs}
     for order in (list(runs), list(reversed(runs)), list(runs)):
         for k in order:
@@ -1065,19 +1333,38 @@ def main() -> None:
             f"{BYTES_PER_ITER / 1e6:.0f} MB/iter"
         )
 
-    kern_ms = {}
+    kern_ms: dict[str, dict[int, tuple[float, float]]] = {k: {} for k in LASSO_KERNELS}
     for n in (N, 10_000_000):
         y, g, x = (torch.randn(n, device=dev) for _ in range(3))
-        scal = [torch.tensor(v, device=dev) for v in (0.1, 0.05, 0.3)]
+        tail_kw = step_tail_cases(y, g, x, torch.float32, dev)["active"]
+        scal = {
+            "fused_prox_momentum": [torch.tensor(v, device=dev) for v in (0.1, 0.05, 0.3)],
+            "fista_tail": [torch.tensor(v, device=dev) for v in (3.7, 0.1, 0.5)],
+        }
+        calls = {
+            "fused_prox_momentum": (
+                lambda: fused.fused_prox_momentum(y, g, x, *scal["fused_prox_momentum"]),
+                lambda: fused.fused_prox_momentum_plain(y, g, x, *scal["fused_prox_momentum"]),
+            ),
+            "fista_tail": (
+                lambda: fused.fista_tail(y, g, x, *scal["fista_tail"]),
+                lambda: fused.fista_tail_plain(y, g, x, *scal["fista_tail"]),
+            ),
+            "lasso_step_tail": (
+                lambda: fused.lasso_step_tail(**tail_kw),
+                lambda: fused.lasso_step_tail_plain(**tail_kw),
+            ),
+        }
         reps = 500 if n == N else 100
-        k_ms = event_ms(lambda: fused.fused_prox_momentum(y, g, x, *scal), reps)
-        p_ms = event_ms(lambda: fused.fused_prox_momentum_plain(y, g, x, *scal), reps)
-        kern_ms[n] = (k_ms, p_ms)
-        log(
-            f"phase 5 [{smi}]: fused_prox_momentum f32 n={n}: kernel {k_ms * 1e3:.2f} us "
-            f"({20 * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at 20 B/elem), "
-            f"plain {p_ms * 1e3:.2f} us"
-        )
+        for name, (kernel, plain) in calls.items():
+            k_ms = event_ms(kernel, reps)
+            p_ms = event_ms(plain, reps)
+            kern_ms[name][n] = (k_ms, p_ms)
+            log(
+                f"phase 5 [{smi}]: {name} f32 n={n}: kernel {k_ms * 1e3:.2f} us per call back "
+                f"to back ({20 * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at 20 B/elem), "
+                f"plain {p_ms * 1e3:.2f} us (host-bound at n={N})"
+            )
 
     t0 = time.perf_counter()
     tv_err = phase6(dev)
@@ -1092,6 +1379,9 @@ def main() -> None:
     # -- phases 9-11: the multiobjective solve with backtracking ---------------
     for n_phase, run in (
         (9, lambda: phase9(dev, smi, A, b, A_np, b_np, res.lr)),
+        # Phase 5's profile, here because timings taken after a profiled
+        # region in the same process come out slower, and phase 9 profiles.
+        (5, lambda: lasso_loops(dev, smi)),
         (10, lambda: phase10(smi, dev)),
         (11, lambda: phase11(smi, dev)),
     ):
@@ -1101,21 +1391,23 @@ def main() -> None:
 
     kernels = [
         {
-            "name": "fused_prox_momentum",
+            "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES,
-            "launches": main_launches,
-            "max_abs_err": max(max_err, step_err),
-            "ms": kern_ms[N][0],
-            "plain_ms": kern_ms[N][1],
-            # y, g, x read and x, y written once, float32.
+            "replaces": replaces,
+            "launches": lasso_launches[name],
+            "max_abs_err": max(lasso_err[name], step_err if name == "fista_tail" else 0.0),
+            "ms": kern_ms[name][N][0],
+            "plain_ms": kern_ms[name][N][1],
+            # y, g, x read and x, y written once, float32 (the 0-d scalars
+            # and flags add under 100 bytes).
             "bound_ms": 1e3 * 5 * N * 4 / PEAK_BYTES_PER_S,
             "bound_by": "bytes",
             # No single PyTorch call computes the soft-threshold and the
-            # momentum step together.
+            # momentum step together, let alone the step's tail.
             "library_ms": None,
         }
+        for name, replaces in LASSO_KERNELS.items()
     ]
     for name, (source, replaces) in TV_KERNELS.items():
         # Each kernel's time at the size and n_iter its main-path run used.

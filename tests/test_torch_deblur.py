@@ -82,10 +82,10 @@ def test_host_helpers_match_jax():
     taps = td._separable_taps(k)
     np.testing.assert_array_equal(td._band_matrix(taps, 12), jd._band_matrix(taps, 12))
     for size in (16, 37):
-        got = td.synthetic_cameraman(size, dtype=F64).numpy()
+        got = td.synthetic_cameraman(size, dtype=F64, device="cpu").numpy()
         ref = np.asarray(jd.synthetic_cameraman(size))
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-15)
-    assert td.synthetic_cameraman(8).dtype == torch.get_default_dtype()
+    assert td.synthetic_cameraman(8, device="cpu").dtype == torch.get_default_dtype()
 
 
 @pytest.mark.parametrize("isotropic", [True, False])
@@ -235,7 +235,7 @@ def test_tv_deblur_params_from_numpy_round_trip(separable):
         warnings.simplefilter("ignore", UserWarning)
         pj.solve(max_iter=2, tol=0)
     params_np = [np.asarray(a) for a in pj._params]
-    p = interop.tv_deblur_params_from_numpy(*params_np)
+    p = interop.tv_deblur_params_from_numpy(*params_np, device="cpu")
     assert len(p) == (4 if separable else 3)
     for a, ref in zip(p, params_np):
         assert a.dtype == F64 and np.array_equal(a.numpy(), ref)
@@ -251,7 +251,7 @@ def test_tv_deblur_params_from_numpy_round_trip(separable):
     ref = np.asarray(fns_j[3](jnp.asarray([0.5]), jnp.asarray(x), pj._params))
     assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
     with pytest.raises(ValueError, match="expected"):
-        interop.tv_deblur_params_from_numpy(observed, kernel)
+        interop.tv_deblur_params_from_numpy(observed, kernel, device="cpu")
 
 
 def test_deblur_on_cpu_never_launches():

@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.utils.cpp_extension
 
+from zfista_tpu.models.lasso import fista_step_dense as jax_fista_step_dense
 from zfista_tpu.ops.fused import (
     fista_step_dense_pallas,
     fused_prox_momentum_xla,
@@ -98,12 +99,101 @@ def test_fista_step_dense_fused_matches_jax_pallas_step():
         assert torch.equal(p, q)
 
 
-def test_wrapper_rejects_devices_it_has_no_kernel_for():
+def _dense_problem(seed, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    m, n = 16, 300
+    A = (rng.standard_normal((m, n)) / 4).astype(dtype)
+    b = rng.standard_normal(m).astype(dtype)
+    x = rng.standard_normal(n).astype(dtype)
+    y = rng.standard_normal(n).astype(dtype)
+    return A, b, x, y
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+def test_fista_tail_matches_the_jax_dense_steps(seed):
+    """The raw tail (t-update, thresh and gamma computed inside) on the
+    numpy gradient against both JAX dense steps: the Pallas one in
+    interpret mode and the plain one."""
+    A, b, x, y = _dense_problem(seed)
+    t, lam, lr = 1.0 + seed, 0.02, 0.01
+    grad = 2 * (A.T @ (A @ y - b))
+    f64 = torch.float64
+    got = fused.fista_tail(
+        torch.from_numpy(y), torch.from_numpy(grad), torch.from_numpy(x),
+        torch.tensor(t, dtype=f64), torch.tensor(lr, dtype=f64), torch.tensor(lam, dtype=f64),
+    )
+    assert fused.launch_counts["fista_tail"] == 0  # the CPU path never counts
+    args = (jnp.asarray(A), jnp.asarray(b), jnp.asarray(lam), jnp.asarray(lr))
+    carry = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(t))
+    for ref in (
+        fista_step_dense_pallas(*args, carry, interpret=True),
+        jax_fista_step_dense(*args, carry),
+    ):
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-13, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_raw_fused_loop_matches_jax(dtype):
+    """Five fused dense steps in a row against five JAX Pallas steps
+    (interpret mode): the carry handed on, t included."""
+    A, b, x, _ = _dense_problem(5, dtype)
+    lam, lr = dtype(0.02), dtype(0.01)
+    args_t = tuple(torch.tensor(v) for v in (A, b, lam, lr))
+    args_j = tuple(jnp.asarray(v) for v in (A, b, lam, lr))
+    ct = (torch.from_numpy(x), torch.from_numpy(x), torch.tensor(dtype(1.0)))
+    cj = (jnp.asarray(x), jnp.asarray(x), jnp.asarray(dtype(1.0)))
+    for _ in range(5):
+        ct = fused.fista_step_dense_fused(*args_t, ct)
+        cj = fista_step_dense_pallas(*args_j, cj, interpret=True)
+    tol = dict(rtol=1e-12, atol=1e-13) if dtype == np.float64 else dict(rtol=2e-5, atol=2e-5)
+    for g, r in zip(ct, cj):
+        assert g.dtype == torch.from_numpy(x).dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **tol)
+
+
+def test_tails_are_their_plain_versions_on_the_cpu():
+    rng = np.random.default_rng(8)
+    y, g, x = (torch.from_numpy(rng.standard_normal(129)) for _ in range(3))
+    t, lr, lam = (torch.tensor(v, dtype=torch.float64) for v in (2.5, 0.1, 0.4))
+    for a, b in zip(fused.fista_tail(y, g, x, t, lr, lam),
+                    fused.fista_tail_plain(y, g, x, t, lr, lam)):
+        assert torch.equal(a, b)
+    state = dict(
+        err=torch.tensor(0.3, dtype=torch.float64), nit=torch.tensor(3, dtype=torch.int32),
+        nit_internal=torch.tensor(3, dtype=torch.int32), converged=torch.tensor(False),
+        failed=torch.tensor(False),
+    )
+    kw = dict(a=0, b=0.25, tol=1e-3, max_iter=10)
+    got = fused.lasso_step_tail(y, g, x, t, lr, lam, **state, **kw)
+    ref = fused.lasso_step_tail_plain(y, g, x, t, lr, lam, **state, **kw)
+    assert isinstance(got, fused.StepTail) and got._fields == (
+        "x", "y", "t", "err", "nit", "nit_internal", "converged"
+    )
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b) and a.dtype == b.dtype
+    assert all(n == 0 for n in fused.launch_counts.values())
+    # The tail composes the first entry's pass with the raw tail's scalars.
+    xr, yr, tr = fused.fista_tail_plain(y, g, x, t, lr, lam)
+    assert torch.equal(got.x, xr) and torch.equal(got.y, yr) and torch.equal(got.t, tr)
+    assert int(got.nit) == 4 and int(got.nit_internal) == 4 and not bool(got.converged)
+
+
+@pytest.mark.parametrize("entry", ["fused_prox_momentum", "fista_tail", "lasso_step_tail"])
+def test_wrapper_rejects_devices_it_has_no_kernel_for(entry):
     # A tensor that is neither on the CPU nor on a CUDA device must not
     # silently take the plain version.
     v = torch.empty(4, device="meta")
+    s = torch.empty((), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fused.fused_prox_momentum(v, v, v, 0.1, 0.05, 0.3)
+        if entry == "fused_prox_momentum":
+            fused.fused_prox_momentum(v, v, v, 0.1, 0.05, 0.3)
+        elif entry == "fista_tail":
+            fused.fista_tail(v, v, v, s, s, s)
+        else:
+            fused.lasso_step_tail(
+                v, v, v, s, s, s, s, s, s, s, s, a=0, b=0.25, tol=0.0, max_iter=1
+            )
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch):

@@ -6,9 +6,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from zfista_tpu_torch import interop
+from zfista_tpu_torch.core import solver
+from zfista_tpu_torch.models import deblur
 from zfista_tpu_torch.ops import precision
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -78,3 +82,31 @@ def test_products_refuse_tf32(setting):
         torch.set_float32_matmul_precision(old_prec)
     assert float(precision.dot_hp(v, v)) == 3.0
     assert torch.equal(precision.matmul_hp(a, v), torch.full((3,), 3.0))
+
+
+_STATE = solver.State(*(np.zeros(()) for _ in solver.State._fields))
+_CARD_BY_DEFAULT = {
+    "lasso_params_from_numpy": lambda **kw: interop.lasso_params_from_numpy(
+        np.eye(2), np.ones(2), 0.1, **kw
+    )[0],
+    "state_from_numpy": lambda **kw: interop.state_from_numpy(_STATE, **kw).x,
+    "tv_deblur_params_from_numpy": lambda **kw: interop.tv_deblur_params_from_numpy(
+        np.ones((3, 3)), np.ones((3, 3)), 0.1, **kw
+    )[0],
+    "dual_from_numpy": lambda **kw: interop.dual_from_numpy(
+        np.zeros((3, 3)), np.zeros((3, 3)), **kw
+    )[0],
+    "synthetic_cameraman": lambda **kw: deblur.synthetic_cameraman(8, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CARD_BY_DEFAULT))
+def test_data_entry_points_default_to_the_card(name, monkeypatch):
+    """The functions that turn numpy data into the port's tensors put them
+    on ``device="cuda"`` by default: with no card that raises (nothing
+    falls back to the CPU), and ``device="cpu"`` asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _CARD_BY_DEFAULT[name]()
+    out = _CARD_BY_DEFAULT[name](device="cpu")
+    assert out.device.type == "cpu"

@@ -14,6 +14,7 @@ from zfista_tpu.models import lasso as jl
 from zfista_tpu_torch import interop
 from zfista_tpu_torch.models import Lasso
 from zfista_tpu_torch.models import lasso as tl
+from zfista_tpu_torch.ops import fused
 
 RTOL, ATOL = 1e-12, 1e-12
 
@@ -50,7 +51,7 @@ def test_params_callables_match_jax(l2):
     jparams = (jnp.asarray(A), jnp.asarray(b), jnp.asarray(0.05))
     if l2 is not None:
         jparams = jparams + (jnp.asarray(l2),)
-    tparams = interop.lasso_params_from_numpy(A, b, 0.05, l2)
+    tparams = interop.lasso_params_from_numpy(A, b, 0.05, l2, device="cpu")
     assert all(v.dtype == torch.float64 for v in tparams)
     assert len(tparams) == len(jparams)
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
@@ -79,6 +80,29 @@ def test_fista_step_dense_matches_jax():
     )
     for t, j in zip(got, ref):
         _close(t, j)
+
+
+@pytest.mark.parametrize("steps", [1, 6])
+def test_fused_dense_step_matches_jax_and_the_plain_step(steps):
+    """The raw loop over the fused dense step (the raw tail computes t+,
+    gamma and the threshold itself) against the JAX dense step, and
+    bitwise the port's plain step on the CPU."""
+    A, b, x = _problem(4)
+    f64 = torch.float64
+    args_j = (jnp.asarray(A), jnp.asarray(b), jnp.asarray(0.02), jnp.asarray(0.05))
+    args_t = (
+        torch.from_numpy(A), torch.from_numpy(b), torch.tensor(0.02, dtype=f64),
+        torch.tensor(0.05, dtype=f64),
+    )
+    cj = (jnp.asarray(x), jnp.asarray(x), jnp.asarray(1.0))
+    ct = cp = (torch.from_numpy(x), torch.from_numpy(x), torch.tensor(1.0, dtype=f64))
+    for _ in range(steps):
+        cj = jl.fista_step_dense(*args_j, cj)
+        ct = fused.fista_step_dense_fused(*args_t, ct)
+        cp = tl.fista_step_dense(*args_t, cp)
+    for t, j, q in zip(ct, cj, cp):
+        _close(t, j)
+        assert torch.equal(t, q)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

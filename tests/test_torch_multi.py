@@ -242,7 +242,7 @@ def test_initial_state_resumes_bitwise_and_from_jax():
     kw_j = dict(kw, tol_internal=TOL_INTERNAL)
     sj = _quiet(J_JOS1.solve, jnp.asarray(x0), max_iter=15, **kw_j).state
     rj = _quiet(J_JOS1.solve, jnp.asarray(x0), max_iter=40, **kw_j)
-    st = interop.state_from_numpy(sj)
+    st = interop.state_from_numpy(sj, device="cpu")
     assert st.w.shape == (2,) and st.F_x.shape == (2,)
     rt = _quiet(tp.solve, torch.tensor(x0), max_iter=40, initial_state=st, **kw)
     assert (rt.nit, rt.nit_internal) == (rj.nit, rj.nit_internal)
@@ -299,7 +299,7 @@ def test_fused_kernel_stays_off_multiobjective_and_backtracking(monkeypatch):
 
     monkeypatch.setattr(solver, "fused_prox_momentum", refuse)
     A, b = _lasso(4)
-    p = interop.lasso_params_from_numpy(A, b, 0.05)
+    p = interop.lasso_params_from_numpy(A, b, 0.05, device="cpu")
     fns = (tl._lasso_f_p, tl._lasso_g_p, tl._lasso_jac_p, tl._lasso_prox_p)
     x0 = torch.zeros(A.shape[1], dtype=F64)
     for kw in (dict(decay_rate=0.5), dict(decay_rate=1, lr=0.1, return_all=True),

@@ -70,8 +70,8 @@ def test_slice_matches_jax(seed, opts):
     assert rt.error_criterion == pytest.approx(rj.error_criterion, rel=0, abs=1e-11)
 
 
-def _port_step(A, b, lam, n):
-    p = interop.lasso_params_from_numpy(A, b, lam)
+def _port_step(A, b, lam, n, max_iter=None):
+    p = interop.lasso_params_from_numpy(A, b, lam, device="cpu")
     bound = solver._bind_params(
         tl._lasso_f_p, tl._lasso_g_p, tl._lasso_jac_p, tl._lasso_prox_p, p
     )
@@ -82,7 +82,7 @@ def _port_step(A, b, lam, n):
         fv, gv, jv, pv, m, tol=1e-8, tol_internal=1e-12,
         max_iter_internal=100000, max_backtrack_iter=100, warm_start=False,
         decay_rate=1, nesterov=True, nesterov_ratio=(0, 0.25),
-        deprecated=False, track_objective=False,
+        deprecated=False, track_objective=False, max_iter=max_iter,
     )
     return step, fv, gv
 
@@ -95,7 +95,7 @@ def test_one_port_step_continues_a_jax_state(k):
     prob = jl.Lasso(A, b, 0.05)
     sk = _quiet(prob.solve_fixed_step, x0, lr=lr, tol=1e-8, max_iter=k).state
     sk1 = _quiet(prob.solve_fixed_step, x0, lr=lr, tol=1e-8, max_iter=k + 1).state
-    state = interop.state_from_numpy(sk)
+    state = interop.state_from_numpy(sk, device="cpu")
     back = interop.state_to_numpy(state)
     for a, c in zip(back, sk):
         assert np.array_equal(a, np.asarray(c)) and a.dtype == np.asarray(c).dtype
@@ -177,32 +177,166 @@ def test_solver_options_drive_the_facade():
     assert opts.replace(tol=1e-3).tol == 1e-3 and opts.tol == 1e-9
 
 
-def test_lasso_step_goes_through_the_fused_wrapper(monkeypatch):
-    """The params-style Lasso prox reaches fused_prox_momentum; the same
-    problem through the Lasso methods composes prox and momentum.  On the
-    CPU both are the same arithmetic, so the results are bitwise equal."""
+def _counting(monkeypatch, name):
     calls = []
-    real = solver.fused_prox_momentum
+    real = getattr(solver, name)
 
-    def counting(*args):
+    def counting(*args, **kwargs):
         calls.append(1)
-        return real(*args)
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(solver, "fused_prox_momentum", counting)
+    monkeypatch.setattr(solver, name, counting)
+    return calls
+
+
+def test_lasso_step_goes_through_the_fused_wrapper(monkeypatch):
+    """The params-style Lasso prox reaches the fused step tail, once per
+    step and with no other fused call; the same problem through the Lasso
+    methods composes prox and momentum.  On the CPU both are the same
+    arithmetic, so the results are bitwise equal."""
+    tails = _counting(monkeypatch, "lasso_step_tail")
+    firsts = _counting(monkeypatch, "fused_prox_momentum")
     A, b, lr = _lasso(7)
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
     fused_res = prob.solve_fixed_step(x0, lr=lr, tol=1e-8)
-    assert len(calls) == fused_res.nit
-    calls.clear()
+    assert len(tails) == fused_res.nit and firsts == []
+    tails.clear()
     composed = minimize_proximal_gradient(
         prob.f, prob.g, prob.jac_f, prob.prox_wsum_g,
         torch.zeros(A.shape[1], dtype=F64),
         lr=lr, tol=1e-8, decay_rate=1, nesterov=True,
     )
-    assert calls == []
+    assert tails == [] and firsts == []
     assert composed.nit == fused_res.nit
     assert np.array_equal(composed.x, fused_res.x)
+
+
+@pytest.mark.parametrize("opts", [{"tol_rel": 1e-6}, {"warm_start": True}])
+def test_options_the_tail_kernel_does_not_take_are_routed(monkeypatch, opts):
+    """tol_rel and warm_start keep the step's tail in eager launches around
+    the kernel's first entry (one call per step), and still match JAX:
+    exact nit, x at 1e-10."""
+    tails = _counting(monkeypatch, "lasso_step_tail")
+    firsts = _counting(monkeypatch, "fused_prox_momentum")
+    A, b, lr = _lasso(11)
+    x0 = np.zeros(A.shape[1])
+    kw = dict(lr=lr, tol=1e-8, **opts)
+    rt = Lasso(A, b, 0.05, device="cpu").solve_fixed_step(x0, **kw)
+    assert tails == [] and len(firsts) == rt.nit
+    rj = jl.Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
+    assert rt.nit == rj.nit and rt.status == rj.status == 1
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(rt.weight, np.asarray(rj.weight), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("check_every", [1, 8, 64])
+@pytest.mark.parametrize("seed", [12, 13])
+def test_fused_tail_solve_matches_jax_state(seed, check_every):
+    """The fixed-step LASSO solve through the self-masking step tail against
+    JAX x64: exact nit, x within 1e-10, every State field equal (floats at
+    1e-10, counters and flags exactly)."""
+    A, b, lr = _lasso(seed)
+    x0 = np.zeros(A.shape[1])
+    kw = dict(lr=lr, tol=1e-8)
+    rj = jl.Lasso(A, b, 0.05).solve_fixed_step(x0, **kw)
+    rt = Lasso(A, b, 0.05, device="cpu").solve_fixed_step(x0, check_every=check_every, **kw)
+    assert rt.nit == rj.nit and rt.nit_internal == rj.nit_internal
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=0, atol=1e-10)
+    for name, got, ref in zip(solver.State._fields, rt.state, rj.state):
+        ref = np.asarray(ref)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        if got.dtype.kind == "f":
+            np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-10, err_msg=name)
+        else:
+            assert np.array_equal(got, ref), name
+
+
+def _composed_solve(A, b, lam, **kw):
+    """The same solve through the Lasso methods: no fused seam, so the
+    generic branch composes the tail and ``_masked`` masks it."""
+    prob = Lasso(A, b, lam, device="cpu")
+    return _quiet(
+        minimize_proximal_gradient, prob.f, prob.g, prob.jac_f, prob.prox_wsum_g,
+        kw.pop("x0"), decay_rate=1, nesterov=True, **kw,
+    )
+
+
+@pytest.mark.parametrize("check_every", [1, 8, 64])
+@pytest.mark.parametrize("stop", ["converges mid-chunk", "max_iter mid-chunk", "NaN"])
+def test_self_masking_step_is_bitwise_the_masked_step(stop, check_every):
+    """The step tail masks itself: a chunk of it equals, field for field and
+    bit for bit, the chunk of ``_masked`` composed steps, on states that
+    converge mid-chunk, reach max_iter mid-chunk, and carry NaN."""
+    A, b, lr = _lasso(14)
+    x0 = torch.zeros(A.shape[1], dtype=F64)
+    kw = dict(lr=lr, tol=1e-8, check_every=check_every)
+    if stop == "max_iter mid-chunk":
+        kw.update(tol=0, max_iter=21)
+    elif stop == "NaN":
+        x0[3] = float("nan")
+        kw.update(max_iter=13)
+    got = _quiet(Lasso(A, b, 0.05, device="cpu").solve_fixed_step, x0, **kw)
+    ref = _composed_solve(A, b, 0.05, x0=x0, **kw)
+    if stop == "converges mid-chunk":
+        assert got.status == 1 and got.nit % 64 and got.nit % 8
+    else:
+        assert got.status == 0 and got.nit == kw["max_iter"]
+    if stop == "NaN":
+        assert np.isnan(got.error_criterion) and np.isnan(got.x).any()
+    for name, a, c in zip(solver.State._fields, got.state, ref.state):
+        assert a.dtype == c.dtype and np.array_equal(a, c, equal_nan=True), name
+
+
+@pytest.mark.parametrize("reason", ["converged", "failed", "max_iter"])
+def test_step_tail_passes_a_stopped_state_through(reason):
+    """A state that is not active comes back value for value (NaN too),
+    in fresh tensors, from the plain tail and hence from the step."""
+    A, b, lr = _lasso(15)
+    n = A.shape[1]
+    step, _, _ = _port_step(A, b, 0.05, n, max_iter=9)
+    assert step.masks_itself
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal(n))
+    y = torch.from_numpy(rng.standard_normal(n))
+    y[0] = float("nan")
+    state = solver.init_state(x, torch.zeros(1, dtype=F64), 1, torch.tensor(lr, dtype=F64))
+    state = state._replace(
+        y=y, t=torch.tensor(2.5, dtype=F64), err=torch.tensor(float("nan"), dtype=F64),
+        nit=torch.tensor(9 if reason == "max_iter" else 4, dtype=torch.int32),
+        nit_internal=torch.tensor(4, dtype=torch.int32),
+        converged=torch.tensor(reason == "converged"),
+        failed=torch.tensor(reason == "failed"),
+    )
+    new = step(state)
+    for name, a, c in zip(solver.State._fields, new, state):
+        assert a.dtype == c.dtype, name
+        assert np.array_equal(a.numpy(), c.numpy(), equal_nan=True), name
+    # An active state with the same fields does move.
+    live = state._replace(
+        nit=torch.tensor(4, dtype=torch.int32), converged=torch.tensor(False),
+        failed=torch.tensor(False),
+    )
+    assert int(step(live).nit) == 5
+
+
+@pytest.mark.parametrize("how", ["iter_chunk", "initial_state"])
+def test_fused_tail_chunks_and_resumes_bitwise(how):
+    """``iter_chunk`` (the host-chunked loop runs the self-masking step
+    unmasked) and an ``initial_state`` continuation give bitwise the
+    uninterrupted solve."""
+    A, b, lr = _lasso(16)
+    x0 = np.zeros(A.shape[1])
+    prob = Lasso(A, b, 0.05, device="cpu")
+    ref = prob.solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=1)
+    if how == "iter_chunk":
+        got = prob.solve_fixed_step(x0, lr=lr, tol=1e-8, iter_chunk=7)
+    else:
+        part = _quiet(prob.solve_fixed_step, x0, lr=lr, tol=1e-8, max_iter=ref.nit // 2)
+        got = prob.solve_fixed_step(x0, lr=lr, tol=1e-8, initial_state=part.state, check_every=8)
+    assert got.nit == ref.nit and got.status == 1
+    for name, a, c in zip(solver.State._fields, got.state, ref.state):
+        assert np.array_equal(a, c), name
 
 
 def test_invalid_arguments_raise():

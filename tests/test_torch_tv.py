@@ -82,7 +82,7 @@ def test_prox_tv_matches_jax(shape, isotropic):
         assert _rel(got.numpy(), ref) <= RTOL
     # Warm start from a dual carried across with interop.
     p0, q0 = _dual(rng, shape)
-    d0 = interop.dual_from_numpy(p0, q0)
+    d0 = interop.dual_from_numpy(p0, q0, device="cpu")
     assert d0[0].dtype == F64 and np.array_equal(d0[0].numpy(), p0)
     u_t = tv.prox_tv(lam, vt, dual0=d0, **kw)
     u_j = jtv.prox_tv(lam, vj, dual0=(jnp.asarray(p0), jnp.asarray(q0)), method="xla", **kw)
@@ -188,6 +188,28 @@ def test_fgp_tiles_plain_matches_pallas_strips_interpret(pipelined):
     ref = tv_pallas.fgp_pallas_strips(
         jnp.asarray(0.15), jnp.asarray(v), jnp.asarray(z), jnp.asarray(z),
         n_iter=8, isotropic=True, interpret=True, pipelined=pipelined,
+    )
+    for a, b in zip(got, ref):
+        assert _rel(a.numpy(), b) <= RTOL
+
+
+@pytest.mark.parametrize("isotropic", [True, False])
+@pytest.mark.parametrize("shape", [(160, 128), (192, 128)])
+def test_pipelined_window_plan_matches_pallas_pipelined_interpret(shape, isotropic):
+    """The pipelined kernel's own window (80 x 30 in float64: three and
+    two-and-a-half interiors of 64 rows, ten of 14 columns) against the
+    TPU's pipelined strip kernel in interpret mode, warm dual, a full and a
+    partial sweep."""
+    rng = np.random.default_rng(14)
+    v = rng.standard_normal(shape)
+    p0, q0 = _dual(rng, shape)
+    got = tv_cuda.fgp_tiles_plain(
+        0.15, torch.tensor(v), torch.tensor(p0), torch.tensor(q0), 11, isotropic,
+        pipelined=True,
+    )
+    ref = tv_pallas.fgp_pallas_strips(
+        jnp.asarray(0.15), jnp.asarray(v), jnp.asarray(p0), jnp.asarray(q0),
+        n_iter=11, isotropic=isotropic, interpret=True, pipelined=True,
     )
     for a, b in zip(got, ref):
         assert _rel(a.numpy(), b) <= RTOL
@@ -339,15 +361,15 @@ def test_methods_and_dispatch_rules():
     # Fewer SMs, taller bands: the shared-memory bound comes sooner.
     assert tv_cuda.choose((768, 768), f32, 72) == "cuda_tiles"
     # The serial tiles: 64 x 120 windows (48 x 104 interiors) in float32,
-    # 64 x 60 in float64; the pipelined tiles 64 x 60 and 64 x 30.
+    # 64 x 60 in float64; the pipelined tiles 80 x 60 and 80 x 30.
     assert tv_cuda.n_tiles((256, 256), f32) == 6 * 3
     assert tv_cuda.n_tiles((2048, 2048), f32) == 43 * 20
-    assert tv_cuda.n_tiles((768, 768), f32, pipelined=True) == 16 * 18
+    assert tv_cuda.n_tiles((768, 768), f32, pipelined=True) == 12 * 18
     assert tv_cuda.n_tiles((100, 224), F64) == 3 * 6
     assert tv_cuda.tile_interior(f32) == (48, 104)
     assert tv_cuda.tile_interior(F64) == (48, 44)
-    assert tv_cuda.tile_interior(f32, pipelined=True) == (48, 44)
-    assert tv_cuda.tile_interior(F64, pipelined=True) == (48, 14)
+    assert tv_cuda.tile_interior(f32, pipelined=True) == (64, 44)
+    assert tv_cuda.tile_interior(F64, pipelined=True) == (64, 14)
     assert tv_cuda.resolve((2048, 2048), f32, "cpu") == "plain"
     assert tv_cuda.resolve((2048, 2048), f32, torch.device("cpu")) == "plain"
     assert set(tv_cuda.KERNEL_NAMES) >= {"cuda_resident", "cuda_tiles", "plain"}
@@ -379,3 +401,35 @@ def test_sweep_plan_replays_t_like_the_plain_loop():
             t = tv_cuda._t_next(t)
     assert tv_cuda._sweeps(0, torch.float32, torch.device("cpu")) == ()
     assert [k for _, k in tv_cuda._sweeps(5, F64, torch.device("cpu"))] == [5]
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_windows_fit_a_ctas_shared_memory(dtype, pipelined):
+    """Fields x window cells x itemsize within the bytes one CTA may opt in
+    to; whole warp columns; rows of whole 16-byte groups (the vector
+    copies); the same bytes in either dtype."""
+    wh, ww = tv_cuda.tile_window(dtype, pipelined)
+    item = torch.empty((), dtype=dtype).element_size()
+    fields = tv_cuda.PIPELINED_FIELDS if pipelined else tv_cuda.TILE_FIELDS
+    assert fields * wh * ww * item <= tv_cuda.SMEM_OPTIN_BYTES
+    assert ww % tv_cuda.WALK_LANES == 0
+    assert (ww * item) % 16 == 0 and ((ww - 2 * tv_cuda.HALO) * item) % 16 == 0
+    assert wh > 2 * tv_cuda.HALO and ww > 2 * tv_cuda.HALO
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    oh, ow = tv_cuda.tile_window(other, pipelined)
+    assert wh * ww * item == oh * ow * torch.empty((), dtype=other).element_size()
+
+
+def test_pipelined_window_spends_the_budget_and_quantizes_768():
+    """The pipelined window leaves under one more row of its 12 fields
+    unused, and cuts the 768 x 768 main-path image into two rounds of an
+    H100's 132 persistent CTAs (the 64 x 60 window it replaces made three)."""
+    wh, ww = tv_cuda.tile_window(torch.float32, pipelined=True)
+    used = tv_cuda.PIPELINED_FIELDS * wh * ww * 4
+    assert used == 230_400
+    assert used + tv_cuda.PIPELINED_FIELDS * ww * 4 > tv_cuda.SMEM_OPTIN_BYTES
+    tiles = tv_cuda.n_tiles((768, 768), torch.float32, pipelined=True)
+    assert tiles == 216 and -(-tiles // 132) == 2
+    assert -(-(16 * 18) // 132) == 3
+    assert tv_cuda.n_tiles((2048, 2048), torch.float32, pipelined=True) == 32 * 47

@@ -30,9 +30,13 @@ run takes is computed from the same inputs in the same order, so any
 bitwise equal to the uninterrupted ``check_every=1`` solve.
 
 On dense LASSO (:meth:`zfista_tpu_torch.models.Lasso.solve_fixed_step`)
-the fixed-step step runs the soft-threshold prox and the momentum
-extrapolation as one launch of the fused CUDA kernel
-(:func:`zfista_tpu_torch.ops.fused.fused_prox_momentum`).
+the fixed-step step is its gradient and one launch of the fused CUDA
+kernel (:func:`zfista_tpu_torch.ops.fused.lasso_step_tail`): the
+soft-threshold prox, the momentum extrapolation and recursion, the
+convergence test, the counters and the chunk loop's mask.  With
+``tol_rel`` or ``warm_start`` the kernel computes the prox and the
+extrapolation (:func:`zfista_tpu_torch.ops.fused.fused_prox_momentum`) and
+the rest of the tail runs as eager launches.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.result import TERMINATION_MESSAGES, SolveResult
 from zfista_tpu_torch.core.subproblem import make_subproblem_solver
-from zfista_tpu_torch.ops.fused import fused_prox_momentum
+from zfista_tpu_torch.ops.fused import fused_prox_momentum, lasso_step_tail
 from zfista_tpu_torch.ops.precision import dot_hp
 
 # Private seam between the LASSO params callables and the step.  A
@@ -55,7 +59,8 @@ from zfista_tpu_torch.ops.precision import dot_hp
 # computes ``soft_threshold(x, w * lam_of(p))``; once bound to its params
 # (and normalized, with one objective) it carries ``_SOFT_THRESHOLD_LAM =
 # lam``.  The fixed-lr nesterov step of a single-objective solve that
-# skips ``F`` then computes the prox and the extrapolation with one fused
+# skips ``F`` then computes its whole tail (the prox, the extrapolation,
+# the convergence test, the counters, the chunk loop's mask) with one fused
 # kernel launch instead of composing them.
 _SOFT_THRESHOLD_LAM_OF = "_soft_threshold_lam_of"
 _SOFT_THRESHOLD_LAM = "_soft_threshold_lam"
@@ -130,6 +135,10 @@ def _make_step(
     g(x)``: nothing in that iteration reads ``F``, so the carried ``F_x``
     goes stale and the facade recomputes it once at the end.  The
     trajectory is bitwise the same.
+
+    A returned step whose attribute ``masks_itself`` is true leaves a state
+    that is not active (:func:`_active` at ``max_iter``) as it is, so a
+    chunk loop runs it without :func:`_masked`.
     """
     m = n_objectives
     solve_sub = make_subproblem_solver(
@@ -152,6 +161,10 @@ def _make_step(
         and not adaptive_restart
         and not project_momentum
     )
+    # The whole tail in one launch, for the options the kernel takes; with
+    # the others the fused branch below composes the tail around the
+    # kernel's prox and extrapolation.
+    fused_tail = fused and not tol_rel and not warm_start
     # The only step that needs no f(y): the closed-form fixed-lr m == 1
     # step that skips the model value.
     need_f_y = not (fixed_lr and m == 1 and not track_objective)
@@ -196,6 +209,19 @@ def _make_step(
                 return _LS(lr, True, x, F_t, w, sub_fun, nits)
             lr = lr * decay_rate
         return _LS(lr, False, x, F_t, w, sub_fun, nits)
+
+    if fused_tail:
+
+        def tail_step(state: State) -> State:
+            tail = lasso_step_tail(
+                state.y, jac_f(state.y)[0], state.x, state.t, state.lr, lam,
+                state.err, state.nit, state.nit_internal, state.converged,
+                state.failed, a=a, b=b, tol=tol, max_iter=max_iter,
+            )
+            return state._replace(**tail._asdict())
+
+        tail_step.masks_itself = True
+        return tail_step
 
     def step(state: State) -> State:
         dev = state.x.device
@@ -335,6 +361,12 @@ def _masked(step: Callable[[Any], Any], active: Callable[[Any], Array]):
     return masked_step
 
 
+def _chunk_body(step: Callable[[Any], Any], active: Callable[[Any], Array]):
+    """``step`` as a chunk loop runs it: masked, unless it masks itself
+    (with the loop's own ``active`` rule; see :func:`_make_step`)."""
+    return step if getattr(step, "masks_itself", False) else _masked(step, active)
+
+
 def run_masked(
     step: Callable[[Any], Any],
     carry: Any,
@@ -345,7 +377,7 @@ def run_masked(
     reading the device's flag on the host once every ``check_every``
     steps.
 
-    Inside a chunk each step is masked (:func:`_masked`): a carry that
+    Inside a chunk each step is masked (:func:`_chunk_body`): a carry that
     stopped mid-chunk stays frozen, so the result is BITWISE IDENTICAL to
     ``check_every=1``, step count included.  The chunk enqueues its steps
     without waiting for the device, which is what the chunking buys on a
@@ -353,7 +385,7 @@ def run_masked(
     """
     # A chunk is entered only from an active carry, where the mask is the
     # identity: with one step per chunk it is left out.
-    body = step if check_every == 1 else _masked(step, active)
+    body = step if check_every == 1 else _chunk_body(step, active)
     while bool(active(carry)):  # the one host read per chunk
         for _ in range(check_every):
             carry = body(carry)
@@ -692,7 +724,7 @@ def minimize_proximal_gradient(
         # host copies of the state.  Frozen steps no-op, so the result is
         # bitwise the while driver's.  The host copy taken after each good
         # chunk is the partial result if the device faults in the next.
-        masked = _masked(step, lambda s: _active(s, max_iter))
+        masked = _chunk_body(step, lambda s: _active(s, max_iter))
         host = state_to_numpy(state)
         while bool(_active(host, max_iter)):
             try:

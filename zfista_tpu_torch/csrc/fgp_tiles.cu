@@ -76,12 +76,21 @@
 //    prefetches the next tile's window into a second shared-memory slot
 //    with cp.async (16 bytes per copy where aligned, as the loads above;
 //    zero-fill for cells outside the image) while the current one
-//    computes.  Its two slots of five fields and one shared second copy of
-//    r, s make its window smaller (64 x 60 float32, 64 x 30 float64), so
-//    it walks bands of 4 rows to keep 32 (16) warps busy: the walk is
-//    latency-bound, and a warp's time per iteration grows with its band.
-//    Both call advance_window and store_interior, so they are bitwise
-//    equal by construction.
+//    computes.  Both call advance_window and store_interior, so they are
+//    bitwise equal by construction.
+//  * What bounds the pipelined kernel on this card is shared memory, not
+//    its copies.  Two slots of five fields and one shared second copy of
+//    r, s are 12 window fields, so a window has at most 232,448 / 12 bytes
+//    per field (a CTA's opt-in limit on an H100): 4,842 float32 cells
+//    against the serial kernel's 7,680.  Measured on an H100 (PERF.md,
+//    section 6), the walk is 88-92% of a round of tiles, the store 4%, and
+//    the prefetch already hides all but 8% of the load; so the design
+//    spends the budget on the window's shape.  80 x 60 (float32; 80 x 30
+//    float64) is 230,400 bytes: the interior 64 x 44 makes 1.70x the useful
+//    cells where 64 x 60 made 1.82x, and it cuts 768^2 into 216 tiles, two
+//    rounds of 132 persistent CTAs, where 64 x 60 made 288, three.  Bands
+//    of 5 rows keep 32 (16) warps busy: the walk is latency-bound, and a
+//    warp's time per iteration grows with its band.
 //  * Bitwise equal to the plain loop (zfista_tpu_torch/ops/tv_cuda.py
 //    fgp_plain): the library is built with -fmad=false, every expression
 //    keeps the plain version's operation order, and sqrt and / are the
@@ -118,11 +127,11 @@ struct Window<double, false> {
 };
 template <>
 struct Window<float, true> {
-  static constexpr int kRows = 64, kGroups = 2, kBand = 4;
+  static constexpr int kRows = 80, kGroups = 2, kBand = 5;
 };
 template <>
 struct Window<double, true> {
-  static constexpr int kRows = 64, kGroups = 1, kBand = 4;
+  static constexpr int kRows = 80, kGroups = 1, kBand = 5;
 };
 
 template <class Win>

@@ -3,7 +3,9 @@
 The JAX package's LASSO and TV-deblur params tuples, its TV dual fields
 and its solver ``State`` are numpy arrays once fetched from the device
 (``jax.device_get``, or ``res.state`` of a solve).  These functions turn
-them into the port's tensors on an explicit device and back, so a solve,
+them into the port's tensors on a device (default ``"cuda"``, as the
+port's other entry points: without a card that raises, and
+``device="cpu"`` asks for the CPU) and back, so a solve,
 a single step or a warm-started TV prox can be continued in the port from
 where the JAX package left it; :func:`problem_from_spec` builds the port's
 zoo problem matching a JAX one.  Nothing here imports JAX.
@@ -17,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from zfista_tpu_torch.core.solver import State, state_to_numpy
+from zfista_tpu_torch.core.solver import State, data_device, state_to_numpy
 from zfista_tpu_torch.models import zoo
 from zfista_tpu_torch.models.base import Problem
 
@@ -37,13 +39,14 @@ def lasso_params_from_numpy(
     lam: Any,
     l2: Any = None,
     *,
-    device: Any = "cpu",
+    device: Any = "cuda",
     dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """The port's ``Lasso`` params tuple ``(A, b, lam[, l2])`` on
     ``device``, for the params-style callables of
     :mod:`zfista_tpu_torch.models.lasso`.  ``dtype`` defaults to ``A``'s.
     The arrays are copied (arrays fetched from JAX are read-only)."""
+    device = data_device(device)
     A_t = torch.tensor(np.asarray(A), dtype=dtype, device=device)
     rest = (b, lam) if l2 is None else (b, lam, l2)
     return (A_t,) + tuple(
@@ -52,9 +55,10 @@ def lasso_params_from_numpy(
     )
 
 
-def state_from_numpy(state: Any, *, device: Any = "cpu") -> State:
+def state_from_numpy(state: Any, *, device: Any = "cuda") -> State:
     """The port's :class:`State` on ``device`` from any object with the
     JAX ``State``'s 12 fields as numpy arrays (dtypes kept, data copied)."""
+    device = data_device(device)
     return State(
         *(
             torch.tensor(np.asarray(getattr(state, name)), device=device)
@@ -64,7 +68,7 @@ def state_from_numpy(state: Any, *, device: Any = "cpu") -> State:
 
 
 def tv_deblur_params_from_numpy(
-    b: Any, *operands: Any, device: Any = "cpu", dtype: torch.dtype | None = None
+    b: Any, *operands: Any, device: Any = "cuda", dtype: torch.dtype | None = None
 ) -> tuple[torch.Tensor, ...]:
     """The port's ``TVDeblur`` params tuple on ``device``: ``(b, Gr, Gc,
     lam)`` for a separable blur or ``(b, K, lam)`` for a correlation
@@ -76,6 +80,7 @@ def tv_deblur_params_from_numpy(
             "expected (b, Gr, Gc, lam) or (b, K, lam); got b and "
             f"{len(operands)} more"
         )
+    device = data_device(device)
     b_t = torch.tensor(np.asarray(b), dtype=dtype, device=device)
     return (b_t,) + tuple(
         torch.tensor(np.asarray(v), dtype=b_t.dtype, device=device)
@@ -84,11 +89,12 @@ def tv_deblur_params_from_numpy(
 
 
 def dual_from_numpy(
-    p: Any, q: Any, *, device: Any = "cpu"
+    p: Any, q: Any, *, device: Any = "cuda"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A TV dual field ``(p, q)`` (e.g. the JAX ``prox_tv(...,
     return_dual=True)`` one) as tensors on ``device``, for
     ``prox_tv(..., dual0=...)``.  Dtypes kept, data copied."""
+    device = data_device(device)
     return (
         torch.tensor(np.asarray(p), device=device),
         torch.tensor(np.asarray(q), device=device),

@@ -146,11 +146,13 @@ def blur_lipschitz(kernel: np.ndarray, shape: tuple[int, int]) -> float:
 
 
 def synthetic_cameraman(
-    size: int = 256, dtype: torch.dtype | None = None, device: Any = None
+    size: int = 256, dtype: torch.dtype | None = None, device: Any = "cuda"
 ) -> Array:
     """Deterministic synthetic test image, built with numpy in float64 (the
     JAX package's construction): piecewise-constant regions, gradients and
-    a few edges.  ``dtype`` defaults to torch's default dtype."""
+    a few edges.  ``dtype`` defaults to torch's default dtype.  The image
+    goes to ``device`` (default ``"cuda"``; a machine with no card raises,
+    ``device="cpu"`` asks for the CPU)."""
     i = np.arange(size)[:, None] / size
     j = np.arange(size)[None, :] / size
     img = 0.3 + 0.4 * (i > 0.5) + 0.2 * (j > 0.3)
@@ -160,7 +162,7 @@ def synthetic_cameraman(
     tri = (i + j > 1.3) & (i + j < 1.5)
     img = np.where(tri, 0.1, img)
     dtype = torch.get_default_dtype() if dtype is None else dtype
-    return torch.as_tensor(img, dtype=dtype, device=device)
+    return torch.as_tensor(img, dtype=dtype, device=data_device(device))
 
 
 def _as_image(observed: Any, device: Any) -> Array:

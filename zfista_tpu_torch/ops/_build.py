@@ -16,11 +16,13 @@ would make every measurement of that kernel a lie.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Any
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -111,3 +113,31 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+@functools.cache
+def entry(source: str, symbol: str, n_ptr: int, tail: tuple[Any, ...]) -> Any:
+    """The typed ctypes entry ``symbol`` of ``csrc/<source>.cu`` (built on
+    first use): ``n_ptr`` pointers, then ``tail``, then device and stream.
+    Every pointer and the stream are ``c_void_p``: an undeclared argument
+    would be passed as a 32-bit int and cut the address."""
+    fn = getattr(load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on(code: int, source: str, what: str) -> None:
+    """Raise if ``code``, the ``cudaError_t`` an entry of ``source``
+    returned right after its launch, is not 0."""
+    if code != 0:
+        errstr = load(source).zt_cuda_error_string
+        errstr.argtypes = [ctypes.c_int]
+        errstr.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{what} kernel launch failed: cudaError {code} "
+            f"({errstr(code).decode()})"
+        )

@@ -20,9 +20,9 @@ The three kernels, one for each TPU kernel:
   ``pipelined=False`` is one CTA per tile (the serial strip kernel);
   ``pipelined=True`` is persistent CTAs that prefetch the next tile's
   window with ``cp.async`` while the current one computes (the
-  double-buffered strip kernel; a smaller window, and :func:`choose` no
-  longer picks it).  Both run one ``__device__`` tile function, so they
-  are bitwise equal by construction.
+  double-buffered strip kernel; its two slots leave it a smaller window,
+  and :func:`choose` does not pick it).  Both run one ``__device__`` tile
+  function, so they are bitwise equal by construction.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel or raises.  :func:`fgp_plain` is the whole-image eager
@@ -73,11 +73,15 @@ TILE_WINDOW: dict[torch.dtype, tuple[int, int]] = {
     torch.float64: (64, 60),
 }
 #: The pipelined kernel's window (``Window<T, true>``): two slots of five
-#: fields and one shared second copy of r, s make 184 KB.
+#: fields and one shared second copy of r, s are ``PIPELINED_FIELDS``
+#: window fields, 230,400 bytes of the 232,448 a CTA may use.
 PIPELINED_WINDOW: dict[torch.dtype, tuple[int, int]] = {
-    torch.float32: (64, 60),
-    torch.float64: (64, 30),
+    torch.float32: (80, 60),
+    torch.float64: (80, 30),
 }
+#: Window fields each tile kernel holds in shared memory.
+TILE_FIELDS = 7
+PIPELINED_FIELDS = 12
 
 #: The whole-image kernel cuts the image into one band of rows per SM and
 #: holds each band, with a halo row above and below, in its CTA's shared
@@ -174,13 +178,12 @@ def choose(
       tiles' 0.172, 512² 0.115 against 0.184, 768² 0.165 against 0.179;
     * the serial tiles beyond (1024² 0.328, 2048² 1.102).
 
-    The pipelined tiles have no band: their two slots leave room for a
-    64 x 60 window only, so past one round of tiles per SM they lose to
-    the serial kernel's 64 x 120 (768² 0.268 against 0.179), and below it
-    they tie the whole-image kernel at best (512², 132 tiles: 0.114 against
-    0.115; at n_iter 8 0.032 against 0.036, a band this rule, blind to
-    n_iter, does not draw).  ``prox_tv(method="cuda_tiles_pipelined")``
-    still runs them.
+    The pipelined tiles have no band: their two slots leave room for an
+    80 x 60 window only, so they lose to the serial kernel's 64 x 120 at
+    every size (768² 0.225 against 0.179, 2048² 1.201 against 1.102; at
+    n_iter 8 0.065 against 0.048 and 0.367 against 0.318) and to the
+    whole-image kernel where that fits (512² 0.131 against 0.115).
+    ``prox_tv(method="cuda_tiles_pipelined")`` still runs them.
     """
     if fits_resident(shape, dtype, sm_count, smem_optin):
         return "cuda_resident"
@@ -411,33 +414,6 @@ def fgp_resident_plain(
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _entry(source: str, symbol: str, n_ptr: int, tail: tuple[Any, ...]) -> Any:
-    """The typed ctypes entry ``symbol`` of ``csrc/<source>.cu`` (built on
-    first use): ``n_ptr`` pointers, then ``tail``, then device and stream.
-    Every pointer and the stream are ``c_void_p``: an undeclared argument
-    would be passed as a 32-bit int and cut the address."""
-    lib = _build.load(source)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [
-        ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _raise_on(code: int, source: str, what: str) -> None:
-    if code != 0:
-        errstr = _build.load(source).zt_cuda_error_string
-        errstr.argtypes = [ctypes.c_int]
-        errstr.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"{what} kernel launch failed: cudaError {code} "
-            f"({errstr(code).decode()})"
-        )
-
-
 def _checked(name: str, lam: Scalar, v: Array, p0: Array, q0: Array) -> Array:
     """Validate a CUDA call's operands; returns ``lam`` as a 0-d tensor on
     ``v``'s device.  The kernels read it there by pointer: inside the
@@ -495,7 +471,7 @@ def fgp_resident(
     # The exchange buffer of the bands' edge rows: [2 copies][CTAs][r, s
     # of the first row, r, s of the last][W].
     xchg = torch.empty((2, plan.ctas, 4, W), dtype=v.dtype, device=v.device)
-    fn = _entry(
+    fn = _build.entry(
         "fgp_resident", f"zt_fgp_resident_{_SUFFIX[v.dtype]}", 8,
         (ctypes.c_int,) * 8,
     )
@@ -506,7 +482,7 @@ def fgp_resident(
         plan.rows, plan.ctas, plan.band, plan.warps,
         v.device.index, _stream(v),
     )
-    _raise_on(code, "fgp_resident", "fgp_resident")
+    _build.raise_on(code, "fgp_resident", "fgp_resident")
     launch_counts["fgp_resident"] += 1
     return u, p, q
 
@@ -527,7 +503,7 @@ def fgp_tiles(
     name = "fgp_tiles_pipelined" if pipelined else "fgp_tiles"
     sfx = _SUFFIX[v.dtype]
     wh, ww = tile_window(v.dtype, pipelined)
-    sweep = _entry(
+    sweep = _build.entry(
         "fgp_tiles",
         f"zt_fgp_tiles_{'pipelined' if pipelined else 'serial'}_{sfx}",
         10,
@@ -547,17 +523,17 @@ def fgp_tiles(
             t0, H, W, k, int(bool(isotropic)), wh, ww,
             v.device.index, stream,
         )
-        _raise_on(code, "fgp_tiles", name)
+        _build.raise_on(code, "fgp_tiles", name)
         launch_counts[name] += 1
         src = tuple(dst)
     p, q = src[0], src[1]
     if int(n_iter) == 0:
         p, q = p0.clone(), q0.clone()
-    recover = _entry("fgp_tiles", f"zt_fgp_recover_u_{sfx}", 5, (ctypes.c_int,) * 2)
+    recover = _build.entry("fgp_tiles", f"zt_fgp_recover_u_{sfx}", 5, (ctypes.c_int,) * 2)
     code = recover(
         v.data_ptr(), p.data_ptr(), q.data_ptr(), lam.data_ptr(), u.data_ptr(),
         H, W, v.device.index, stream,
     )
-    _raise_on(code, "fgp_tiles", name)
+    _build.raise_on(code, "fgp_tiles", name)
     launch_counts[name] += 1
     return u, p, q
