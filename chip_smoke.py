@@ -15,8 +15,12 @@ of them against its plain PyTorch version:
 * the single solve with backtracking and several objectives (phases
   9-11): the LASSO above by ``Lasso.solve``, and the benchmark harness's
   15 zoo problems (``zfista_tpu/bench/harness.py``) through
-  ``Problem.solve``.  These paths add no CUDA kernel: cuBLAS products and
-  small elementwise launches.
+  ``Problem.solve``;
+* the batch solver (phase 12): the harness's problems as ``benchmark()``
+  batches them through ``Problem.solve_batch``, the 1k-lambda elastic-net
+  sweep through ``make_lasso_lambda_sweep``, and wide JOS1 and FDS
+  batches.  Phases 9-12 add no CUDA kernel: cuBLAS products and small
+  elementwise launches.
 
 Phases:
 
@@ -54,14 +58,28 @@ Phases:
    on the CPU (50 iterations: same inner count, 1e-9 relative), float32
    against float64 (200 iterations, 1e-4);
 10. the harness's 15 problems under every variant (plus the projected one
-    for bounded problems), two starts each as ``benchmark()`` draws them,
-    float64, each solve on the card against the same solve on the CPU: a
-    12-iteration window (equal nit; equal nit_internal for m<=2, within
-    25% for m>=3; x within 1e-8 for m<=2 and 1e-6 for m>=3) and the full solve (equal status, fun within
-    1e-6 relative); run in worker processes, one CPU thread each;
+    for bounded problems), the first start of ``benchmark()``'s draw
+    (one start per case, to leave phase 12 the time), float64, each solve
+    on the card against the same solve on the CPU: a 12-iteration window
+    (equal nit; equal nit_internal for m<=2, within 25% for m>=3; x within
+    1e-8 for m<=2 and 1e-6 for m>=3) and the full solve (equal status, fun
+    within 1e-6 relative); run in worker processes, one CPU thread each;
 11. ``check_every=8``, ``iter_chunk=5`` and ``return_all`` solves on the
     card, bitwise equal to the ``check_every=1`` solve, for JOS1 with L1
-    and for FDS.
+    and for FDS;
+12. the batch solver: (a) every phase-10 case as one batch of
+    ``benchmark()``'s 100 starts (``history=True``), card against CPU lane
+    by lane in phase 10's classes (all statuses equal, at most 10% of the
+    lanes outside the classes: rounding-floor flips; m>=3 inner counts per
+    batch), over the window and, for m<=2, to the end, with walls beside
+    phase 10's single solves; (b) the 1k-lambda
+    elastic-net sweep (A 500 x 2000, float32, fixed step), converged share,
+    mean nit and solves/s, 8 lanes against single ``Lasso`` solves within
+    1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front;
+    (d) FDS n=10 from 1,024 starts in float64, and ``lane_chunk=256``
+    bitwise equal to the unchunked batch; (e) host reads and device events
+    per outer iteration at 16 and 1,024 lanes, within 1%.  Phases 10 and 12's
+    harness work shares one pool of worker processes.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -183,16 +201,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_problem():
+def make_problem(m: int = M, n: int = N):
     """bench.py's problem: numpy seed 0, A/sqrt(m), 100-sparse x_true."""
     rng = np.random.default_rng(0)
-    A = (rng.standard_normal((M, N)).astype(np.float32) / np.sqrt(M)).astype(
+    A = (rng.standard_normal((m, n)).astype(np.float32) / np.sqrt(m)).astype(
         np.float32
     )
-    x_true = np.zeros(N, np.float32)
-    idx = rng.choice(N, 100, replace=False)
+    x_true = np.zeros(n, np.float32)
+    idx = rng.choice(n, 100, replace=False)
     x_true[idx] = rng.standard_normal(100).astype(np.float32)
-    b = (A @ x_true + 0.01 * rng.standard_normal(M).astype(np.float32)).astype(
+    b = (A @ x_true + 0.01 * rng.standard_normal(m).astype(np.float32)).astype(
         np.float32
     )
     return A, b
@@ -798,11 +816,11 @@ def count_host_reads(fn) -> tuple:
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_events(fn) -> tuple[int, float]:
+def device_events(fn, by_name: bool = False) -> tuple:
     """``fn()``'s device events by torch.profiler: how many there were
     (kernel launches and copies) and the sum of their own time in µs (one
     stream, no overlap), as the profiler table's "Self CUDA time total"
-    sums them."""
+    sums them; with ``by_name`` also the count of each event's name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -810,10 +828,11 @@ def device_events(fn) -> tuple[int, float]:
         fn()
         torch.cuda.synchronize()
     on_device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-    return (
+    out = (
         sum(e.count for e in on_device),
         float(sum(e.self_device_time_total for e in on_device)),
     )
+    return out + ({e.key: e.count for e in on_device},) if by_name else out
 
 
 def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]:
@@ -956,8 +975,11 @@ VARIANTS = {
     "Accelerated (deprecated)": dict(nesterov=True, deprecated=True),
 }
 PROJECTED_VARIANT = {"Accelerated (projected)": dict(nesterov=True, project_momentum=True)}
-HARNESS_STARTS, HARNESS_TOL_INTERNAL, HARNESS_MAX_ITER, WINDOW = 2, 1e-11, 10_000, 12
-#: Worker processes for phase 10 (at most the machine's cores less one).
+#: Phase 10 solves one start per case (the first of benchmark()'s draw),
+#: phase 12 batches benchmark()'s 100.
+HARNESS_STARTS, HARNESS_TOL_INTERNAL, HARNESS_MAX_ITER, WINDOW = 1, 1e-11, 10_000, 12
+BATCH_STARTS = 100
+#: Worker processes for phases 10 and 12 (at most the machine's cores less one).
 PHASE10_WORKERS = 7
 
 
@@ -994,9 +1016,9 @@ def variants_of(problem) -> dict:
 
 
 def _worker_init(dev: str) -> None:
-    """One CPU thread; the precision policy; and one small solve on each
-    device, so that the first-use costs of CUDA and torch.func (seconds)
-    fall outside every timed solve."""
+    """One CPU thread; the precision policy; and one small solve and batch
+    on each device, so that the first-use costs of CUDA and torch.func
+    (seconds) fall outside every timed solve."""
     warnings.simplefilter("ignore")
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1005,50 +1027,53 @@ def _worker_init(dev: str) -> None:
 
     for d in (dev, "cpu"):
         TRIDIA().solve(torch.full((3,), 0.5, dtype=torch.float64, device=d), max_iter=2)
+        TRIDIA().solve_batch(torch.full((2, 3), 0.5, dtype=torch.float64, device=d), max_iter=2)
 
 
 def harness_solve(task: tuple) -> dict:
-    """One phase-10 solve, in a worker process: ``(problem index, variant,
-    start, device, window)``.  Starts are drawn as ``benchmark()`` draws
-    them (numpy seed 42, the problem's sampling box)."""
+    """One phase-10 solve or phase-12 batch, in a worker process:
+    ``(problem index, variant, start, device, window)``, with start
+    ``None`` for the batch of all ``BATCH_STARTS`` starts (``history=True``,
+    as ``benchmark()`` runs it).  Starts are drawn as ``benchmark()`` draws
+    them (numpy seed 42, the problem's sampling box); a single solve takes
+    one row of that draw.  Fields per lane: a single solve is one lane."""
+    if task[0] == "fds_wide":
+        return fds_wide(task[1])
     i, variant, k, device, window = task
     problem, low, high = harness_problems()[i]
-    x0 = np.random.default_rng(42).uniform(low, high, size=(HARNESS_STARTS, problem.n_features))[k]
+    x0s = np.random.default_rng(42).uniform(low, high, size=(BATCH_STARTS, problem.n_features))
     kw = dict(tol_internal=HARNESS_TOL_INTERNAL, **variants_of(problem)[variant])
     kw.update(dict(max_iter=WINDOW, tol=0) if window else dict(max_iter=HARNESS_MAX_ITER))
-    x0 = torch.tensor(x0, device=device)
     t0 = time.perf_counter()
-    res = problem.solve(x0, **kw)
+    if k is None:
+        res = problem.solve_batch(torch.tensor(x0s, device=device), history=True, **kw)
+    else:
+        res = problem.solve(torch.tensor(x0s[k], device=device), **kw)
     wall = time.perf_counter() - t0
+    lanes = 1 if k is not None else BATCH_STARTS
     return dict(
-        nit=res.nit, nit_internal=res.nit_internal, status=res.status, x=res.x,
-        fun=np.asarray(res.fun), wall=wall,
+        nit=np.reshape(res.nit, lanes), nit_internal=np.reshape(res.nit_internal, lanes),
+        status=np.reshape(res.status, lanes), x=np.reshape(res.x, (lanes, -1)),
+        fun=np.reshape(res.fun, (lanes, -1)), wall=wall,
     )
 
 
-def phase10(card: str, dev) -> dict:
-    """The harness's 15 problems under every variant, ``HARNESS_STARTS``
-    starts each, float64: every solve on the card against the same solve
-    on the CPU, over a ``WINDOW``-iteration window (tol 0) and to the end.
-
-    The solves are host-bound (a few hundred small launches per outer
-    iteration), so they run in worker processes, one CPU thread each;
-    the walls printed are per solve inside that pool."""
+def run_pool(card: str, dev, tasks: list) -> dict:
+    """Phases 10 and 12's solves in worker processes, one CPU thread each:
+    the solves are host-bound (hundreds of small launches per outer
+    iteration).  The longest first (batches, full solves, several
+    objectives, on the card), so that no long one starts last."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
     problems = harness_problems()
-    tasks = [
-        (i, v, k, d, w)
-        for i, (p, _, _) in enumerate(problems)
-        for v in variants_of(p)
-        for k in range(HARNESS_STARTS)
-        for w in (False, True)
-        for d in (str(dev), "cpu")
-    ]
-    # The longest first (full solves, several objectives, on the card),
-    # so that no long solve starts last.
-    tasks.sort(key=lambda t: (t[4], -problems[t[0]][0].n_objectives, t[3] == "cpu"))
+
+    def order(t):
+        if t[0] == "fds_wide":
+            return (-1, 0, 0, False)
+        return (t[2] is not None, t[4], -problems[t[0]][0].n_objectives, t[3] == "cpu")
+
+    tasks = sorted(tasks, key=order)
     workers = max(2, min(PHASE10_WORKERS, (os.cpu_count() or 2) - 1))
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
@@ -1059,41 +1084,79 @@ def phase10(card: str, dev) -> dict:
     ) as pool:
         results = dict(zip(tasks, pool.map(harness_solve, tasks)))
     log(
-        f"phase 10 [{card}]: {len(tasks)} solves ({len(tasks) // 4} cases x window/full x "
-        f"card/CPU) in {workers} worker processes: {time.perf_counter() - t0:.1f} s"
+        f"phases 10 and 12 [{card}]: {len(tasks)} solves and batches in {workers} worker "
+        f"processes: {time.perf_counter() - t0:.1f} s"
     )
+    return results
+
+
+def compare_lanes(wc: dict, wp: dict, fc: dict | None, fp: dict | None, m: int) -> list[tuple]:
+    """Card against CPU, lane by lane: over the window equal nit, equal
+    nit_internal for m<=2 (within 25% for m>=3), x within 1e-8 (m<=2) or
+    1e-6; to the end (when run) equal status and fun within 1e-6 relative.
+    Returns (ok, dx, dfun, inner difference) per lane."""
+    x_tol = 1e-8 if m <= 2 else 1e-6
+    out = []
+    for j in range(len(wc["nit"])):
+        dx = float(np.max(np.abs(wc["x"][j] - wp["x"][j])))
+        # m>=3: the Newton dual's stall and arc tests sit at the rounding
+        # floor, where cuBLAS and the CPU's BLAS round differently, so its
+        # inner count is not reproducible across devices (rank-one
+        # LinearFunctionRank1: up to 16% on the H100; the CPU port against
+        # JAX: up to 24%).  The bound only catches a Newton loop gone wrong.
+        d_int = abs(int(wc["nit_internal"][j]) - int(wp["nit_internal"][j]))
+        ok = (
+            wc["nit"][j] == wp["nit"][j]
+            and (d_int == 0 if m <= 2 else d_int <= 0.25 * wp["nit_internal"][j])
+            and dx <= x_tol
+        )
+        dfun = 0.0
+        if fc is not None:
+            scale = np.maximum(np.abs(fp["fun"][j]), 1e-300)
+            dfun = float(np.nanmax(np.abs(fc["fun"][j] - fp["fun"][j]) / scale))
+            ok = ok and fc["status"][j] == fp["status"][j] and (
+                dfun <= 1e-6 or np.array_equal(fc["fun"][j], fp["fun"][j], equal_nan=True)
+            )
+        out.append((ok, dx, dfun, d_int))
+    return out
+
+
+def phase10_tasks(dev) -> list:
+    return [
+        (i, v, k, d, w)
+        for i, (p, _, _) in enumerate(harness_problems())
+        for v in variants_of(p)
+        for k in range(HARNESS_STARTS)
+        for w in (False, True)
+        for d in (str(dev), "cpu")
+    ]
+
+
+def phase10(card: str, dev, results: dict) -> dict:
+    """The harness's 15 problems under every variant, ``HARNESS_STARTS``
+    start each, float64: every solve on the card against the same solve
+    on the CPU, over a ``WINDOW``-iteration window (tol 0) and to the end
+    (``compare_lanes``).  The solves ran in ``run_pool``'s workers; the
+    walls printed are per solve inside that pool.  Returns the walls per
+    (problem, variant)."""
     failures, inner = [], []
-    walls: dict[str, dict[str, list[float]]] = {}
+    walls: dict[tuple[str, str], dict[str, list[float]]] = {}
+    problems = harness_problems()
     for i, (p, _, _) in enumerate(problems):
         m = p.n_objectives
-        x_tol = 1e-8 if m <= 2 else 1e-6
         dev_x = dev_fun = 0.0
         statuses = []
         for v in variants_of(p):
             for k in range(HARNESS_STARTS):
                 wc, wp = results[(i, v, k, str(dev), True)], results[(i, v, k, "cpu", True)]
                 fc, fp = results[(i, v, k, str(dev), False)], results[(i, v, k, "cpu", False)]
-                dx = float(np.max(np.abs(wc["x"] - wp["x"])))
-                scale = np.maximum(np.abs(fp["fun"]), 1e-300)
-                dfun = float(np.nanmax(np.abs(fc["fun"] - fp["fun"]) / scale))
+                ((ok, dx, dfun, d_int),) = compare_lanes(wc, wp, fc, fp, m)
                 dev_x, dev_fun = max(dev_x, dx), max(dev_fun, dfun)
-                statuses.append(fc["status"])
-                # m>=3: the Newton dual's stall and arc tests sit at the
-                # rounding floor, where cuBLAS and the CPU's BLAS round
-                # differently, so its inner count is not reproducible
-                # across devices (rank-one LinearFunctionRank1: up to 16%
-                # on the H100; the CPU port against JAX: up to 24%).  The
-                # bound only catches a Newton loop gone wrong.
-                d_int = abs(wc["nit_internal"] - wp["nit_internal"])
+                statuses.append(int(fc["status"][0]))
                 if d_int:
-                    inner.append(f"{p.name} / {v} / start {k}: {wc['nit_internal']} vs {wp['nit_internal']}")
-                ok = (
-                    wc["nit"] == wp["nit"]
-                    and (d_int == 0 if m <= 2 else d_int <= 0.25 * wp["nit_internal"])
-                    and dx <= x_tol
-                    and fc["status"] == fp["status"]
-                    and (dfun <= 1e-6 or np.array_equal(fc["fun"], fp["fun"], equal_nan=True))
-                )
+                    inner.append(
+                        f"{p.name} / {v} / start {k}: {wc['nit_internal'][0]} vs {wp['nit_internal'][0]}"
+                    )
                 if not ok:
                     failures.append(
                         f"{p.name} / {v} / start {k}: window nit {wc['nit']}/{wp['nit']} "
@@ -1101,21 +1164,23 @@ def phase10(card: str, dev) -> dict:
                         f"full status {fc['status']}/{fp['status']} nit {fc['nit']}/{fp['nit']} "
                         f"dfun {dfun!r}"
                     )
-                w = walls.setdefault(p.name, {"cuda": [], "cpu": [], "nit": []})
+                w = walls.setdefault((p.name, v), {"cuda": [], "cpu": [], "nit": []})
                 w["cuda"].append(fc["wall"])
                 w["cpu"].append(fp["wall"])
-                w["nit"].append(fc["nit"])
-        w = walls[p.name]
+                w["nit"].append(int(fc["nit"][0]))
+        per_p = [walls[(p.name, v)] for v in variants_of(p)]
         log(
             f"phase 10 [{card}]: {p.name} (m={m}): statuses {statuses}; largest deviation card "
-            f"vs CPU: x {dev_x!r} over {WINDOW} iterations (bound {x_tol}), fun {dev_fun!r} "
-            f"relative at the end (bound 1e-6); wall per full solve, median: card "
-            f"{statistics.median(w['cuda']):.3f} s, CPU {statistics.median(w['cpu']):.3f} s "
-            f"(nit {w['nit']})"
+            f"vs CPU: x {dev_x!r} over {WINDOW} iterations (bound {1e-8 if m <= 2 else 1e-6}), "
+            f"fun {dev_fun!r} relative at the end (bound 1e-6); wall per full solve, median: "
+            f"card {statistics.median(x for w in per_p for x in w['cuda']):.3f} s, CPU "
+            f"{statistics.median(x for w in per_p for x in w['cpu']):.3f} s "
+            f"(nit {[n for w in per_p for n in w['nit']]})"
         )
+    cases = sum(len(variants_of(p)) for p, _, _ in problems) * HARNESS_STARTS
     log(
         f"phase 10: window nit_internal card vs CPU differs in {len(inner)} of "
-        f"{len(tasks) // 4} cases (allowed for m>=3 only, within 25%): {inner}"
+        f"{cases} cases (allowed for m>=3 only, within 25%): {inner}"
     )
     for f in failures:
         log(f"phase 10: MISMATCH {f}")
@@ -1164,6 +1229,269 @@ def phase11(card: str, dev) -> None:
             )
             if not same or r.status != 1:
                 raise AssertionError(f"phase 11: {p.name} {name} differs from check_every=1")
+
+
+#: Phase 12: the batch solver (zfista_tpu_torch.parallel).  (a) the
+#: harness's batches of BATCH_STARTS starts (full solves for m<=2; the
+#: window for every problem); (b) the 1k-lambda elastic-net sweep
+#: (BENCHMARKS.md "1k-lambda", BASELINE configs[2]): A 500 x 2000 by
+#: make_problem, 1,000 lambdas log-spaced in 1e-4..1, mu 0.1, float32, fixed
+#: step at 1/L, SWEEP_CHECK lanes held against single solves within
+#: SWEEP_RTOL; (c) JOS1 n=50 from 10,000 starts, float32, tol 1e-5
+#: (BENCHMARKS.md "10k-instance"); (d) FDS n=10 from 1,024 starts, float64,
+#: and lane_chunk=256 bitwise over CHUNK_ITERS iterations; (e) host reads
+#: and device events per outer iteration at COUNT_WIDTHS lanes (the 16
+#: starts tiled), over COUNT_ITERS iterations, within COUNT_RTOL.
+SWEEP_SHAPE, SWEEP_LAMBDAS, SWEEP_MU, SWEEP_CHECK, SWEEP_RTOL = (500, 2000), 1000, 0.1, 8, 1e-5
+JOS1_LANES, FDS_LANES, FDS_CHUNK, CHUNK_ITERS = 10_000, 1024, 256, 20
+COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 10, 0.01
+
+
+def phase12_tasks(dev) -> list:
+    """Phase 12's pool work: every (problem, variant) batch over the window
+    on both devices, to the end for m<=2, and (d)'s wide FDS batch."""
+    tasks = [("fds_wide", str(dev))]
+    for i, (p, _, _) in enumerate(harness_problems()):
+        for v in variants_of(p):
+            for d in (str(dev), "cpu"):
+                tasks.append((i, v, None, d, True))
+                if p.n_objectives <= 2:
+                    tasks.append((i, v, None, d, False))
+    return tasks
+
+
+def fds_wide(device: str) -> dict:
+    """(d), in a worker: FDS n=10 from FDS_LANES starts (benchmark()'s box,
+    seed 42), float64, the harness's accelerated variant, to the end."""
+    from zfista_tpu_torch.models import FDS
+
+    x0s = np.random.default_rng(42).uniform(-2.0, 2.0, size=(FDS_LANES, 10))
+    t0 = time.perf_counter()
+    res = FDS(n_features=10).solve_batch(
+        torch.tensor(x0s, device=device), nesterov=True, tol_internal=HARNESS_TOL_INTERNAL,
+        max_iter=HARNESS_MAX_ITER,
+    )
+    wall = time.perf_counter() - t0
+    return dict(status=res.status, nit=res.nit, x=res.x, wall=wall)
+
+
+#: Phase 12a: the share of a batch's lanes that may fall outside phase 10's
+#: classes card against CPU, each with the same status.  A hundred starts
+#: find the lanes whose path turns on a rounding-floor decision (a marginal
+#: line-search accept, a bisection end point, a Newton stall test); the
+#: single solves of phase 10 met none.  On the CPU alone a start changed by
+#: one part in 1e15 moves such a lane's inner count (JOS1 n=5 with L1,
+#: accelerated, start 53: 24 to 98; FDS start 54: 379 to 258 Newton steps)
+#: and, after a flip, the point where it stops within tol.
+BATCH_OUTLIERS = 0.1
+
+
+def phase12a(card: str, dev, results: dict, singles: dict) -> None:
+    """The harness's 15 problems under every variant as ``benchmark()``
+    runs them: one batch of ``BATCH_STARTS`` starts, ``history=True``,
+    float64, card against CPU lane by lane in phase 10's classes
+    (``compare_lanes``), over the window for every problem, to the end for
+    m<=2 (an m>=3 batch of 100 starts runs for minutes on either device;
+    (d) runs one to the end).  Every lane must end with the same status,
+    at most ``BATCH_OUTLIERS`` of a batch's lanes may fall outside the
+    classes (each printed), and for m>=3 the inner counts are held per
+    batch (its total within 25%): per lane they are not reproducible.
+    Walls per batch inside the pool, beside phase 10's single solves."""
+    failures = []
+    problems = harness_problems()
+    for i, (p, _, _) in enumerate(problems):
+        m = p.n_objectives
+        for v in variants_of(p):
+            wc, wp = results[(i, v, None, str(dev), True)], results[(i, v, None, "cpu", True)]
+            full = m <= 2
+            fc = results[(i, v, None, str(dev), False)] if full else None
+            fp = results[(i, v, None, "cpu", False)] if full else None
+            if m >= 3:  # inner counts per batch (below), not per lane
+                wc_lanes = dict(wc, nit_internal=wp["nit_internal"])
+            else:
+                wc_lanes = wc
+            lanes = compare_lanes(wc_lanes, wp, fc, fp, m)
+            outside = [j for j, lane in enumerate(lanes) if not lane[0]]
+            inner_c, inner_p = int(np.sum(wc["nit_internal"])), int(np.sum(wp["nit_internal"]))
+            bad = (
+                len(outside) > BATCH_OUTLIERS * BATCH_STARTS
+                or (full and not np.array_equal(fc["status"], fp["status"]))
+                or abs(inner_c - inner_p) > 0.25 * inner_p
+            )
+            one = singles[(p.name, v)]
+            msg = (
+                f"phase 12a [{card}]: {p.name} / {v} (m={m}), {BATCH_STARTS} starts: window "
+                f"({WINDOW} iterations) card {wc['wall']:.3f} s, CPU {wp['wall']:.3f} s; inner "
+                f"count {inner_c} card, {inner_p} CPU, equal in "
+                f"{int(np.sum(wc['nit_internal'] == wp['nit_internal']))} lanes; lanes outside "
+                f"phase 10's classes {len(outside)}"
+            )
+            if full:
+                msg += (
+                    f"; to the end: card {fc['wall']:.3f} s, CPU {fp['wall']:.3f} s (statuses "
+                    f"{np.bincount(fc['status'], minlength=3).tolist()}, equal card and CPU: "
+                    f"{np.array_equal(fc['status'], fp['status'])}, nit mean "
+                    f"{float(np.mean(fc['nit'])):.1f} max {int(np.max(fc['nit']))}); one start "
+                    f"alone (phase 10): card {one['cuda'][0]:.3f} s, CPU {one['cpu'][0]:.3f} s, "
+                    f"{BATCH_STARTS} of them one by one on one CPU core ~"
+                    f"{BATCH_STARTS * one['cpu'][0]:.1f} s"
+                )
+            log(msg)
+            for j in outside:
+                log(
+                    f"phase 12a:   lane {j}: window nit {wc['nit'][j]}/{wp['nit'][j]} inner "
+                    f"{wc['nit_internal'][j]}/{wp['nit_internal'][j]} x deviation "
+                    f"{lanes[j][1]!r}"
+                    + (f"; end status {fc['status'][j]}/{fp['status'][j]} nit "
+                       f"{fc['nit'][j]}/{fp['nit'][j]} fun deviation {lanes[j][2]!r}" if full else "")
+                )
+            if bad:
+                failures.append(f"{p.name} / {v}: lanes outside {outside}, inner {inner_c}/{inner_p}")
+    for f in failures:
+        log(f"phase 12a: MISMATCH {f}")
+    if failures:
+        raise AssertionError(f"phase 12a: {len(failures)} batches differ card against CPU")
+
+
+def phase12b(card: str, dev) -> None:
+    """The 1k-lambda elastic-net sweep through ``make_lasso_lambda_sweep``."""
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.models.lasso import make_lasso_lambda_sweep
+    from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
+
+    A_np, b_np = make_problem(*SWEEP_SHAPE)
+    A, b = torch.as_tensor(A_np, device=dev), torch.as_tensor(b_np, device=dev)
+    lams = np.logspace(-4, 0, SWEEP_LAMBDAS).astype(np.float32)
+    lr = 1.0 / Lasso(A, b, 1.0, l2_ratio=SWEEP_MU).lipschitz()
+    fns = make_lasso_lambda_sweep(A, b, l2_ratio=SWEEP_MU)
+    x0s = torch.zeros((SWEEP_LAMBDAS, SWEEP_SHAPE[1]), dtype=torch.float32, device=dev)
+    kw = dict(batch_params=torch.as_tensor(lams, device=dev), lr=lr, decay_rate=1, nesterov=True)
+    minimize_proximal_gradient_batch(*fns, x0s, max_iter=2, **kw)  # first-use costs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = minimize_proximal_gradient_batch(*fns, x0s, max_iter=HARNESS_MAX_ITER, **kw)
+    wall = time.perf_counter() - t0
+    log(
+        f"phase 12b [{card}]: {SWEEP_LAMBDAS}-lambda elastic-net sweep (A {SWEEP_SHAPE[0]}x"
+        f"{SWEEP_SHAPE[1]} f32, lambda 1e-4..1, mu {SWEEP_MU}, fixed step lr 1/L = {lr!r}): "
+        f"converged {float(np.mean(res.status == 1))!r}, nit mean {float(np.mean(res.nit))!r} "
+        f"max {int(np.max(res.nit))}, wall {wall:.3f} s, {SWEEP_LAMBDAS / wall:.1f} solves/s"
+    )
+    if not (np.all(np.isfinite(res.x)) and np.all(res.status == 1)):
+        raise AssertionError("phase 12b: the sweep did not converge everywhere")
+    worst = 0.0
+    for j in np.linspace(0, SWEEP_LAMBDAS - 1, SWEEP_CHECK).astype(int):
+        one = Lasso(A, b, float(lams[j]), l2_ratio=SWEEP_MU).solve_fixed_step(
+            torch.zeros(SWEEP_SHAPE[1], dtype=torch.float32, device=dev), lr=lr,
+            max_iter=HARNESS_MAX_ITER,
+        )
+        d = float(np.linalg.norm(res.x[j] - one.x) / max(np.linalg.norm(one.x), 1.0))
+        worst = max(worst, d)
+        if one.status != 1 or not d <= SWEEP_RTOL:
+            raise AssertionError(f"phase 12b: lane {j} differs from its single solve by {d!r}")
+    log(
+        f"phase 12b: {SWEEP_CHECK} lanes against single Lasso(..., l2_ratio={SWEEP_MU})."
+        f"solve_fixed_step solves on the card: largest relative difference {worst!r} "
+        f"(bound {SWEEP_RTOL})"
+    )
+
+
+def phase12c(card: str, dev) -> None:
+    """JOS1 n=50 from ``JOS1_LANES`` starts in float32: every converged
+    lane on the Pareto set, the segment x = c 1, c in [0, 2]."""
+    from zfista_tpu_torch.models import JOS1
+
+    p = JOS1(n_features=50)
+    x0s = np.random.default_rng(42).uniform(-2.0, 4.0, size=(JOS1_LANES, 50)).astype(np.float32)
+    x0s = torch.as_tensor(x0s, device=dev)
+    p.solve_batch(x0s[:16], nesterov=True, max_iter=2)  # first-use costs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = p.solve_batch(x0s, nesterov=True, tol=1e-5)
+    wall = time.perf_counter() - t0
+    ok = res.status == 1
+    # On the Pareto set (x = c 1, c in [0, 2]) sqrt(F1) + sqrt(F2) = 2, and
+    # off it larger: the gap measures each lane's distance to the front.
+    gap = np.abs(np.sqrt(res.fun[:, 0]) + np.sqrt(res.fun[:, 1]) - 2)
+    log(
+        f"phase 12c [{card}]: JOS1 n=50 from {JOS1_LANES} starts, f32, nesterov, tol 1e-5: "
+        f"converged {float(np.mean(ok))!r}, nit mean {float(np.mean(res.nit))!r} max "
+        f"{int(np.max(res.nit))}, wall {wall:.3f} s, {JOS1_LANES / wall:.1f} solves/s; largest "
+        f"gap to the Pareto front {float(np.max(gap))!r} (bound 1e-3), largest spread of an x "
+        f"{float(np.max(np.ptp(res.x, axis=1)))!r}"
+    )
+    if not (ok.mean() >= 0.99 and np.max(gap) <= 1e-3 and np.all(res.x >= -0.05)
+            and np.all(res.x <= 2.05)):
+        raise AssertionError("phase 12c: JOS1 lanes off the Pareto set or not converged")
+
+
+def phase12d(card: str, dev, wide: dict) -> None:
+    """FDS n=10 from ``FDS_LANES`` starts (run to the end in the pool), and
+    ``lane_chunk=FDS_CHUNK`` bitwise equal to the unchunked batch over
+    ``CHUNK_ITERS`` iterations (every State field)."""
+    from zfista_tpu_torch.models import FDS
+
+    counts = np.bincount(wide["status"], minlength=3).tolist()
+    log(
+        f"phase 12d [{card}]: FDS n=10 from {FDS_LANES} starts, f64, accelerated: statuses "
+        f"{counts}, converged {float(np.mean(wide['status'] == 1))!r}, nit mean "
+        f"{float(np.mean(wide['nit']))!r} max {int(np.max(wide['nit']))}, wall "
+        f"{wide['wall']:.3f} s (inside the pool of phases 10 and 12)"
+    )
+    if counts[1] < 0.99 * FDS_LANES or not np.all(np.isfinite(wide["x"])):
+        raise AssertionError("phase 12d: the FDS batch did not converge")
+    x0s = np.random.default_rng(42).uniform(-2.0, 2.0, size=(FDS_LANES, 10))
+    kw = dict(nesterov=True, tol_internal=HARNESS_TOL_INTERNAL, max_iter=CHUNK_ITERS)
+    walls = {}
+    runs = {}
+    for chunk in (None, FDS_CHUNK):
+        t0 = time.perf_counter()
+        runs[chunk] = FDS(n_features=10).solve_batch(torch.tensor(x0s, device=dev), lane_chunk=chunk, **kw)
+        walls[chunk] = time.perf_counter() - t0
+    same = all(np.array_equal(a, c) for a, c in zip(runs[None].state, runs[FDS_CHUNK].state))
+    log(
+        f"phase 12d [{card}]: {CHUNK_ITERS} iterations, unchunked {walls[None]:.3f} s, "
+        f"lane_chunk={FDS_CHUNK} {walls[FDS_CHUNK]:.3f} s; bitwise equal (every State field): {same}"
+    )
+    if not same:
+        raise AssertionError("phase 12d: lane_chunk changes the result")
+
+
+def phase12e(card: str, dev) -> None:
+    """Host reads and device events per outer iteration of a JOS1 (m=2) and
+    an FDS (m=3) batch at each of ``COUNT_WIDTHS`` lanes: the same 16
+    starts tiled, so every width runs the same rounds of every loop.  Per
+    iteration is the difference between a run of ``2 * COUNT_ITERS`` and
+    one of ``COUNT_ITERS`` iterations, over ``COUNT_ITERS``: the set-up and
+    the result's host copy cancel."""
+    from zfista_tpu_torch.models import FDS, JOS1
+
+    for name, p, low, high in (("JOS1 n=50", JOS1(n_features=50), -2.0, 4.0),
+                               ("FDS n=10", FDS(n_features=10), -2.0, 2.0)):
+        base = torch.tensor(np.random.default_rng(42).uniform(low, high, (16, p.n_features)), device=dev)
+        seen = {}
+        for B in COUNT_WIDTHS:
+            x0s = base.repeat(B // 16, 1)
+            got = {}
+            for its in (COUNT_ITERS, 2 * COUNT_ITERS):
+                run = lambda: p.solve_batch(x0s, nesterov=True, tol=0, max_iter=its)
+                got[its] = (count_host_reads(run)[1], *device_events(run, by_name=True))
+            (r1, e1, b1, n1), (r2, e2, b2, n2) = got[COUNT_ITERS], got[2 * COUNT_ITERS]
+            names = {k: n2.get(k, 0) - n1.get(k, 0) for k in set(n1) | set(n2)}
+            seen[B] = (r2 - r1, e2 - e1, names)
+            log(
+                f"phase 12e [{card}]: {name}, {B} lanes: host reads {(r2 - r1) / COUNT_ITERS!r} "
+                f"and device events {(e2 - e1) / COUNT_ITERS!r} per outer iteration, device "
+                f"busy {(b2 - b1) / COUNT_ITERS:.1f} us per iteration"
+            )
+        (ra, ea, na), (rb, eb, nb) = (seen[B] for B in COUNT_WIDTHS)
+        if (ra, ea) != (rb, eb):
+            diff = {k: (na.get(k, 0), nb.get(k, 0)) for k in set(na) | set(nb) if na.get(k, 0) != nb.get(k, 0)}
+            log(f"phase 12e: {name}: events that differ by width (over {COUNT_ITERS} iterations): {diff}")
+        # Flat in the lane count: FDS's counts came out 0.3-0.8% apart at 16
+        # and 1,024 lanes (cause not identified), JOS1's equal.
+        if abs(ra - rb) > COUNT_RTOL * max(ra, rb) or abs(ea - eb) > COUNT_RTOL * max(ea, eb):
+            raise AssertionError(f"phase 12e: {name}'s counts depend on the width")
 
 
 def main() -> None:
@@ -1376,14 +1704,27 @@ def main() -> None:
     tv_ms = phase8(dev, smi)
     log(f"phase 8 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 9-11: the multiobjective solve with backtracking ---------------
+    # -- phases 9-12: the multiobjective solve with backtracking, the batch ----
+    # Phase 10's solves and phase 12's harness batches share one pool of
+    # worker processes; the batches timed in this process (12b, 12c) run
+    # before the first profiled region (timings after one come out slower).
+    pooled: dict = {}
+    walls: dict = {}
     for n_phase, run in (
+        ("12b", lambda: phase12b(smi, dev)),
+        ("12c", lambda: phase12c(smi, dev)),
         (9, lambda: phase9(dev, smi, A, b, A_np, b_np, res.lr)),
         # Phase 5's profile, here because timings taken after a profiled
         # region in the same process come out slower, and phase 9 profiles.
         (5, lambda: lasso_loops(dev, smi)),
-        (10, lambda: phase10(smi, dev)),
+        ("10 and 12's pool", lambda: pooled.update(
+            run_pool(smi, dev, phase10_tasks(dev) + phase12_tasks(dev))
+        )),
+        (10, lambda: walls.update(phase10(smi, dev, pooled))),
+        ("12a", lambda: phase12a(smi, dev, pooled, walls)),
         (11, lambda: phase11(smi, dev)),
+        ("12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
+        ("12e", lambda: phase12e(smi, dev)),
     ):
         t0 = time.perf_counter()
         run()

@@ -12,7 +12,8 @@ import torch
 
 from zfista_tpu_torch import interop
 from zfista_tpu_torch.core import solver
-from zfista_tpu_torch.models import deblur
+from zfista_tpu_torch.models import deblur, lasso
+from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
 from zfista_tpu_torch.ops import precision
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,6 +36,7 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch.ops.tv, zfista_tpu_torch.ops.tv_cuda\n"
         "import zfista_tpu_torch.models.deblur, zfista_tpu_torch.models.zoo\n"
         "import zfista_tpu_torch.core.subproblem, zfista_tpu_torch.ops.prox\n"
+        "import zfista_tpu_torch.parallel, zfista_tpu_torch.parallel.batch\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
         "print(bad)\n"
@@ -97,6 +99,18 @@ _CARD_BY_DEFAULT = {
         np.zeros((3, 3)), np.zeros((3, 3)), **kw
     )[0],
     "synthetic_cameraman": lambda **kw: deblur.synthetic_cameraman(8, **kw),
+    "minimize_proximal_gradient_batch": lambda **kw: torch.as_tensor(
+        minimize_proximal_gradient_batch(
+            lambda x: x @ x, lambda x: 0 * x[0], None, lambda t, x: x, np.ones((2, 3)),
+            max_iter=1, **kw,
+        ).x
+    ),
+    "make_lasso_lambda_sweep": lambda **kw: lasso.make_lasso_lambda_sweep(
+        np.eye(2), np.ones(2), **kw
+    )[0](torch.zeros(2, dtype=torch.float64), 0.1),
+    "make_group_lasso_lambda_sweep": lambda **kw: lasso.make_group_lasso_lambda_sweep(
+        np.eye(2), np.ones(2), 2, **kw
+    )[0](torch.zeros(2, dtype=torch.float64), 0.1),
 }
 
 

@@ -4,7 +4,7 @@ Values, Jacobians, ``g`` (``+inf`` outside the box) and the weighted-sum
 prox of every problem of the benchmark harness's list, built in the port
 with ``interop.problem_from_spec``; analytic Jacobians against
 ``torch.func.jacfwd``; names identical to JAX (the harness's cache keys);
-shape validation; the unported batch entry point.
+shape validation; array bounds in ``g``; ``solve_batch``.
 """
 
 import jax.numpy as jnp
@@ -105,8 +105,30 @@ def test_shape_validation_and_unported_batch():
         tm.JOS1(l1_ratios=[0.1, 0.1], l1_shifts=[0.0])
     with pytest.raises(ValueError, match="l1_ratios must have shape"):
         tm.TOI4(l1_ratios=0.1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tm.JOS1().solve_batch(np.zeros((2, 5)))
+    # solve_batch is the batch solver: numpy starts go to the card by
+    # default, or to device="cpu".
+    res = tm.JOS1().solve_batch(np.zeros((2, 5)), device="cpu", nesterov=True)
+    assert res.x.shape == (2, 5) and res.success.all()
+
+
+@pytest.mark.parametrize("point", ["feasible", "infeasible"])
+def test_array_bounds_in_g_match_jax(point):
+    """Bounds given as arrays (one per coordinate) reach ``g`` as device
+    constants, as the prox takes them; ``g`` equals the JAX ``g``."""
+    n = 3
+    bounds = (np.full(n, -2.0), np.array([2.0, 1.0, 2.0]))
+    jp = jm.JOS1(n_features=n, l1_ratios=[0.5, 0.25], bounds=bounds)
+    tp = tm.JOS1(n_features=n, l1_ratios=[0.5, 0.25], bounds=bounds)
+    x = np.array([0.5, 0.5, -1.0]) if point == "feasible" else np.array([0.5, 1.5, -1.0])
+    got = tp.g(_t(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jp.g(jnp.asarray(x))))
+    assert np.isfinite(got).all() == (point == "feasible")
+    # Scalar bounds: the same g as the same box given per coordinate.
+    ts = tm.JOS1(n_features=n, l1_ratios=[0.5, 0.25], bounds=(-2.0, 1.0))
+    tv = tm.JOS1(n_features=n, l1_ratios=[0.5, 0.25], bounds=(np.full(n, -2.0), np.ones(n)))
+    for dt in (F64, torch.float32):
+        xt = _t(x).to(dt)
+        assert torch.equal(ts.g(xt), tv.g(xt))
 
 
 def test_problem_from_spec_refuses_what_it_cannot_build():

@@ -11,8 +11,11 @@ history, trace, host chunking and resume), the prox library
 (:mod:`zfista_tpu_torch.ops.prox`), the problem zoo and
 :class:`~zfista_tpu_torch.models.Lasso` (:mod:`zfista_tpu_torch.models`),
 TV-regularized deblurring (:class:`~zfista_tpu_torch.models.TVDeblur`,
-:func:`~zfista_tpu_torch.ops.prox_tv`), and the CUDA kernels of the LASSO
-step and the TV prox.  The batch solver is next; see ROADMAP.md.
+:func:`~zfista_tpu_torch.ops.prox_tv`), the CUDA kernels of the LASSO
+step and the TV prox, and the batch solver
+(:func:`zfista_tpu_torch.parallel.minimize_proximal_gradient_batch`:
+many starts, λ values or momentum pairs as one lane-batched solve).  See
+ROADMAP.md for what is next.
 """
 
 from zfista_tpu_torch.core.options import SolverOptions

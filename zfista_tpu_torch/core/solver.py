@@ -50,7 +50,11 @@ import torch
 
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.result import TERMINATION_MESSAGES, SolveResult
-from zfista_tpu_torch.core.subproblem import make_subproblem_solver
+from zfista_tpu_torch.core.subproblem import (
+    _over_lanes,
+    make_batch_subproblem_solver,
+    make_subproblem_solver,
+)
 from zfista_tpu_torch.ops.fused import fused_prox_momentum, lasso_step_tail
 from zfista_tpu_torch.ops.precision import dot_hp
 
@@ -306,6 +310,171 @@ def _make_step(
     return step
 
 
+def _make_batch_step(
+    f: Callable[..., Array],
+    g: Callable[..., Array],
+    jac_f: Callable[..., Array],
+    prox_wsum_g: Callable[..., Array],
+    n_objectives: int,
+    params: Any,
+    *,
+    tol: float,
+    tol_rel: float = 0.0,
+    tol_internal: float,
+    tol_internal_rel: float = 0.0,
+    max_iter_internal: int,
+    max_backtrack_iter: int,
+    warm_start: bool,
+    decay_rate: float,
+    nesterov: bool,
+    nesterov_ratio: tuple[Any, Any],
+    deprecated: bool,
+    adaptive_restart: bool = False,
+    project_momentum: bool = False,
+    track_objective: bool = True,
+    max_iter: int,
+) -> Callable[[State], State]:
+    """The outer-iteration step of B independent solves at once: every
+    :class:`State` field carries a leading lane axis.
+
+    ``f(x, *p)``, ``g(x, *p)``, ``jac_f(x, *p)`` and ``prox_wsum_g(w, x,
+    *p)`` are ONE lane's vector-form callables (:func:`_normalize_problem`)
+    with the lane's params last; they run over all lanes by
+    ``torch.func.vmap``, with ``params`` (leading lane axis) as their last
+    argument, or none when it is ``None``.  ``nesterov_ratio`` is a pair
+    of floats or of ``(B,)`` tensors (a momentum pair per lane).
+
+    Per lane it computes what :func:`_make_step` computes, with the host
+    decisions as lane masks: the backtracking line search runs rounds of
+    trials while any lane still searches (one host read per round), each
+    lane with its own ``lr``, and a lane that exhausts ``max_backtrack_iter``
+    fails alone.  Lanes that are not active (converged, failed or at
+    ``max_iter``) enter the trial loop already done, and the step returns
+    their state as it was: the step masks itself.  There is no fused LASSO
+    tail here.
+    """
+    m = n_objectives
+    solve_sub = make_batch_subproblem_solver(
+        g,
+        prox_wsum_g,
+        m,
+        params,
+        tol=tol_internal,
+        max_iter=max_iter_internal,
+        deprecated=deprecated,
+    )
+    v_f = _over_lanes(f, 1, params)
+    v_g = _over_lanes(g, 1, params)
+    v_jac = _over_lanes(jac_f, 1, params)
+    v_prox = _over_lanes(prox_wsum_g, 2, params)
+    v_dot = torch.func.vmap(dot_hp)
+    fixed_lr = decay_rate == 1
+    a, b = nesterov_ratio
+    need_f_y = not (fixed_lr and m == 1 and not track_objective)
+
+    def trial(state: State, lr, w, f_y, jac_y, live):
+        sub = solve_sub(lr, state.F_x, state.y, f_y, jac_y, w, live)
+        f_t = v_f(sub.x)
+        return sub, f_t, f_t + v_g(sub.x)
+
+    def accept_test(state: State, f_y, f_t, F_t, sub_fun) -> Array:
+        slack = (sub_fun + tol_internal)[:, None]
+        if tol_internal_rel:
+            ref = f_y if deprecated else state.F_x
+            slack = slack + tol_internal_rel * torch.abs(ref)
+        lhs = f_t - f_y if deprecated else F_t - state.F_x
+        return torch.all(lhs <= slack, dim=1)
+
+    def line_search(state: State, f_y, jac_y, active) -> _LS:
+        if fixed_lr:
+            if track_objective:
+                sub, _, F_t = trial(state, state.lr, state.w, f_y, jac_y, active)
+                sub_fun = sub.fun
+            else:
+                sub = solve_sub(state.lr, state.F_x, state.y, f_y, jac_y, state.w, active)
+                F_t, sub_fun = state.F_x, state.sub_fun  # stale, never read
+            w = sub.weight if warm_start else state.w
+            return _LS(state.lr, torch.ones_like(active), sub.x, F_t, w, sub_fun, sub.nit)
+
+        lr, w, nits = state.lr, state.w, torch.zeros_like(state.nit)
+        x, F_t, sub_fun = state.x, state.F_x, torch.zeros_like(state.t)
+        searching, done = active, ~active
+        for k in range(max_backtrack_iter):
+            if k and not bool(torch.any(searching)):  # one host read per round
+                break
+            sub, f_t, F_c = trial(state, lr, w, f_y, jac_y, searching)
+            ok = accept_test(state, f_y, f_t, F_c, sub.fun)
+            s = searching[:, None]
+            if warm_start:
+                w = torch.where(s, sub.weight, w)
+            x = torch.where(s, sub.x, x)
+            F_t = torch.where(s, F_c, F_t)
+            sub_fun = torch.where(searching, sub.fun, sub_fun)
+            nits = nits + torch.where(searching, sub.nit, 0)
+            done = done | (searching & ok)
+            lr = torch.where(searching & ~ok, lr * decay_rate, lr)
+            searching = searching & ~ok
+        return _LS(lr, done, x, F_t, w, sub_fun, nits)
+
+    def step(state: State) -> State:
+        active = _active(state, max_iter)
+        f_y = v_f(state.y) if need_f_y else None
+        jac_y = v_jac(state.y)
+        ls = line_search(state, f_y, jac_y, active)
+
+        err = torch.amax(torch.abs(ls.x - state.y), dim=1)
+        if tol_rel:
+            converged_now = err < tol + tol_rel * torch.amax(torch.abs(ls.x), dim=1)
+        else:
+            converged_now = err < tol
+        nit_internal = state.nit_internal + ls.nits
+
+        if nesterov:
+            t_k = state.t
+            if adaptive_restart:
+                osc = v_dot(state.y - ls.x, ls.x - state.x) > 0
+                t_k = torch.where(osc, torch.ones_like(t_k), t_k)
+            t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
+            gamma = (t_k - 1) / t_new
+            y_new = ls.x + gamma[:, None] * (ls.x - state.x)
+            if project_momentum:
+                y_new = v_prox(torch.zeros_like(state.w), y_new)
+        else:
+            t_new = state.t
+            y_new = ls.x
+
+        # Converged step: keep the old y/t (the JAX step's freeze).
+        new = State(
+            x=ls.x,
+            y=torch.where(converged_now[:, None], state.y, y_new),
+            F_x=ls.F_x,
+            lr=ls.lr,
+            t=torch.where(converged_now, state.t, t_new),
+            w=ls.w,
+            err=err,
+            sub_fun=ls.sub_fun,
+            nit=state.nit + 1,
+            nit_internal=nit_internal,
+            converged=converged_now,
+            failed=state.failed,
+        )
+        # Per lane: the step where it was active and accepted a trial; where
+        # the line search was exhausted, a freeze at the last accepted point
+        # (nit does not advance, the inner iterations spent still count,
+        # failed); elsewhere the state as it was.
+        moved = active & ls.done
+        out = State(
+            *(torch.where(moved.view(-1, *(1,) * (u.dim() - 1)), u, v) for u, v in zip(new, state))
+        )
+        return out._replace(
+            nit_internal=torch.where(active, nit_internal, state.nit_internal),
+            failed=state.failed | (active & ~ls.done),
+        )
+
+    step.masks_itself = True
+    return step
+
+
 def _print_row(state: State, max_iter, nit, nit_internal, err, ls: _LS) -> None:
     """One verbose row (the JAX step's five columns), or none when the
     step ran on a frozen state (a masked chunk's discarded step)."""
@@ -459,25 +628,28 @@ def _normalize_problem(
     jac_f: Callable[..., Array] | None,
     prox_wsum_g: Callable[..., Array],
     x0: Array,
+    *p: Any,
 ) -> tuple[Any, Any, Any, Any, int, bool]:
     """Normalize user callables to vector form: f,g -> (m,), jac -> (m,n),
     prox(w_vec, x). Returns (f, g, jac, prox, m, scalar_mode).
 
-    One eager call of ``f`` at ``x0`` gives the output shape (the JAX
-    version traces ``jax.eval_shape``).  The fused-step mark is carried
-    over to a single-objective prox only."""
-    out = f(x0)
+    ``p`` are trailing arguments that every callable takes and passes on
+    (the batch solver passes one lane's params; the single solve binds its
+    params first and passes none).  One eager call of ``f`` at ``x0``
+    gives the output shape (the JAX version traces ``jax.eval_shape``).
+    The fused-step mark is carried over to a single-objective prox only."""
+    out = f(x0, *p)
     scalar_mode = out.dim() == 0
     if scalar_mode:
         m = 1
-        f_v = lambda x: torch.reshape(f(x), (1,))
-        g_v = lambda x: torch.reshape(g(x), (1,))
+        f_v = lambda x, *q: torch.reshape(f(x, *q), (1,))
+        g_v = lambda x, *q: torch.reshape(g(x, *q), (1,))
         if jac_f is None:
-            grad = torch.func.grad(lambda z: torch.sum(f(z)))
-            jac_v = lambda x: torch.reshape(grad(x), (1, -1))
+            grad = torch.func.grad(lambda z, *q: torch.sum(f(z, *q)))
+            jac_v = lambda x, *q: torch.reshape(grad(x, *q), (1, -1))
         else:
-            jac_v = lambda x: torch.reshape(jac_f(x), (1, -1))
-        prox_v = lambda w, x: prox_wsum_g(w[0], x)
+            jac_v = lambda x, *q: torch.reshape(jac_f(x, *q), (1, -1))
+        prox_v = lambda w, x, *q: prox_wsum_g(w[0], x, *q)
     else:
         m = out.shape[0]
         f_v = f
@@ -485,10 +657,10 @@ def _normalize_problem(
         if jac_f is None:
             jac_v = torch.func.jacfwd(f)
         else:
-            jac_v = lambda x: torch.reshape(jac_f(x), (m, -1))
+            jac_v = lambda x, *q: torch.reshape(jac_f(x, *q), (m, -1))
         if m == 1:
             # Reference convention: scalar weight when there is one objective.
-            prox_v = lambda w, x: prox_wsum_g(w[0], x)
+            prox_v = lambda w, x, *q: prox_wsum_g(w[0], x, *q)
         else:
             prox_v = prox_wsum_g
     if m == 1:

@@ -340,3 +340,236 @@ def make_subproblem_solver(
         return SubproblemResult(x=x, fun=-phi_star, weight=w, nit=nit)
 
     return solve_mk
+
+
+# -- lane-batched solvers ------------------------------------------------------
+#
+# The batch solver (zfista_tpu_torch.parallel.batch) advances B independent
+# solves together: every tensor below carries a leading lane axis.  The JAX
+# package gets the same by jax.vmap over the single solvers, where XLA turns
+# each lane's while_loop into one masked loop.  Eager PyTorch cannot vmap a
+# host loop, so the m>=3 Newton solver is written over the lane axis with
+# per-lane masks; m=1 and m=2 read nothing on the host and are the single
+# solvers under torch.func.vmap.
+
+
+def solve_small_linear_batched(K: Array, b: Array) -> Array:
+    """:func:`solve_small_linear` over a leading lane axis: ``K (B, n, n)``,
+    ``b (B, n)``.  Each lane pivots by its own ``argmax`` and swaps rows by
+    ``gather``: the single solver's operations lane by lane, with the same
+    inf/NaN on a singular system."""
+    n = K.shape[-1]
+    A = torch.cat([K, b[..., None]], dim=-1)
+    idx = torch.arange(n, device=K.device)
+    for k in range(n):
+        mag = torch.where(idx < k, -math.inf, torch.abs(A[:, :, k]))
+        p = torch.argmax(mag, dim=-1)[:, None]
+        perm = torch.where(idx == k, p, torch.where(idx == p, k, idx))
+        A = torch.gather(A, 1, perm[:, :, None].expand(-1, -1, n + 1))
+        row_scaled = A[:, k] / A[:, k, k : k + 1]
+        factors = torch.where(idx == k, 0.0, A[:, :, k])
+        A = A - factors[:, :, None] * row_scaled[:, None, :]
+        A = torch.where((idx == k)[None, :, None], row_scaled[:, None, :], A)
+    return A[:, :, n]
+
+
+def _over_lanes(fn: Callable, n_args: int, params) -> Callable:
+    """``fn(*args, *p)`` of one lane, applied to every lane: vmapped over the
+    leading axis of its ``n_args`` tensors and of ``params``, passed as the
+    last argument (none when ``params`` is ``None``)."""
+    if params is None:
+        return torch.func.vmap(fn, in_dims=(0,) * n_args)
+    v = torch.func.vmap(fn, in_dims=(0,) * (n_args + 1))
+    return lambda *args: v(*args, params)
+
+
+def make_batch_subproblem_solver(
+    g: Callable,
+    prox_wsum_g: Callable,
+    n_objectives: int,
+    params,
+    *,
+    tol: float,
+    max_iter: int,
+    deprecated: bool = False,
+) -> Callable[..., SubproblemResult]:
+    """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0, live) ->
+    SubproblemResult`` over a leading lane axis.
+
+    ``g(x, *p)`` and ``prox_wsum_g(w, x, *p)`` are one lane's vector-form
+    callables with the lane's params last (none when ``params``, every
+    lane's with a leading axis, is ``None``).  ``live (B,)`` marks the lanes whose result
+    is used: the m>=3 loops start with the others done, so they never run
+    longer for them.  ``nit (B,)`` is each lane's own count, as the single
+    solver counts it; ``fun`` is ``None`` when ``f_y`` is (m=1).
+    """
+    m = n_objectives
+
+    def single(*p):
+        return make_subproblem_solver(
+            lambda x: g(x, *p),
+            lambda w, x: prox_wsum_g(w, x, *p),
+            m,
+            tol=tol,
+            max_iter=max_iter,
+            deprecated=deprecated,
+        )
+
+    if m <= 2:
+
+        def lane(lr, F_old, y, f_y, jac_f_y, w0, *p):
+            sub = single(*p)(lr, F_old, y, f_y, jac_f_y, w0)
+            if m == 1:
+                return (sub.x, sub.weight) + (() if f_y is None else (sub.fun,))
+            return sub.x, sub.weight, sub.fun, sub.nit
+
+        v_with_fy = _over_lanes(lane, 6, params)
+        v_without_fy = _over_lanes(
+            lambda lr, F_old, y, jac, w0, *p: lane(lr, F_old, y, None, jac, w0, *p), 5, params
+        )
+
+        def solve_low(lr, F_old, y, f_y, jac_f_y, w0, live) -> SubproblemResult:
+            if f_y is None:
+                out = v_without_fy(lr, F_old, y, jac_f_y, w0)
+            else:
+                out = v_with_fy(lr, F_old, y, f_y, jac_f_y, w0)
+            x, w = out[:2]
+            fun = out[2] if len(out) > 2 else None
+            if m == 1:
+                nit = torch.ones(y.shape[0], dtype=torch.int32, device=y.device)
+            else:
+                nit = out[3]
+            return SubproblemResult(x=x, fun=fun, weight=w, nit=nit)
+
+        return solve_low
+
+    # m >= 3: the single solve_mk's iteration over lanes.  Per lane: its
+    # own done/stall/arc masks; a lane that is done keeps its w and adds
+    # nothing to its nit.  Host reads: one per Newton round (does any lane
+    # still iterate?) and one per arc-trial round (does any lane still
+    # search?), whatever the number of lanes.
+    newton_cap = min(max_iter, 30)
+
+    def dual(f_y, jac_f_y, F_old, lr, y, *p) -> _Dual:
+        return _make_dual(
+            f_y, jac_f_y, F_old, lambda x: g(x, *p), lambda w, x: prox_wsum_g(w, x, *p),
+            lr, y, deprecated,
+        )
+
+    v_value = _over_lanes(lambda w, *a: dual(*a).value(w), 6, params)
+    v_vag = _over_lanes(lambda w, *a: dual(*a).value_and_grad(w), 6, params)
+    v_vap = _over_lanes(lambda w, *a: dual(*a).value_and_primal(w), 6, params)
+    v_hess = _over_lanes(
+        torch.func.jacrev(lambda w, *a: dual(*a).grad(w)), 6, params
+    )
+    v_dot = torch.func.vmap(_VDOT)
+    v_mv = torch.func.vmap(_DOT)
+
+    def solve_mk_batched(lr, F_old, y, f_y, jac_f_y, w0, live) -> SubproblemResult:
+        args = (f_y, jac_f_y, F_old, lr, y)
+        dtype, dev = y.dtype, y.device
+        B = y.shape[0]
+        eps = _eps(dtype)
+        delta = 1e-12 if dtype == torch.float64 else 1e-6
+        stat_tol = max(tol, 100 * eps)
+        eye = torch.eye(m, dtype=dtype, device=dev)
+        zero1 = torch.zeros((B, 1), dtype=dtype, device=dev)
+
+        lam_bound = torch.sum(jac_f_y * jac_f_y, dim=(-2, -1))
+        Ls = torch.clamp_min(lr * lam_bound, 1.0)
+
+        w = project_simplex(w0.to(dtype))
+        nit = torch.ones(B, dtype=torch.int32, device=dev)
+        stall = torch.zeros(B, dtype=torch.int32, device=dev)
+        going = live
+        for _ in range(newton_cap):
+            if not bool(torch.any(going)):  # the one read per Newton round
+                break
+            phi_k, grad = v_vag(w, *args)
+            H = v_hess(w, *args) + delta * eye
+
+            w_pg = project_simplex(w - grad / Ls[:, None])
+            fm = (w_pg > 0).to(dtype)
+            d_active = (1.0 - fm) * (w_pg - w)
+            K = torch.cat(
+                [
+                    torch.cat(
+                        [
+                            H * (fm[:, :, None] * fm[:, None, :])
+                            + torch.diag_embed(1.0 - fm),
+                            fm[:, :, None],
+                        ],
+                        dim=2,
+                    ),
+                    torch.cat([fm, zero1], dim=1)[:, None, :],
+                ],
+                dim=1,
+            )
+            rhs = torch.cat(
+                [-(grad + v_mv(H, d_active)) * fm, -torch.sum(d_active, dim=1)[:, None]],
+                dim=1,
+            )
+            d_newton = solve_small_linear_batched(K, rhs)[:, :m] + d_active
+
+            d_pg = w_pg - w
+            bad = (~torch.all(torch.isfinite(d_newton), dim=1)) | (v_dot(grad, d_newton) >= 0)
+            d_first = torch.where(bad[:, None], d_pg, d_newton)
+            slack = 4 * eps * (1 + torch.abs(phi_k))
+
+            def accept(w_t, phi_t):
+                moved = torch.any(w_t != w, dim=1)
+                return moved & (phi_t <= phi_k + 1e-4 * v_dot(grad, w_t - w) + slack)
+
+            def arc_search(d, searching, also=None):
+                """Armijo along w(a) = P_simplex(w + a d), a = 1, 1/2, ... for
+                the ``searching`` lanes, at most 40 trials each; one host read
+                per round of trials.  ``also(ok)`` rides on the last read.
+                Returns (ok, trials, w_t, phi_t, also's value)."""
+                a = torch.ones(B, dtype=dtype, device=dev)
+                w_t = project_simplex(w + d)
+                phi_t = v_value(w_t, *args)
+                ok = accept(w_t, phi_t)
+                j = torch.ones(B, dtype=torch.int32, device=dev)
+                trying = searching & ~ok
+                while True:
+                    flags = [torch.any(trying)]
+                    if also is not None:
+                        flags.append(torch.any(also(ok)))
+                    more, *rest = torch.stack(flags).tolist()
+                    if not more:
+                        return ok, j, w_t, phi_t, (rest[0] if rest else None)
+                    a = torch.where(trying, a * 0.5, a)
+                    w_c = project_simplex(w + a[:, None] * d)
+                    phi_c = v_value(w_c, *args)
+                    ok_c = accept(w_c, phi_c)
+                    w_t = torch.where(trying[:, None], w_c, w_t)
+                    phi_t = torch.where(trying, phi_c, phi_t)
+                    ok = torch.where(trying, ok_c, ok)
+                    j = j + trying.to(torch.int32)
+                    trying = trying & ~ok_c & (j < 40)
+
+            # Retry along the projected gradient where the first arc failed
+            # and was not already the projected gradient (``bad``).
+            retry = lambda ok: going & ~ok & ~bad
+            ok, n_ls, w_new, phi_new, any_retry = arc_search(d_first, going, retry)
+            if any_retry:
+                need = retry(ok)
+                ok2, n2, w2, phi2, _ = arc_search(d_pg, need)
+                ok = torch.where(need, ok2, ok)
+                n_ls = n_ls + torch.where(need, n2, 0)
+                w_new = torch.where(need[:, None], w2, w_new)
+                phi_new = torch.where(need, phi2, phi_new)
+            nit = nit + torch.where(going, n_ls + (m + 1), 0)
+
+            gm = torch.linalg.vector_norm(w - w_pg, dim=1)
+            stationary = gm <= stat_tol * (1 + torch.linalg.vector_norm(grad, dim=1) / Ls)
+            progressed = (phi_k - phi_new) > eps * (1 + torch.abs(phi_k))
+            moved = going & ok  # a failed arc is the floor: w stays, the lane stops
+            stall = torch.where(moved, torch.where(progressed, 0, stall + 1), stall)
+            w = torch.where(moved[:, None], w_new, w)
+            going = moved & ~stationary & (stall < 2)
+
+        phi_star, x = v_vap(w, *args)
+        return SubproblemResult(x=x, fun=-phi_star, weight=w, nit=nit)
+
+    return solve_mk_batched

@@ -57,7 +57,9 @@ def lasso_params_from_numpy(
 
 def state_from_numpy(state: Any, *, device: Any = "cuda") -> State:
     """The port's :class:`State` on ``device`` from any object with the
-    JAX ``State``'s 12 fields as numpy arrays (dtypes kept, data copied)."""
+    JAX ``State``'s 12 fields as numpy arrays (dtypes kept, data copied):
+    a single solve's, or a batch's with a leading lane axis on every field
+    (the JAX ``BatchResult.state``, for ``initial_states``)."""
     device = data_device(device)
     return State(
         *(

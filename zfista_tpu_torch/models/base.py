@@ -11,7 +11,7 @@ and closed proper convex :math:`g_i`:
   shifted-L1 composition plus box projection
   (:func:`zfista_tpu_torch.ops.prox.make_wsum_shifted_l1_box_prox`).
 * ``solve`` runs :func:`zfista_tpu_torch.minimize_proximal_gradient` on
-  ``x0``'s device.
+  ``x0``'s device, ``solve_batch`` the batch solver on ``x0s``'s.
 
 The constants stay float64 on the host and are copied once per
 ``(dtype, device)`` (:class:`~zfista_tpu_torch.ops.prox.DeviceConstants`):
@@ -28,6 +28,7 @@ import torch
 
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import minimize_proximal_gradient
+from zfista_tpu_torch.parallel.batch import minimize_proximal_gradient_batch
 from zfista_tpu_torch.ops.prox import DeviceConstants, make_wsum_shifted_l1_box_prox
 
 
@@ -74,6 +75,12 @@ class Problem:
         consts = {}
         if self.l1_ratios is not None:
             consts.update(ratios=self.l1_ratios, shifts=self.l1_shifts)
+        if bounds is not None:
+            # Scalars or arrays (broadcast against x), as the prox takes them.
+            consts.update(
+                lo=-np.inf if bounds[0] is None else bounds[0],
+                hi=np.inf if bounds[1] is None else bounds[1],
+            )
         self._g_consts = DeviceConstants(**consts)
         self._prox = make_wsum_shifted_l1_box_prox(
             self.l1_ratios,
@@ -115,15 +122,15 @@ class Problem:
 
     # -- nonsmooth part ------------------------------------------------------
     def g(self, x: Array) -> Array:
+        c = self._g_consts.on(x)
         if self.l1_ratios is not None:
-            c = self._g_consts.on(x)
             val = c["ratios"] * torch.sum(
                 torch.abs(x[None, :] - c["shifts"][:, None]), dim=1
             )
         else:
             val = torch.zeros(self.n_objectives, dtype=x.dtype, device=x.device)
         if self.bounds is not None:
-            infeasible = torch.any(x < self.bounds[0]) | torch.any(x > self.bounds[1])
+            infeasible = torch.any(x < c["lo"]) | torch.any(x > c["hi"])
             val = torch.where(infeasible, torch.inf, val)
         return val
 
@@ -141,9 +148,11 @@ class Problem:
 
     solve = minimize_proximal_gradient
 
-    def solve_batch(self, x0s, **kwargs):
-        """Many starts as one batched solve: not ported yet."""
-        raise NotImplementedError(
-            "solve_batch (the batch solver) is not ported to zfista_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 6); call solve per start"
+    def solve_batch(self, x0s, device: Any = "cuda", **kwargs):
+        """Solve from every row of ``x0s`` as one lane-batched solve
+        (:func:`zfista_tpu_torch.parallel.minimize_proximal_gradient_batch`):
+        on ``x0s``'s device when it is a tensor, else on ``device`` (default
+        ``"cuda"``; a machine with no card raises)."""
+        return minimize_proximal_gradient_batch(
+            self.f, self.g, self.jac_f, self.prox_wsum_g, x0s, device=device, **kwargs
         )

@@ -24,7 +24,7 @@ from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.base import Problem
 from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp
-from zfista_tpu_torch.ops.prox import soft_threshold
+from zfista_tpu_torch.ops.prox import prox_group_lasso, soft_threshold
 
 _DOT = matmul_hp
 
@@ -116,6 +116,12 @@ class Lasso(Problem):
 
     solve = minimize_proximal_gradient
 
+    def solve_batch(self, x0s, **kwargs):
+        """Solve from every row of ``x0s``, cast to ``A``'s dtype and moved
+        to its device, as one lane-batched solve."""
+        x0s = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
+        return super().solve_batch(x0s, **kwargs)
+
     def solve_fixed_step(self, x0, **kwargs):
         """Fixed-step FISTA at ``lr = 1/L`` (no backtracking) — the
         bandwidth-bound hot path.
@@ -190,6 +196,83 @@ def _lasso_prox_p(w, x, p):
 # prox is soft_threshold(x, w * p[2]), so the fixed-step nesterov step may
 # compute it and the momentum extrapolation in one fused kernel launch.
 _lasso_prox_p._soft_threshold_lam_of = lambda p: p[2]
+
+
+def _operands(A, b, device: Any) -> tuple[Array, Array]:
+    """``A`` and ``b`` as tensors: tensors keep their device, numpy goes to
+    ``device``; ``b`` takes ``A``'s dtype."""
+    if not isinstance(A, torch.Tensor):
+        A = torch.as_tensor(np.asarray(A), device=data_device(device))
+    return A, torch.as_tensor(b, dtype=A.dtype, device=A.device)
+
+
+def make_lasso_lambda_sweep(A, b, l2_ratio: float = 0.0, device: Any = "cuda"):
+    """Problem callables with a per-lane λ for
+    :func:`zfista_tpu_torch.parallel.minimize_proximal_gradient_batch`
+    (BASELINE configs[2]: the 1k-λ elastic-net sweep as one batched solve).
+
+    ``l2_ratio`` (μ, shared by every lane) adds the elastic-net term
+    ``(μ/2)‖x‖²`` with the convention of :class:`Lasso`; 0 is the pure
+    LASSO sweep.  ``A`` and ``b`` may be tensors, which keep their device,
+    or numpy arrays, which go to ``device`` (default ``"cuda"``; a machine
+    with no card raises).  Over the lanes the two products are GEMMs
+    through :func:`~zfista_tpu_torch.ops.precision.matmul_hp` (full fp32).
+    Returns ``(f, g, jac_f, prox)``, each taking λ last; pass λ in ``A``'s
+    dtype.
+    """
+    A, b = _operands(A, b, device)
+    mu = float(l2_ratio)
+
+    def f(x, lam):
+        r = _DOT(A, x) - b
+        val = dot_hp(r, r)
+        if mu:
+            val = val + 0.5 * mu * dot_hp(x, x)
+        return torch.reshape(val, (1,))
+
+    def jac_f(x, lam):
+        grad = 2 * _DOT(A.T, _DOT(A, x) - b)
+        if mu:
+            grad = grad + mu * x
+        return torch.reshape(grad, (1, -1))
+
+    def g(x, lam):
+        return torch.reshape(lam * torch.sum(torch.abs(x)), (1,))
+
+    def prox(weight, x, lam):
+        w = weight[0] if getattr(weight, "ndim", 0) else weight
+        return soft_threshold(x, w * lam)
+
+    return f, g, jac_f, prox
+
+
+def make_group_lasso_lambda_sweep(A, b, group_size: int, device: Any = "cuda"):
+    """Per-lane-λ group-lasso callables for the batch solver (the
+    group-lasso half of the sweep config; block soft-threshold prox).
+    ``A`` and ``b`` as in :func:`make_lasso_lambda_sweep`.  Returns ``(f,
+    g, jac_f, prox)``, each taking λ last.
+    """
+    A, b = _operands(A, b, device)
+    gs = int(group_size)
+    if A.shape[1] % gs:
+        raise ValueError("n_features must divide by group_size")
+
+    def f(x, lam):
+        r = _DOT(A, x) - b
+        return torch.reshape(dot_hp(r, r), (1,))
+
+    def jac_f(x, lam):
+        return torch.reshape(2 * _DOT(A.T, _DOT(A, x) - b), (1, -1))
+
+    def g(x, lam):
+        v = x.reshape(-1, gs)
+        return torch.reshape(lam * torch.sum(torch.sqrt(torch.sum(v * v, dim=-1))), (1,))
+
+    def prox(weight, x, lam):
+        w = weight[0] if getattr(weight, "ndim", 0) else weight
+        return prox_group_lasso(x, w * lam, gs)
+
+    return f, g, jac_f, prox
 
 
 def fista_step_dense(A: Array, b: Array, lam: Array, lr: Array, carry):

@@ -33,15 +33,45 @@ def _require_full_fp32() -> None:
         )
 
 
+def _over_lanes(t: torch.Tensor) -> bool:
+    """Whether ``t`` carries a lane dimension of ``torch.func.vmap`` (the
+    batch solver's), under any other ``torch.func`` wrappers."""
+    functorch = torch._C._functorch
+    while functorch.is_functorch_wrapped_tensor(t):
+        if functorch.is_batchedtensor(t):
+            return True
+        t = functorch.get_unwrapped(t)
+    return False
+
+
 def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul`` in full precision (matrix-vector / matrix-matrix)."""
+    """``torch.matmul`` in full precision (matrix-vector / matrix-matrix).
+
+    Under ``torch.func.vmap``, when each lane has its own matrix (or the
+    operands are vectors), the product is a sum of elementwise products
+    instead: vmap would turn ``matmul`` into a batched cuBLAS call whose
+    kernel, and so its rounding, changes with the number of lanes, and a
+    lane's result must not depend on how many lanes run beside it.  A
+    shared matrix (one operator, many lanes) stays one GEMM."""
     _require_full_fp32()
+    la, lb = _over_lanes(a), _over_lanes(b)
+    shared_matrix = (a.dim() == 2 and not la) or (b.dim() == 2 and not lb)
+    if (la or lb) and not shared_matrix and a.dim() <= 2 and b.dim() <= 2:
+        if a.dim() == 1:
+            return torch.sum(a * b) if b.dim() == 1 else torch.sum(a[:, None] * b, dim=0)
+        if b.dim() == 1:
+            return torch.sum(a * b, dim=-1)
+        return torch.sum(a[:, :, None] * b[None, :, :], dim=1)
     return torch.matmul(a, b)
 
 
 def dot_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.dot`` in full precision (vector-vector)."""
+    """``torch.dot`` in full precision (vector-vector); under
+    ``torch.func.vmap`` a sum of elementwise products (see
+    :func:`matmul_hp`)."""
     _require_full_fp32()
+    if _over_lanes(a) or _over_lanes(b):
+        return torch.sum(a * b)
     return torch.dot(a, b)
 
 
