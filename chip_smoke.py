@@ -16,11 +16,14 @@ of them against its plain PyTorch version:
   9-11): the LASSO above by ``Lasso.solve``, and the benchmark harness's
   15 zoo problems (``zfista_tpu/bench/harness.py``) through
   ``Problem.solve``;
-* the batch solver (phase 12): the harness's problems as ``benchmark()``
-  batches them through ``Problem.solve_batch``, the 1k-lambda elastic-net
-  sweep through ``make_lasso_lambda_sweep``, and wide JOS1 and FDS
-  batches.  Phases 9-12 add no CUDA kernel: cuBLAS products and small
-  elementwise launches.
+* the batch solver (phase 12): the harness's problems through the port's
+  ``bench.harness.benchmark``, the 1k-lambda elastic-net sweep through
+  ``make_lasso_lambda_sweep``, and wide JOS1 and FDS batches.  Phases 9-12
+  add no CUDA kernel: cuBLAS products and small elementwise launches;
+* the experiment layer (phase 13): the harness's metrics and CLI, the
+  papers' momentum sweeps, the wall-to-gap and restart benches (which run
+  the fused LASSO kernel and the whole-image FGP kernel), checkpoint,
+  profiling and the native metrics.
 
 Phases:
 
@@ -78,8 +81,20 @@ Phases:
     1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front;
     (d) FDS n=10 from 1,024 starts in float64, and ``lane_chunk=256``
     bitwise equal to the unchunked batch; (e) host reads and device events
-    per outer iteration at 16 and 1,024 lanes, within 1%.  Phases 10 and 12's
-    harness work shares one pool of worker processes.
+    per outer iteration at 16 and 1,024 lanes, within 1%.  Phases 10, 12
+    and 13's harness work shares one pool of worker processes.
+13. the experiment layer: (a) the metrics of 12a's to-the-end batches
+    (m<=2 cells) card against CPU (Error rate equal, Hypervolume within
+    1e-3, Avg iterations within 5%) and the performance profiles; (b) the
+    harness CLI over the 15 cells twice on one ``--out`` (the second run
+    all cache hits, byte-identical metrics.json); (c) the momentum sweeps
+    of examples/data/{JOS1,SD}_ab.csv (1,000 starts, float64), every
+    pair's error rate 0 and mean nit within 2% of the CSV; (d) wall to a
+    1e-6 and a 1e-8 optimality gap on the headline LASSO
+    (``gap_bench.run()``); (e) ``restart_bench`` (LASSO and TV rows);
+    (f) checkpoint resume bitwise, batched states, TV metadata, a trace
+    with an annotation and the step-tail kernel; (g) the native metrics
+    against their numpy paths.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -88,15 +103,19 @@ the exit code is not 0.  Without a CUDA device it exits at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -967,52 +986,14 @@ def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
     return {"rates": rates, "reads": reads, "busy_us": busy}
 
 
-#: Phase 10: the benchmark harness's problem list (zfista_tpu/bench/
-#: harness.py, initialize_problems(large=False)) and its variants.
-VARIANTS = {
-    "Normal": dict(nesterov=False),
-    "Accelerated": dict(nesterov=True),
-    "Accelerated (deprecated)": dict(nesterov=True, deprecated=True),
-}
-PROJECTED_VARIANT = {"Accelerated (projected)": dict(nesterov=True, project_momentum=True)}
-#: Phase 10 solves one start per case (the first of benchmark()'s draw),
-#: phase 12 batches benchmark()'s 100.
+#: Phase 10: the benchmark harness's problem list and variants, from the
+#: port's harness (zfista_tpu_torch.bench.harness: initialize_problems(
+#: large=False), _effective_variants).  Phase 10 solves one start per case
+#: (the first of benchmark()'s draw), phase 12 batches benchmark()'s 100.
 HARNESS_STARTS, HARNESS_TOL_INTERNAL, HARNESS_MAX_ITER, WINDOW = 1, 1e-11, 10_000, 12
 BATCH_STARTS = 100
-#: Worker processes for phases 10 and 12 (at most the machine's cores less one).
+#: Worker processes for phases 10, 12 and 13 (at most the machine's cores less one).
 PHASE10_WORKERS = 7
-
-
-def harness_problems() -> list:
-    """``initialize_problems(large=False)``: (problem, low, high) x 15."""
-    from zfista_tpu_torch.models import FDS, JOS1, SD, TOI4, TRIDIA, ZDT1, LinearFunctionRank1
-
-    out = []
-    for n in (5, 50):
-        out.append((JOS1(n_features=n), -2.0, 4.0))
-        out.append((JOS1(n_features=n, l1_ratios=[1.0 / n, 2.0 / n], l1_shifts=[0.0, -1.0]), -2.0, 4.0))
-    out.append((SD(), 1.0, 2.0))
-    n = 10
-    out.append((FDS(n_features=n), -2.0, 2.0))
-    out.append((FDS(n_features=n, l1_ratios=[1.0 / n] * 3, l1_shifts=[0.0, 1.0, -1.0]), -2.0, 2.0))
-    out.append((FDS(n_features=n, bounds=(0.0, math.inf)), 0.0, 2.0))
-    out.append((ZDT1(n_features=50), 0.01, 1.0))
-    out.append((TOI4(), -2.0, 5.0))
-    out.append((TOI4(l1_ratios=[0.25, 0.25], l1_shifts=[0.0, 0.0]), -2.0, 5.0))
-    out.append((TRIDIA(), -1.0, 1.0))
-    out.append((TRIDIA(l1_ratios=[0.5, 0.5, 0.5], l1_shifts=[0.0, 0.0, 0.0]), -1.0, 1.0))
-    out.append((LinearFunctionRank1(n_features=30), -1.0, 1.0))
-    out.append(
-        (LinearFunctionRank1(n_features=30, l1_ratios=[0.01] * 4, l1_shifts=[0.0] * 4), -1.0, 1.0)
-    )
-    return out
-
-
-def variants_of(problem) -> dict:
-    out = dict(VARIANTS)
-    if problem.bounds is not None:
-        out.update(PROJECTED_VARIANT)
-    return out
 
 
 def _worker_init(dev: str) -> None:
@@ -1031,20 +1012,50 @@ def _worker_init(dev: str) -> None:
 
 
 def harness_solve(task: tuple) -> dict:
-    """One phase-10 solve or phase-12 batch, in a worker process:
-    ``(problem index, variant, start, device, window)``, with start
-    ``None`` for the batch of all ``BATCH_STARTS`` starts (``history=True``,
-    as ``benchmark()`` runs it).  Starts are drawn as ``benchmark()`` draws
-    them (numpy seed 42, the problem's sampling box); a single solve takes
-    one row of that draw.  Fields per lane: a single solve is one lane."""
+    """One task of the pool, in a worker process.  A phase-10 solve or
+    phase-12 batch is ``(problem index, variant, start, device, window)``,
+    with start ``None`` for the batch of all ``BATCH_STARTS`` starts.
+    Starts are drawn as ``benchmark()`` draws them (numpy seed 42, the
+    problem's sampling box); a single solve takes one row of that draw.  A
+    batch to the end runs through the harness's own ``benchmark()`` (one
+    variant, ``history=True``) and also returns its per-lane results; a
+    window batch runs ``solve_batch`` (``benchmark()`` takes no ``tol``).
+    Fields per lane: a single solve is one lane.  The other tasks: (d)'s
+    wide FDS batch, 13b's CLI runs and 13c's momentum sweeps."""
     if task[0] == "fds_wide":
         return fds_wide(task[1])
+    if task[0] == "cli":
+        return cli_runs(task[1])
+    if task[0] == "sweep":
+        return sweep_run(task[1], task[2])
+    from zfista_tpu_torch.bench.harness import (
+        _effective_variants,
+        benchmark,
+        initialize_problems,
+    )
+
     i, variant, k, device, window = task
-    problem, low, high = harness_problems()[i]
-    x0s = np.random.default_rng(42).uniform(low, high, size=(BATCH_STARTS, problem.n_features))
-    kw = dict(tol_internal=HARNESS_TOL_INTERNAL, **variants_of(problem)[variant])
-    kw.update(dict(max_iter=WINDOW, tol=0) if window else dict(max_iter=HARNESS_MAX_ITER))
+    problem, low, high = initialize_problems(large=False)[i]
+    opts = _effective_variants(problem, None)[variant]
     t0 = time.perf_counter()
+    if k is None and not window:
+        lanes = benchmark(
+            problem, low, high, n_samples=BATCH_STARTS, max_iter=HARNESS_MAX_ITER,
+            tol_internal=HARNESS_TOL_INTERNAL, history=True, variants={variant: opts},
+            device=device,
+        )[variant]
+        return dict(
+            nit=np.array([r.nit for r in lanes]),
+            nit_internal=np.array([r.nit_internal for r in lanes]),
+            status=np.array([r.status for r in lanes]),
+            x=np.stack([r.x for r in lanes]),
+            fun=np.stack([np.atleast_1d(r.fun) for r in lanes]),
+            wall=time.perf_counter() - t0,
+            results=lanes,
+        )
+    x0s = np.random.default_rng(42).uniform(low, high, size=(BATCH_STARTS, problem.n_features))
+    kw = dict(tol_internal=HARNESS_TOL_INTERNAL, **opts)
+    kw.update(dict(max_iter=WINDOW, tol=0) if window else dict(max_iter=HARNESS_MAX_ITER))
     if k is None:
         res = problem.solve_batch(torch.tensor(x0s, device=device), history=True, **kw)
     else:
@@ -1059,18 +1070,22 @@ def harness_solve(task: tuple) -> dict:
 
 
 def run_pool(card: str, dev, tasks: list) -> dict:
-    """Phases 10 and 12's solves in worker processes, one CPU thread each:
-    the solves are host-bound (hundreds of small launches per outer
-    iteration).  The longest first (batches, full solves, several
-    objectives, on the card), so that no long one starts last."""
+    """Phases 10, 12 and 13's solves in worker processes, one CPU thread
+    each: the solves are host-bound (hundreds of small launches per outer
+    iteration).  The longest first (the momentum sweeps, the CLI runs, the
+    wide FDS batch, then batches, full solves, several objectives, on the
+    card), so that no long one starts last."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    problems = harness_problems()
+    from zfista_tpu_torch.bench.harness import initialize_problems
+
+    problems = initialize_problems(large=False)
+    first = ("sweep", "cli", "fds_wide")
 
     def order(t):
-        if t[0] == "fds_wide":
-            return (-1, 0, 0, False)
+        if t[0] in first:
+            return (first.index(t[0]) - len(first), 0, 0, False)
         return (t[2] is not None, t[4], -problems[t[0]][0].n_objectives, t[3] == "cpu")
 
     tasks = sorted(tasks, key=order)
@@ -1084,7 +1099,7 @@ def run_pool(card: str, dev, tasks: list) -> dict:
     ) as pool:
         results = dict(zip(tasks, pool.map(harness_solve, tasks)))
     log(
-        f"phases 10 and 12 [{card}]: {len(tasks)} solves and batches in {workers} worker "
+        f"phases 10, 12 and 13 [{card}]: {len(tasks)} tasks in {workers} worker "
         f"processes: {time.perf_counter() - t0:.1f} s"
     )
     return results
@@ -1122,10 +1137,12 @@ def compare_lanes(wc: dict, wp: dict, fc: dict | None, fp: dict | None, m: int) 
 
 
 def phase10_tasks(dev) -> list:
+    from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
+
     return [
         (i, v, k, d, w)
-        for i, (p, _, _) in enumerate(harness_problems())
-        for v in variants_of(p)
+        for i, (p, _, _) in enumerate(initialize_problems(large=False))
+        for v in _effective_variants(p, None)
         for k in range(HARNESS_STARTS)
         for w in (False, True)
         for d in (str(dev), "cpu")
@@ -1139,14 +1156,16 @@ def phase10(card: str, dev, results: dict) -> dict:
     (``compare_lanes``).  The solves ran in ``run_pool``'s workers; the
     walls printed are per solve inside that pool.  Returns the walls per
     (problem, variant)."""
+    from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
+
     failures, inner = [], []
     walls: dict[tuple[str, str], dict[str, list[float]]] = {}
-    problems = harness_problems()
+    problems = initialize_problems(large=False)
     for i, (p, _, _) in enumerate(problems):
         m = p.n_objectives
         dev_x = dev_fun = 0.0
         statuses = []
-        for v in variants_of(p):
+        for v in _effective_variants(p, None):
             for k in range(HARNESS_STARTS):
                 wc, wp = results[(i, v, k, str(dev), True)], results[(i, v, k, "cpu", True)]
                 fc, fp = results[(i, v, k, str(dev), False)], results[(i, v, k, "cpu", False)]
@@ -1168,7 +1187,7 @@ def phase10(card: str, dev, results: dict) -> dict:
                 w["cuda"].append(fc["wall"])
                 w["cpu"].append(fp["wall"])
                 w["nit"].append(int(fc["nit"][0]))
-        per_p = [walls[(p.name, v)] for v in variants_of(p)]
+        per_p = [walls[(p.name, v)] for v in _effective_variants(p, None)]
         log(
             f"phase 10 [{card}]: {p.name} (m={m}): statuses {statuses}; largest deviation card "
             f"vs CPU: x {dev_x!r} over {WINDOW} iterations (bound {1e-8 if m <= 2 else 1e-6}), "
@@ -1177,7 +1196,7 @@ def phase10(card: str, dev, results: dict) -> dict:
             f"{statistics.median(x for w in per_p for x in w['cpu']):.3f} s "
             f"(nit {[n for w in per_p for n in w['nit']]})"
         )
-    cases = sum(len(variants_of(p)) for p, _, _ in problems) * HARNESS_STARTS
+    cases = sum(len(_effective_variants(p, None)) for p, _, _ in problems) * HARNESS_STARTS
     log(
         f"phase 10: window nit_internal card vs CPU differs in {len(inner)} of "
         f"{cases} cases (allowed for m>=3 only, within 25%): {inner}"
@@ -1250,9 +1269,11 @@ COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 10, 0.01
 def phase12_tasks(dev) -> list:
     """Phase 12's pool work: every (problem, variant) batch over the window
     on both devices, to the end for m<=2, and (d)'s wide FDS batch."""
+    from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
+
     tasks = [("fds_wide", str(dev))]
-    for i, (p, _, _) in enumerate(harness_problems()):
-        for v in variants_of(p):
+    for i, (p, _, _) in enumerate(initialize_problems(large=False)):
+        for v in _effective_variants(p, None):
             for d in (str(dev), "cpu"):
                 tasks.append((i, v, None, d, True))
                 if p.n_objectives <= 2:
@@ -1297,11 +1318,13 @@ def phase12a(card: str, dev, results: dict, singles: dict) -> None:
     classes (each printed), and for m>=3 the inner counts are held per
     batch (its total within 25%): per lane they are not reproducible.
     Walls per batch inside the pool, beside phase 10's single solves."""
+    from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
+
     failures = []
-    problems = harness_problems()
+    problems = initialize_problems(large=False)
     for i, (p, _, _) in enumerate(problems):
         m = p.n_objectives
-        for v in variants_of(p):
+        for v in _effective_variants(p, None):
             wc, wp = results[(i, v, None, str(dev), True)], results[(i, v, None, "cpu", True)]
             full = m <= 2
             fc = results[(i, v, None, str(dev), False)] if full else None
@@ -1436,7 +1459,7 @@ def phase12d(card: str, dev, wide: dict) -> None:
         f"phase 12d [{card}]: FDS n=10 from {FDS_LANES} starts, f64, accelerated: statuses "
         f"{counts}, converged {float(np.mean(wide['status'] == 1))!r}, nit mean "
         f"{float(np.mean(wide['nit']))!r} max {int(np.max(wide['nit']))}, wall "
-        f"{wide['wall']:.3f} s (inside the pool of phases 10 and 12)"
+        f"{wide['wall']:.3f} s (inside the pool of phases 10, 12 and 13)"
     )
     if counts[1] < 0.99 * FDS_LANES or not np.all(np.isfinite(wide["x"])):
         raise AssertionError("phase 12d: the FDS batch did not converge")
@@ -1492,6 +1515,388 @@ def phase12e(card: str, dev) -> None:
         # and 1,024 lanes (cause not identified), JOS1's equal.
         if abs(ra - rb) > COUNT_RTOL * max(ra, rb) or abs(ea - eb) > COUNT_RTOL * max(ea, eb):
             raise AssertionError(f"phase 12e: {name}'s counts depend on the width")
+
+
+#: Phase 13: the experiment layer (zfista_tpu_torch.bench, .metrics, .native,
+#: .utils).  (a) the metrics of phase 12a's to-the-end batches (m<=2 cells),
+#: card against CPU: Error rate equal, Hypervolume within HV_RTOL relative,
+#: Avg iterations within NIT_RTOL; (b) the harness CLI over the 15 cells,
+#: twice on one --out (the second run all cache hits); (c) the papers'
+#: momentum sweeps that wrote examples/data/{JOS1,SD}_ab.csv (AB_STARTS
+#: starts, seed 42, float64), every pair's mean nit within AB_NIT_RTOL of
+#: the CSV's; (d) gap_bench.run() at its defaults; (e) restart_bench without
+#: its TRIDIA row; (f) checkpoint (CKPT_STOP of CKPT_END iterations) and a
+#: trace of TRACE_STEPS steps; (g) the native metrics against their numpy
+#: paths on ND_POINTS and HV_POINTS 3-objective points.
+HV_RTOL, NIT_RTOL = 1e-3, 0.05
+CLI_ARGS = ("--no-plots", "--n-samples", "8", "--max-iter", "3")
+AB_STARTS, AB_NIT_RTOL = 1000, 0.02
+AB_BOXES = {"JOS1": (-2.0, 4.0), "SD": (1.0, 2.0)}
+RESTART_FRTOL = 1e-4
+CKPT_STOP, CKPT_END, TRACE_STEPS = 100, 300, 20
+ND_POINTS, HV_POINTS = 2000, 200
+
+
+def phase13_tasks(dev) -> list:
+    """Phase 13's pool work: (b)'s CLI runs and (c)'s two sweeps."""
+    return [("sweep", name, str(dev)) for name in AB_BOXES] + [("cli", str(dev))]
+
+
+def cli_runs(device: str) -> dict:
+    """(b), in a worker: ``python -m zfista_tpu_torch.bench.harness`` over
+    the 15 cells with ``CLI_ARGS``, twice on one ``--out``.  ``benchmark``
+    is wrapped to count the cells each run solves."""
+    from zfista_tpu_torch.bench import harness
+
+    real, solved = harness.benchmark, []
+
+    def counted(problem, *args, **kwargs):
+        solved.append(problem.name)
+        return real(problem, *args, **kwargs)
+
+    harness.benchmark = counted
+    out = {"walls": [], "solved": []}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--device", device, *CLI_ARGS, "--out", tmp]
+            blobs = []
+            for _ in range(2):
+                solved.clear()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+                    harness.main(argv)
+                out["walls"].append(time.perf_counter() - t0)
+                out["solved"].append(list(solved))
+                blobs.append({p.parent.name: p.read_bytes() for p in Path(tmp).glob("*/metrics.json")})
+            out["cells"] = len(blobs[0])
+            out["same_bytes"] = blobs[0] == blobs[1]
+            csv, js = Path(tmp) / "metrics.csv", Path(tmp) / "metrics.json"
+            out["artefact"] = csv.name if csv.exists() else js.name
+            out["rows"] = (
+                len(csv.read_text().splitlines()) - 1 if csv.exists() else len(json.loads(js.read_text()))
+            )
+    finally:
+        harness.benchmark = real
+    return out
+
+
+def sweep_run(name: str, device: str) -> dict:
+    """(c), in a worker: ``momentum_sweep`` as examples/momentum_experiment.py
+    runs it (``AB_STARTS`` starts, seed 42, float64, measured times)."""
+    from zfista_tpu_torch.bench.momentum_sweep import momentum_sweep
+    from zfista_tpu_torch.models import JOS1, SD
+
+    prob = JOS1(n_features=50) if name == "JOS1" else SD()
+    low, high = AB_BOXES[name]
+    t0 = time.perf_counter()
+    rows, res = momentum_sweep(prob, low, high, n_starts=AB_STARTS, seed=42, device=device)
+    return dict(
+        rows=rows, wall=time.perf_counter() - t0, lanes=len(res.nit),
+        nit_max=int(np.max(res.nit)), dtype=str(res.x.dtype),
+    )
+
+
+def _rel(a: float, b: float) -> float:
+    """|a - b| relative to the larger; 0 for equal values (inf or NaN
+    included), inf where only one is finite."""
+    if a == b or (math.isnan(a) and math.isnan(b)):
+        return 0.0
+    if not (math.isfinite(a) and math.isfinite(b)):
+        return math.inf
+    return abs(a - b) / max(abs(a), abs(b))
+
+
+def phase13a(card: str, dev, results: dict) -> None:
+    """The harness's metrics on the card against the CPU: each m<=2 cell's
+    to-the-end batches of phase 12a (one ``benchmark()`` per variant)
+    through ``calculate_metrics``, then ``performance_profiles`` over the
+    cells.  Gates: Error rate equal, Hypervolume within ``HV_RTOL``, Avg
+    iterations within ``NIT_RTOL``; the other metrics are printed (Purity,
+    Gamma and Delta count membership in the pooled front, which one lane at
+    the rounding floor moves by 1/|front|)."""
+    from zfista_tpu_torch.bench.harness import (
+        _effective_variants,
+        initialize_problems,
+        performance_profiles,
+    )
+    from zfista_tpu_torch.metrics import calculate_metrics
+
+    gates = {"Error rate": 0.0, "Hypervolume": HV_RTOL, "Avg iterations": NIT_RTOL}
+    worst: dict[str, float] = {}
+    ratios: dict[str, dict] = {str(dev): {}, "cpu": {}}
+    failures = []
+    for i, (p, _, _) in enumerate(initialize_problems(large=False)):
+        if p.n_objectives > 2:
+            continue
+        variants = list(_effective_variants(p, None))
+        got = {}
+        for d in ratios:
+            metrics, ratios[d][p.name] = calculate_metrics(
+                *((v, results[(i, v, None, d, False)]["results"]) for v in variants)
+            )
+            got[d] = metrics
+        cell = {}
+        for metric, per in got[str(dev)].items():
+            devs = {v: _rel(float(per[v]), float(got["cpu"][metric][v])) for v in variants}
+            cell[metric] = max(devs.values())
+            worst[metric] = max(worst.get(metric, 0.0), cell[metric])
+            for v, dv in devs.items():
+                if metric in gates and not dv <= gates[metric]:
+                    wc = results[(i, v, None, str(dev), False)]
+                    wp = results[(i, v, None, "cpu", False)]
+                    lanes = [
+                        (j, int(wc["status"][j]), int(wp["status"][j]), int(wc["nit"][j]), int(wp["nit"][j]))
+                        for j in range(BATCH_STARTS)
+                        if (wc["status"][j], wc["nit"][j]) != (wp["status"][j], wp["nit"][j])
+                    ]
+                    failures.append(
+                        f"{p.name} / {v}: {metric} card {per[v]!r} CPU {got['cpu'][metric][v]!r}; "
+                        f"lanes (j, status card/CPU, nit card/CPU) that differ: {lanes}"
+                    )
+        log(
+            f"phase 13a [{card}]: {p.name}: largest deviation card vs CPU per metric over "
+            f"{len(variants)} variants: " + ", ".join(f"{k} {v:.3g}" for k, v in cell.items())
+        )
+    log(
+        f"phase 13a: largest deviation per metric over the m<=2 cells (gates: Error rate equal, "
+        f"Hypervolume {HV_RTOL}, Avg iterations {NIT_RTOL}; the rest printed): "
+        + ", ".join(f"{k} {v!r}" for k, v in worst.items())
+    )
+    for d, per_cell in ratios.items():
+        prof = performance_profiles(per_cell)
+        best = {
+            metric: {alg: round(float(np.sum(tau <= 1.0)) / len(per_cell), 3) for alg, (tau, _) in algs.items()}
+            for metric, algs in prof.items()
+            if metric in ("Hypervolume", "Avg iterations", "Avg computation time")
+        }
+        log(f"phase 13a [{card}]: {d}: performance profiles over {len(per_cell)} cells, share at ratio 1: {best}")
+    for f in failures:
+        log(f"phase 13a: MISMATCH {f}")
+    if failures:
+        raise AssertionError(f"phase 13a: {len(failures)} metrics differ card against CPU")
+
+
+def phase13b(card: str, cli: dict) -> None:
+    """The CLI's two runs (in the pool): the first solves all 15 cells,
+    the second none, with byte-identical per-problem metrics.json."""
+    (w1, w2), (s1, s2) = cli["walls"], cli["solved"]
+    log(
+        f"phase 13b [{card}]: harness CLI {' '.join(CLI_ARGS)}: first run {w1:.3f} s solved "
+        f"{len(s1)} cells, second run {w2:.3f} s solved {len(s2)}; per-problem metrics.json "
+        f"byte-identical: {cli['same_bytes']} ({cli['cells']} cells); end artefact "
+        f"{cli['artefact']}, {cli['rows']} rows (inside the pool)"
+    )
+    if not (len(s1) == cli["cells"] == 15 and not s2 and cli["same_bytes"] and cli["rows"] > 0):
+        raise AssertionError("phase 13b: the CLI runs do not hold")
+
+
+def _ab_csv(name: str) -> dict:
+    """examples/data/<name>_ab.csv: (a, b) -> (seconds per solve, mean nit)."""
+    path = Path(__file__).resolve().parent / "examples" / "data" / f"{name}_ab.csv"
+    out = {}
+    for line in path.read_text().splitlines():
+        a, b, t, n = line.split(",")
+        out[(a.strip(), b.strip())] = (float(t), float(n))
+    return out
+
+
+def phase13c(card: str, dev, results: dict) -> None:
+    """The momentum sweeps (in the pool) against the committed CSVs: every
+    pair's error rate 0 and mean nit within ``AB_NIT_RTOL``; seconds per
+    solve on the card beside the CSV's (the JAX package on a CPU,
+    examples/data/README.md)."""
+    failures = []
+    for name in AB_BOXES:
+        got = results[("sweep", name, str(dev))]
+        ref = _ab_csv(name)
+        worst = 0.0
+        for r in got["rows"]:
+            t_ref, n_ref = ref[(r["a"], r["b"])]
+            d = math.inf if r["nit"] is None else abs(r["nit"] - n_ref) / n_ref
+            worst = max(worst, d)
+            log(
+                f"phase 13c [{card}]: {name} (a, b) = ({r['a']}, {r['b']}): nit {r['nit']!r} "
+                f"(CSV {n_ref!r}), error rate {r['error_rate']!r}, s per solve {r['time']!r} "
+                f"(CSV {t_ref!r})"
+            )
+            if r["error_rate"] != 0 or not d <= AB_NIT_RTOL:
+                failures.append(f"{name} {r['a']}, {r['b']}: nit {r['nit']} against {n_ref}")
+        log(
+            f"phase 13c [{card}]: {name}: {got['lanes']} lanes ({got['dtype']}), sweep and "
+            f"timed pairs {got['wall']:.3f} s (inside the pool), max nit {got['nit_max']}, "
+            f"largest nit deviation from the CSV {worst!r} (bound {AB_NIT_RTOL})"
+        )
+    for f in failures:
+        log(f"phase 13c: MISMATCH {f}")
+    if failures:
+        raise AssertionError(f"phase 13c: {len(failures)} pairs differ from the CSVs")
+
+
+def phase13d(card: str) -> None:
+    """``gap_bench.run()`` at its defaults on the card: both targets
+    reached, the tighter not sooner, both walls positive; the raw loop
+    launches ``fista_tail``, the public pass ``lasso_step_tail``."""
+    from zfista_tpu_torch.bench import gap_bench
+    from zfista_tpu_torch.ops import fused
+
+    zero(fused.launch_counts)
+    rec = gap_bench.run()
+    torch.cuda.synchronize()
+    launched = dict(fused.launch_counts)
+    log(f"phase 13d [{card}]: gap_bench.run(): {json.dumps(rec)}; kernel launches {launched}")
+    rows = {r["target"]: r for r in rec["rows"]}
+    ok = (
+        all(r["iterations"] is not None and r["raw_s"] > 0 and r["public_s"] > 0 for r in rows.values())
+        and rows[1e-8]["iterations"] >= rows[1e-6]["iterations"]
+        and launched["fista_tail"] > 0
+        and launched["lasso_step_tail"] > 0
+    )
+    if not ok:
+        raise AssertionError("phase 13d: a gap target was not reached")
+
+
+def phase13e(card: str) -> None:
+    """``restart_bench.main(["--repeats", "1", "--skip", "tridia"])`` on the
+    card: every row status 1 (the TV row without restart may instead run
+    to max_iter, and is then held to the restart row's F), each pair's F
+    within ``RESTART_FRTOL``; the
+    rows without restart launch ``lasso_step_tail`` and the TV prox the
+    whole-image FGP kernel."""
+    from zfista_tpu_torch.bench import restart_bench
+    from zfista_tpu_torch.ops import fused, tv_cuda
+
+    zero(fused.launch_counts)
+    zero(tv_cuda.launch_counts)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        restart_bench.main(["--repeats", "1", "--skip", "tridia"])
+    torch.cuda.synchronize()
+    launched = {**fused.launch_counts, **tv_cuda.launch_counts}
+    for line in buf.getvalue().splitlines():
+        log(f"phase 13e [{card}]: {line}")
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    log(f"phase 13e: kernel launches {launched}")
+    pairs: dict[str, dict] = {}
+    for r in rows:
+        pairs.setdefault(r["problem"], {})[r["restart"]] = r
+    # Plain FISTA on the TV row may end at max_iter (2,000) in float32:
+    # the JAX package records the same on its accelerator (BENCHMARKS.md,
+    # "Adaptive restart": never converges at tol 1e-6), while the port on
+    # the CPU converges there. Such a row must still reach the restart
+    # row's F within RESTART_FRTOL; every other row converges.
+    ok = len(rows) == 4 and set(pairs) == {"lasso_n10k", "tv_deblur_256"}
+    for name, pair in pairs.items():
+        if set(pair) != {False, True}:
+            ok = False
+            continue
+        dev_f = _rel(pair[False]["F"], pair[True]["F"])
+        stalled = [r for r in pair.values() if r["status"] != 1]
+        allowed = all(
+            name == "tv_deblur_256" and not r["restart"] and r["status"] == 0
+            and r["nit"] == 2000
+            for r in stalled
+        )
+        ok = ok and allowed and dev_f <= RESTART_FRTOL
+        log(
+            f"phase 13e: {name}: F without/with restart {dev_f:.3e} relative "
+            f"(bound {RESTART_FRTOL}); rows at max_iter held to it: "
+            f"{len(stalled)}{'' if allowed else ' (not allowed)'}"
+        )
+    if not (ok and launched["lasso_step_tail"] > 0 and launched["fgp_resident"] > 0):
+        raise AssertionError("phase 13e: the restart rows do not hold")
+
+
+def phase13f(card: str, dev, A, b, lr: float) -> None:
+    """Checkpoint and profiling on the card: a fixed-step LASSO solve at
+    full width stopped at ``CKPT_STOP`` iterations, saved, loaded and
+    resumed to ``CKPT_END`` is bitwise the uninterrupted solve; a JOS1
+    batch's State round-trips and resumes bitwise; ``TVDeblur``'s
+    checkpoint metadata round-trips; ``trace`` around ``TRACE_STEPS`` steps
+    in an ``annotate`` scope holds the scope and ``lasso_step_tail``."""
+    from zfista_tpu_torch.models import JOS1, Lasso, TVDeblur
+    from zfista_tpu_torch.utils.checkpoint import load_meta, load_state, save_state
+    from zfista_tpu_torch.utils.profiling import annotate, trace
+
+    def same(s1, s2) -> bool:
+        return all(np.array_equal(u, v) and u.dtype == v.dtype for u, v in zip(s1, s2))
+
+    prob = Lasso(A, b, LAM)
+    x0 = torch.zeros(N, dtype=torch.float32, device=dev)
+    kw = dict(lr=lr, tol=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = prob.solve_fixed_step(x0, max_iter=CKPT_END, **kw)
+        part = prob.solve_fixed_step(x0, max_iter=CKPT_STOP, **kw)
+        save_state(part.state, Path(tmp) / "lasso")
+        loaded = load_state(Path(tmp) / "lasso")
+        resumed = prob.solve_fixed_step(x0, max_iter=CKPT_END, initial_state=loaded, **kw)
+        lasso_ok = loaded.x.device.type == dev.type and same(resumed.state, full.state) and resumed.nit == CKPT_END
+
+        p = JOS1(n_features=5)
+        x0s = torch.tensor(np.random.default_rng(42).uniform(-2.0, 4.0, (64, 5)), device=dev)
+        whole = p.solve_batch(x0s, nesterov=True)
+        head = p.solve_batch(x0s, nesterov=True, max_iter=5)
+        save_state(head.state, Path(tmp) / "batch.npz")
+        back = load_state(Path(tmp) / "batch.npz")
+        tail = p.solve_batch(x0s, nesterov=True, initial_states=back)
+        batch_ok = same([v.cpu().numpy() for v in back], head.state) and same(tail.state, whole.state)
+
+        kernel, observed = tv_bench_scene(CAMERAMAN, dev)
+        tv = TVDeblur(torch.as_tensor(observed, dtype=torch.float32, device=dev), kernel=kernel)
+        meta = tv.checkpoint_meta()
+        save_state(tv.solve(max_iter=5, tol=0).state, Path(tmp) / "tv", meta=meta)
+        meta_ok = load_meta(Path(tmp) / "tv") == meta
+
+        with trace(Path(tmp) / "prof"):
+            with annotate("zt.lasso"):
+                prob.solve_fixed_step(x0, max_iter=TRACE_STEPS, **kw)
+        (path,) = (Path(tmp) / "prof").glob("trace_*.json")
+        names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+        trace_ok = "zt.lasso" in names and any("lasso_step_tail" in n for n in names)
+        trace_mb = path.stat().st_size / 1e6
+    log(
+        f"phase 13f [{card}]: LASSO m={M} n={N} f32 stopped at {CKPT_STOP}, saved, loaded on "
+        f"{loaded.x.device} and resumed to {CKPT_END}: bitwise the uninterrupted solve (x and "
+        f"every State field): {lasso_ok}; JOS1 batch of 64 (State round-trip, resume from "
+        f"iteration 5): bitwise {batch_ok}; TVDeblur {CAMERAMAN}x{CAMERAMAN} meta {meta} "
+        f"round-trips: {meta_ok}; trace of {TRACE_STEPS} steps ({trace_mb:.1f} MB) holds "
+        f"'zt.lasso' and lasso_step_tail: {trace_ok}"
+    )
+    if not (lasso_ok and batch_ok and meta_ok and trace_ok):
+        raise AssertionError("phase 13f: checkpoint or profiling does not hold")
+
+
+def phase13g(card: str) -> None:
+    """The port's native metrics kernels (g++ from its own metrics.cpp)
+    against its numpy paths on numpy-seeded 3-objective data."""
+    from zfista_tpu_torch import metrics, native
+
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("phase 13g: the native metrics library did not build or load")
+    rng = np.random.default_rng(7)
+    F = rng.uniform(0.0, 1.0, size=(ND_POINTS, 3))
+    t0 = time.perf_counter()
+    got = native.nd_mask_native(F)
+    t_mask = time.perf_counter() - t0
+    want = ~(np.all(F[:, None, :] <= F[None, :, :], -1) & np.any(F[:, None, :] < F[None, :, :], -1)).any(0)
+    P = np.abs(rng.standard_normal((HV_POINTS, 3)))
+    P = 1.0 - 0.9 * P / np.linalg.norm(P, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    hv = native.hypervolume_native(P, np.ones(3))
+    t_hv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hv_py = float(metrics._wfg(P, np.ones(3)))
+    t_py = time.perf_counter() - t0
+    rel = _rel(hv, hv_py)
+    log(
+        f"phase 13g [{card}]: native metrics loaded ({lib._name}, built by g++ at its first use); "
+        f"non_dominated_mask on {ND_POINTS} points equal to numpy: {np.array_equal(got, want)} "
+        f"({int(got.sum())} on the front, {t_mask * 1e3:.2f} ms); hypervolume of a {HV_POINTS}-point "
+        f"front {hv!r} against the Python WFG's {hv_py!r}, relative {rel!r} (bound 1e-12; "
+        f"{t_hv * 1e3:.2f} ms against {t_py:.2f} s)"
+    )
+    if not (np.array_equal(got, want) and bool(metrics.non_dominated_mask(P).all()) and rel <= 1e-12):
+        raise AssertionError("phase 13g: native metrics differ from the numpy paths")
 
 
 def main() -> None:
@@ -1713,18 +2118,25 @@ def main() -> None:
     for n_phase, run in (
         ("12b", lambda: phase12b(smi, dev)),
         ("12c", lambda: phase12c(smi, dev)),
+        ("13d", lambda: phase13d(smi)),
+        ("13e", lambda: phase13e(smi)),
         (9, lambda: phase9(dev, smi, A, b, A_np, b_np, res.lr)),
         # Phase 5's profile, here because timings taken after a profiled
         # region in the same process come out slower, and phase 9 profiles.
         (5, lambda: lasso_loops(dev, smi)),
-        ("10 and 12's pool", lambda: pooled.update(
-            run_pool(smi, dev, phase10_tasks(dev) + phase12_tasks(dev))
+        ("10, 12 and 13's pool", lambda: pooled.update(
+            run_pool(smi, dev, phase10_tasks(dev) + phase12_tasks(dev) + phase13_tasks(dev))
         )),
         (10, lambda: walls.update(phase10(smi, dev, pooled))),
         ("12a", lambda: phase12a(smi, dev, pooled, walls)),
+        ("13a", lambda: phase13a(smi, dev, pooled)),
+        ("13b", lambda: phase13b(smi, pooled[("cli", str(dev))])),
+        ("13c", lambda: phase13c(smi, dev, pooled)),
         (11, lambda: phase11(smi, dev)),
         ("12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
         ("12e", lambda: phase12e(smi, dev)),
+        ("13f", lambda: phase13f(smi, dev, A, b, res.lr)),
+        ("13g", lambda: phase13g(smi)),
     ):
         t0 = time.perf_counter()
         run()

@@ -37,6 +37,13 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch.models.deblur, zfista_tpu_torch.models.zoo\n"
         "import zfista_tpu_torch.core.subproblem, zfista_tpu_torch.ops.prox\n"
         "import zfista_tpu_torch.parallel, zfista_tpu_torch.parallel.batch\n"
+        "import zfista_tpu_torch.metrics, zfista_tpu_torch.native\n"
+        "import zfista_tpu_torch.utils, zfista_tpu_torch.utils.checkpoint\n"
+        "import zfista_tpu_torch.utils.profiling, zfista_tpu_torch.bench\n"
+        "import zfista_tpu_torch.bench.harness, zfista_tpu_torch.bench.plots\n"
+        "import zfista_tpu_torch.bench.momentum_sweep, zfista_tpu_torch.bench.gap_bench\n"
+        "import zfista_tpu_torch.bench.restart_bench\n"
+        "assert zfista_tpu_torch.native.load() is not None\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
         "print(bad)\n"

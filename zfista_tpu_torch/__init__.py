@@ -14,8 +14,12 @@ TV-regularized deblurring (:class:`~zfista_tpu_torch.models.TVDeblur`,
 :func:`~zfista_tpu_torch.ops.prox_tv`), the CUDA kernels of the LASSO
 step and the TV prox, and the batch solver
 (:func:`zfista_tpu_torch.parallel.minimize_proximal_gradient_batch`:
-many starts, λ values or momentum pairs as one lane-batched solve).  See
-ROADMAP.md for what is next.
+many starts, λ values or momentum pairs as one lane-batched solve), and
+the experiment layer: Pareto metrics (:mod:`zfista_tpu_torch.metrics`),
+the benchmark harness and its CLI, the momentum sweep, the wall-to-gap
+and restart benches (:mod:`zfista_tpu_torch.bench`), checkpoints and
+profiling (:mod:`zfista_tpu_torch.utils`).  See ROADMAP.md for what is
+next.
 """
 
 from zfista_tpu_torch.core.options import SolverOptions
