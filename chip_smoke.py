@@ -23,7 +23,11 @@ of them against its plain PyTorch version:
 * the experiment layer (phase 13): the harness's metrics and CLI, the
   papers' momentum sweeps, the wall-to-gap and restart benches (which run
   the fused LASSO kernel and the whole-image FGP kernel), checkpoint,
-  profiling and the native metrics.
+  profiling and the native metrics;
+* the models left (phase 14): wavelet-L1 deblurring of the cameraman
+  (``WaveletDeblur``, whose fixed-step solve runs the fused LASSO kernel's
+  step tail), its 15-pair momentum sweep by the port's example script,
+  sparse logistic regression and group LASSO, and the two kernel benches.
 
 Phases:
 
@@ -31,16 +35,19 @@ Phases:
    ``nvcc`` per source, all started together;
 2. the fused LASSO kernel's three entries (prox + momentum, the raw step's
    tail, the solver's step tail) against their plain versions, bitwise,
-   float32 and float64, n from 1 to 10^7, on active, converging, stopped
-   and NaN-carrying states;
+   float32 and float64, n from 1 to 10^7 (the LASSO and logistic paths'
+   10^4 and the wavelet path's 65,536 among them), on active, converging,
+   stopped and NaN-carrying states;
 3. one dense FISTA step, fused against plain, at the full problem size;
 4. the LASSO slice through the public entry point: launch counts (the
    step tail once per step), agreement with a float64 numpy FISTA loop,
    the routed ``tol_rel`` solve bitwise equal to the fused tail's,
    convergence, and ``check_every`` chunking bitwise equal to per-step
    checking;
-5. the card's own times of the LASSO slice and of its kernel's entries,
-   and (run after phase 9) device events and busy time per iteration of
+5. the card's own times of the LASSO slice and of its kernel's entries at
+   n = 10^4, 65,536 and 10^7 (``bench._card.held_ms``: the calls queued
+   behind a stream hold long enough for the host to queue them all), and
+   (run after phase 9) device events and busy time per iteration of
    the public path and the raw loops, by torch.profiler;
 6. the three FGP kernels against the plain loop, bitwise, from 1x105 to
    2048x2048 (the tile windows' edges in float32 and float64; float64 at
@@ -95,6 +102,31 @@ Phases:
     (f) checkpoint resume bitwise, batched states, TV metadata, a trace
     with an annotation and the step-tail kernel; (g) the native metrics
     against their numpy paths.
+14. the models left: (a) the cameraman (examples/cameraman_deblur.py's
+    recipe, 256x256 float32) by ``WaveletDeblur.solve()``: one
+    ``lasso_step_tail`` launch per step run, ``check_every`` 8 and 64
+    bitwise equal to 1, against the float64 CPU solve (F within 1e-4,
+    PSNR within 0.05 dB, the first 200 iterations within 1e-4, nit within
+    25% of it and of examples/data/cameraman_ab.csv: the count is set at
+    the rounding floor), launches per step by torch.profiler; (b) the
+    15-pair sweep by ``python -m zfista_tpu_torch.examples.cameraman_deblur``
+    (every pair converged, each lane's F within 1e-4 of (a)'s float64 CPU
+    solve, each nit within 25% of the CSV and their mean within 6%,
+    seconds per pair), and the same 15 lanes over their first 200
+    iterations, each within 1e-4 of its pair's float64 CPU solve;
+    (c) ``SparseLogistic`` (2,000 x 10,000, float32): the backtracking
+    default within KKT 2e-4 (its float32 line search shrinks lr), with
+    the float32 accept slack and the fixed step within KKT 1e-4, each F
+    within 1e-4 of the float64 CPU solve's, the fixed step one
+    ``lasso_step_tail`` launch per step, 50-iteration windows float32
+    against float64 (1e-4) and float64 card against CPU (equal counts,
+    1e-9); (d) ``GroupLasso`` on the LASSO problem above, groups of 10:
+    float32 converges to 1e-6 with and without the accept slack, each F
+    within 1e-4 of the float64 CPU solve's, float64 card against CPU as
+    (c); (e)
+    ``bench.kernels`` and ``bench.tv_bench`` (256²-2048²), their kernel
+    against plain checks bitwise.  The CPU references and the sweep run in
+    the pool of phases 10, 12 and 13.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -132,9 +164,12 @@ LASSO_KERNELS = {
     "fista_tail": "zfista_tpu/ops/fused.py:144",
     "lasso_step_tail": "zfista_tpu/ops/fused.py:62",
 }
-#: Phase 2: vector lengths (edge cases, the main path's n, one past it, and
-#: 10^7, past the L2).
-FUSED_CHECK_SIZES = (1, 1000, N, 10_001, 10_000_000)
+#: Phase 14a-b: the cameraman's side; the wavelet solve's step tail runs at
+#: n = WL_SIDE**2.
+WL_SIDE = 256
+#: Phase 2: vector lengths (edge cases, the LASSO and logistic paths' n, one
+#: past it, the wavelet path's n, and 10^7, past the L2).
+FUSED_CHECK_SIZES = (1, 1000, N, 10_001, WL_SIDE**2, 10_000_000)
 #: First iterations of the slice compared with the float64 numpy loop, and
 #: the bound on their relative 2-norm difference: float32 rounding
 #: (eps 6e-8) amplified over 200 momentum steps.
@@ -194,11 +229,6 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 FLOPS_PER_CELL_ITER, FLOPS_PER_CELL_U = 24, 5
 #: Fields one prox call must move: v, p0, q0 in; u, p, q out.
 FIELDS_MOVED = 6
-#: Cycles the stream is held before a timed FGP chain (~20 ms at the H100's
-#: clocks): the host queues every call meanwhile, so the events time the
-#: device, not the host's launch rate (a prox call costs the host tens of
-#: microseconds, more than a small image's kernel).
-HOLD_CYCLES = 40_000_000
 #: The FGP kernels: their source, and the TPU kernel body each replaces.
 TV_KERNELS = {
     "fgp_resident": (
@@ -260,24 +290,17 @@ def sync_time(fn) -> float:
     return time.perf_counter() - t0
 
 
-def event_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``, by CUDA events over ``reps``.
-    The stream is held ~40 ms first, so that the host queues the calls
-    meanwhile and they run back to back: a call that costs the host more
-    than its kernel costs the card is still timed on the card (as long as
-    ``reps`` launches fit the launch queue)."""
-    for _ in range(10):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(80_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
+def event_ms(fn, reps: int, device_bound: bool = True) -> float:
+    """Device milliseconds per call of ``fn`` over ``reps`` calls back to
+    back, by ``bench._card.held_ms``: the stream is held while the host
+    queues the calls, so a call that costs the host more than its kernel
+    costs the card is still timed on the card (``held_ms`` lengthens the
+    hold until the host has queued them all in time, or raises).  A plain
+    version's window (``device_bound=False``) is timed at the slower of
+    the two rates."""
+    from zfista_tpu_torch.bench._card import held_ms
+
+    return held_ms(lambda: [fn() for _ in range(reps)], device_bound=device_bound) / reps
 
 
 def psnr(x: np.ndarray, truth: np.ndarray) -> float:
@@ -297,25 +320,22 @@ def fgp_bound(shape: tuple[int, int], dtype: torch.dtype, n_iter: int) -> tuple[
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def chain_ms(fn, v0, lam, n_iter: int, calls: int = 20) -> float:
+def chain_ms(fn, v0, lam, n_iter: int, calls: int = 20, device_bound: bool = True) -> float:
     """Device ms per prox call over ``calls`` chained calls (each call's u
-    is the next call's v), by CUDA events, after one warm-up call.  The
-    stream is held first (:data:`HOLD_CYCLES`) so that the calls run back
-    to back; a chain that takes the host longer to queue than the hold
-    (the plain loop) is timed at the host's rate."""
+    is the next call's v), by ``bench._card.held_ms`` (a stream hold while
+    the host queues the chain, CUDA events).  The plain loop's chain
+    (``device_bound=False``: more launches than the launch queue holds) is
+    timed at the host's rate."""
+    from zfista_tpu_torch.bench._card import held_ms
+
     z = torch.zeros_like(v0)
-    fn(lam, v0, z, z, n_iter)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    v = v0
-    for _ in range(calls):
-        v = fn(lam, v, z, z, n_iter)[0]
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / calls
+
+    def chain():
+        v = v0
+        for _ in range(calls):
+            v = fn(lam, v, z, z, n_iter)[0]
+
+    return held_ms(chain, device_bound=device_bound) / calls
 
 
 def fgp_times(dev, side: int, n_iter: int, names) -> dict[str, list[float]]:
@@ -323,8 +343,9 @@ def fgp_times(dev, side: int, n_iter: int, names) -> dict[str, list[float]]:
     ``side`` x ``side`` float32 image (numpy seed 8, lam 0.05, zero duals),
     timed in turns: each name in order, then in reverse.  It drives only
     the wrappers ``fgp_resident`` and ``fgp_tiles`` of the
-    ``zfista_tpu_torch`` it imports, so run from the root of another tree
-    of the repository with this file copied there, it times that tree's
+    ``zfista_tpu_torch`` it imports (and its ``bench._card`` timer), so run
+    from the root of another tree of the repository that has
+    ``bench/_card.py``, with this file copied there, it times that tree's
     kernels the same way."""
     fns = tv_kernel_fns()
     rng = np.random.default_rng(8)
@@ -343,10 +364,11 @@ def sweep_ms(dev, side: int, k: int, pipelined: bool, reps: int = 50) -> tuple[f
     for u), and the rounds of tiles it makes: tiles over SMs, rounded up
     (the pipelined kernel's persistent CTAs walk that many tiles each; the
     serial kernel's CTAs come in that many waves).  CUDA events over
-    ``reps`` launches behind a stream hold; every launch reads the same
+    ``reps`` launches behind a stream hold (``bench._card.held_ms``); every launch reads the same
     buffers, so it times whatever the entry does with them."""
     import ctypes
 
+    from zfista_tpu_torch.bench._card import held_ms
     from zfista_tpu_torch.ops import _build, tv_cuda
 
     rng = np.random.default_rng(8)
@@ -374,19 +396,9 @@ def sweep_ms(dev, side: int, k: int, pipelined: bool, reps: int = 50) -> tuple[f
         if code != 0:
             raise RuntimeError(f"tile sweep launch failed: cudaError {code}")
 
-    launch()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        launch()
-    stop.record()
-    stop.synchronize()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rounds = -(-tv_cuda.n_tiles((side, side), torch.float32, pipelined) // sms)
-    return start.elapsed_time(stop) / reps, rounds
+    return held_ms(lambda: [launch() for _ in range(reps)]) / reps, rounds
 
 
 def tv_kernel_fns() -> dict:
@@ -601,21 +613,6 @@ def phase6(dev) -> dict[str, float]:
     return max_err
 
 
-def tv_bench_scene(size: int, dev) -> tuple[np.ndarray, np.ndarray]:
-    """zfista_tpu/bench/tv_bench.py's nested-deblur scene: two flat blocks,
-    Gaussian 9x9 sigma=2, noise 0.01 (numpy seed 0).  Returns the kernel
-    and the observation (blurred in float64 on the card)."""
-    from zfista_tpu_torch.models import deblur as td
-
-    img = np.zeros((size, size))
-    img[size // 4 : 3 * size // 4, size // 4 : 3 * size // 4] = 1.0
-    img[size // 2 :, : size // 2] = 0.5
-    kernel = td.gaussian_kernel(9, 2.0)
-    observed = td.make_blur(kernel)(torch.tensor(img, device=dev)).cpu().numpy()
-    observed += 0.01 * np.random.default_rng(0).standard_normal(observed.shape)
-    return kernel, observed
-
-
 def zero(counts: dict[str, int]) -> None:
     for name in counts:
         counts[name] = 0
@@ -630,6 +627,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
     count is set to 0 just before each run and read just after.  Returns
     each kernel's launches in its main-path run, and that run's image
     side and dual iterations per prox call."""
+    from zfista_tpu_torch.bench import tv_bench
     from zfista_tpu_torch.models import TVDeblur
     from zfista_tpu_torch.models import deblur as td
     from zfista_tpu_torch.ops import tv_cuda
@@ -711,7 +709,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
     log("phase 7: check_every=64 is bitwise equal to check_every=1 (x, nit, State)")
 
     scenes = [(CAMERAMAN, td.gaussian_kernel(), observed, 2e-4, "auto")]
-    scenes += [(n, *tv_bench_scene(n, dev), 1e-3, m) for n, m in TV_BENCH_RUNS]
+    scenes += [(n, *tv_bench.scene(n, dev), 1e-3, m) for n, m in TV_BENCH_RUNS]
     for size, kernel, obs, tv_ratio, method in scenes:
         b = torch.tensor(obs, dtype=torch.float32, device=dev)
         prob = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method)
@@ -770,7 +768,7 @@ def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
         )
         for n_iter in TV_TIME_ITERS:
             runs = fgp_times(dev, n, n_iter, names)
-            plain = chain_ms(tv_cuda.fgp_plain, v0, lam, n_iter, calls=5)
+            plain = chain_ms(tv_cuda.fgp_plain, v0, lam, n_iter, calls=5, device_bound=False)
             b_ms, b_by = fgp_bound((n, n), torch.float32, n_iter)
             ms[n, n_iter] = {k: min(v) for k, v in runs.items()}
             ms[n, n_iter].update(fgp_plain=plain, bound_ms=b_ms)
@@ -1021,13 +1019,24 @@ def harness_solve(task: tuple) -> dict:
     variant, ``history=True``) and also returns its per-lane results; a
     window batch runs ``solve_batch`` (``benchmark()`` takes no ``tol``).
     Fields per lane: a single solve is one lane.  The other tasks: (d)'s
-    wide FDS batch, 13b's CLI runs and 13c's momentum sweeps."""
+    wide FDS batch, 13b's CLI runs, 13c's momentum sweeps, 14b's cameraman
+    sweep and 14a, c and d's CPU references."""
     if task[0] == "fds_wide":
         return fds_wide(task[1])
     if task[0] == "cli":
         return cli_runs(task[1])
     if task[0] == "sweep":
         return sweep_run(task[1], task[2])
+    if task[0] == "cameraman_sweep":
+        return cameraman_sweep(task[1])
+    if task[0] == "wavelet_cpu":
+        return wavelet_cpu()
+    if task[0] == "wavelet_windows":
+        return wavelet_windows()
+    if task[0] == "model_cpu":
+        return model_cpu(task[1])
+    if task[0] == "windows":
+        return model_windows(task[1], "cpu", torch.float64, task[2])
     from zfista_tpu_torch.bench.harness import (
         _effective_variants,
         benchmark,
@@ -1072,8 +1081,9 @@ def harness_solve(task: tuple) -> dict:
 def run_pool(card: str, dev, tasks: list) -> dict:
     """Phases 10, 12 and 13's solves in worker processes, one CPU thread
     each: the solves are host-bound (hundreds of small launches per outer
-    iteration).  The longest first (the momentum sweeps, the CLI runs, the
-    wide FDS batch, then batches, full solves, several objectives, on the
+    iteration).  The longest first (the cameraman sweep, the momentum
+    sweeps, the CLI runs, the wide FDS batch, phase 14's CPU references,
+    then batches, full solves, several objectives, on the
     card), so that no long one starts last."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
@@ -1081,7 +1091,8 @@ def run_pool(card: str, dev, tasks: list) -> dict:
     from zfista_tpu_torch.bench.harness import initialize_problems
 
     problems = initialize_problems(large=False)
-    first = ("sweep", "cli", "fds_wide")
+    first = ("cameraman_sweep", "sweep", "cli", "fds_wide", "wavelet_cpu", "wavelet_windows",
+             "model_cpu", "windows")
 
     def order(t):
         if t[0] in first:
@@ -1498,7 +1509,10 @@ def phase12e(card: str, dev) -> None:
             got = {}
             for its in (COUNT_ITERS, 2 * COUNT_ITERS):
                 run = lambda: p.solve_batch(x0s, nesterov=True, tol=0, max_iter=its)
-                got[its] = (count_host_reads(run)[1], *device_events(run, by_name=True))
+                # One run counted both ways: the profiler's and the sync
+                # check's own synchronizations are the same in both runs.
+                events, reads = count_host_reads(lambda: device_events(run, by_name=True))
+                got[its] = (reads, *events)
             (r1, e1, b1, n1), (r2, e2, b2, n2) = got[COUNT_ITERS], got[2 * COUNT_ITERS]
             names = {k: n2.get(k, 0) - n1.get(k, 0) for k in set(n1) | set(n2)}
             seen[B] = (r2 - r1, e2 - e1, names)
@@ -1813,6 +1827,7 @@ def phase13f(card: str, dev, A, b, lr: float) -> None:
     batch's State round-trips and resumes bitwise; ``TVDeblur``'s
     checkpoint metadata round-trips; ``trace`` around ``TRACE_STEPS`` steps
     in an ``annotate`` scope holds the scope and ``lasso_step_tail``."""
+    from zfista_tpu_torch.bench import tv_bench
     from zfista_tpu_torch.models import JOS1, Lasso, TVDeblur
     from zfista_tpu_torch.utils.checkpoint import load_meta, load_state, save_state
     from zfista_tpu_torch.utils.profiling import annotate, trace
@@ -1840,7 +1855,7 @@ def phase13f(card: str, dev, A, b, lr: float) -> None:
         tail = p.solve_batch(x0s, nesterov=True, initial_states=back)
         batch_ok = same([v.cpu().numpy() for v in back], head.state) and same(tail.state, whole.state)
 
-        kernel, observed = tv_bench_scene(CAMERAMAN, dev)
+        kernel, observed = tv_bench.scene(CAMERAMAN, dev)
         tv = TVDeblur(torch.as_tensor(observed, dtype=torch.float32, device=dev), kernel=kernel)
         meta = tv.checkpoint_meta()
         save_state(tv.solve(max_iter=5, tol=0).state, Path(tmp) / "tv", meta=meta)
@@ -1897,6 +1912,497 @@ def phase13g(card: str) -> None:
     )
     if not (np.array_equal(got, want) and bool(metrics.non_dominated_mask(P).all()) and rel <= 1e-12):
         raise AssertionError("phase 13g: native metrics differ from the numpy paths")
+
+
+#: Phase 14a-b: examples/cameraman_deblur.py's workload (the synthetic
+#: cameraman of side WL_SIDE, Gaussian 9x9 sigma=4, l1_ratio 2e-5, lr 1/L,
+#: tol 1e-5, max_iter 2000) and the momentum pair WaveletDeblur.solve
+#: defaults to.
+WL_L1, WL_TOL, WL_MAX_ITER, WL_PAIR = 2e-5, 1e-5, 2000, ("0", "1/4")
+#: Bounds of the wavelet gates against the float64 CPU solve: F relative
+#: (every one of the 15 pairs solves the same convex problem, so each of
+#: 14b's lanes is held to it too), PSNR against the truth in dB.
+WL_FRTOL, WL_PSNR_DB = 1e-4, 0.05
+#: Bounds on the iteration counts of the wavelet solves.  At tol 1e-5 the
+#: count is decided at the rounding floor of the largest coefficients
+#: (~128 x float32's 6e-8, near the tolerance itself).  On a CPU in float32
+#: (wavelet_nit_spread: each pair from the DWT start and four starts moved
+#: by one ulp), a pair's counts spread by up to 20% and lie up to 16% from
+#: the CSV's (a TPU's float32 run); in float64 the default pair's run from
+#: 1,045 to 1,182.  So one count is held within WL_NIT_RTOL, and the 15
+#: pairs' mean, where the spread averages out (1.1-2.8% from the CSV's mean
+#: in that run), within WL_MEAN_RTOL.
+WL_NIT_RTOL, WL_MEAN_RTOL = 0.25, 0.06
+#: Phase 14c: the sparse logistic regression.  A (m x n) standard normal,
+#: a planted classifier with LOGISTIC_NNZ standard normal weights, labels
+#: sign(A w + LOGISTIC_NOISE * noise), numpy seed 0; lambda LOGISTIC_LAM
+#: (the solution has ~143 nonzeros).
+LOGISTIC_SHAPE, LOGISTIC_NNZ, LOGISTIC_NOISE, LOGISTIC_LAM = (2000, 10_000), 20, 0.5, 0.01
+#: KKT residual bound, card-vs-CPU windows (iterations), and the float32
+#: accept-test slack relative to |F| (the facade's tol_internal_rel, its
+#: documented float32 rescue: without it a float32 line search near the
+#: optimum rejects trials on rounding noise and shrinks lr).
+KKT_TOL, MODEL_WINDOW, F32_ACCEPT_REL = 1e-4, 50, 1e-6
+#: KKT bound of the float32 backtracking default solve.  Its stopping test
+#: (||x+ - y||_inf < tol = 1e-5) bounds the residual only by ~tol / lr, and
+#: without the accept slack its line search shrinks lr on rounding noise:
+#: KKT 7.58e-5 at lr 2^-7 on a CPU, 1.0036e-4 at 2^-8 on an H100, against
+#: 1.26e-5 at lr 1/2 in float64 (PERF.md, PR 8).  So KKT_TOL holds for the
+#: slack and fixed-step solves, and the default is held to twice it.
+KKT_TOL_F32_DEFAULT = 2e-4
+#: Bound on each float32 solve's F of (c) and (d) against the float64 CPU
+#: solve's, relative (on a CPU in float32: logistic 2.0e-6, group LASSO
+#: 9.8e-6 from its stalled line search).
+MODEL_FRTOL = 1e-4
+#: Phase 14d: group LASSO on the LASSO problem of the module, groups of 10.
+GROUP_SIZE, GROUP_TOL = 10, 1e-6
+#: Phase 14e: the arguments of the two kernel benches.
+KERNELS_BENCH_ARGS: list[str] = []
+TV_BENCH_ARGS = ["--sizes", "256,512,1024,2048"]
+
+
+def chunk_of(check_every: int | None, dev) -> int:
+    """The steps a fixed-step single-objective solve runs per host read:
+    ``check_every``, or by default 64 on a card and 1 on the CPU.  A solve
+    that stops at ``nit`` has launched its step ``nit`` rounded up to
+    that."""
+    if check_every is not None:
+        return check_every
+    return 64 if torch.device(dev).type == "cuda" else 1
+
+
+def cameraman_scene(dtype: torch.dtype, device) -> tuple:
+    """examples/cameraman_deblur.py's scene: the truth, the Gaussian 9x9
+    sigma=4 kernel, and the observation (the truth blurred on ``device``),
+    in ``dtype``."""
+    from zfista_tpu_torch.models import deblur as td
+
+    truth = td.synthetic_cameraman(WL_SIDE, dtype=dtype, device=device)
+    kernel = td.gaussian_kernel(9, 4.0)
+    return truth, kernel, td.make_blur(kernel)(truth)
+
+
+def wavelet_psnr(x, levels: int, truth: np.ndarray) -> float:
+    """PSNR of the image that the coefficients ``x`` reconstruct."""
+    from zfista_tpu_torch.models.deblur import idwt2
+
+    rec = idwt2(torch.as_tensor(np.asarray(x, np.float64)).reshape(truth.shape), levels)
+    return psnr(rec.numpy(), truth)
+
+
+def wavelet_cpu() -> dict:
+    """(a)'s reference, in a worker: the same solve in float64 on the CPU
+    (to the end, and the first ``AGREE_ITERS`` iterations at tol 0)."""
+    from zfista_tpu_torch.models import WaveletDeblur
+
+    truth, kernel, observed = cameraman_scene(torch.float64, "cpu")
+    prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
+    t0 = time.perf_counter()
+    res = prob.solve(tol=WL_TOL, max_iter=WL_MAX_ITER)
+    wall = time.perf_counter() - t0
+    window = quiet(prob.solve, tol=0, max_iter=AGREE_ITERS)
+    return dict(
+        nit=res.nit, status=res.status, fun=float(res.fun[0]), wall=wall,
+        psnr=wavelet_psnr(res.x, prob.levels, truth.numpy()), window=window.x,
+    )
+
+
+def wavelet_windows() -> np.ndarray:
+    """(b)'s reference, in a worker: the first ``AGREE_ITERS`` iterations
+    (tol 0) of (a)'s solve in float64 on the CPU for each of the 15
+    momentum pairs, one single solve each; rows in ``AB_GRID`` order."""
+    from zfista_tpu_torch.bench.momentum_sweep import AB_GRID
+    from zfista_tpu_torch.models import WaveletDeblur
+
+    _, kernel, observed = cameraman_scene(torch.float64, "cpu")
+    prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
+    return np.stack([
+        quiet(prob.solve, tol=0, max_iter=AGREE_ITERS, nesterov_ratio=(float(a), float(b))).x
+        for a, b in AB_GRID
+    ])
+
+
+def ulp_moved(x: torch.Tensor, rng: np.random.Generator) -> torch.Tensor:
+    """``x`` with each entry moved by one unit in the last place of its
+    dtype, up or down at random."""
+    up = torch.as_tensor(rng.random(x.shape) < 0.5, device=x.device)
+    inf = torch.full_like(x, math.inf)
+    return torch.nextafter(x, torch.where(up, inf, -inf))
+
+
+def wavelet_nit_spread(dtype=torch.float32, members: int = 4, pairs=None, seed: int = 5) -> dict:
+    """The iteration counts of (a)'s solve on the CPU, for each momentum pair
+    of ``pairs`` (default all 15), in ``dtype``, from the DWT start and from
+    ``members`` starts each of whose entries is moved by one unit in the
+    last place (:func:`ulp_moved`, numpy ``seed``): how far the rounding
+    floor alone moves a count.  Returns {(a, b): [counts]}; run it
+    on the CPU as ``python3 -c "import chip_smoke as c;
+    print(c.wavelet_nit_spread())"`` (about 6 s per solve per thread)."""
+    from zfista_tpu_torch.bench.momentum_sweep import AB_GRID
+    from zfista_tpu_torch.models import WaveletDeblur
+
+    _, kernel, observed = cameraman_scene(torch.float64, "cpu")
+    prob = WaveletDeblur(observed.to(dtype), l1_ratio=WL_L1, kernel=kernel)
+    x0 = prob.x0()
+    rng = np.random.default_rng(seed)
+    out = {}
+    for a, b in AB_GRID if pairs is None else pairs:
+        starts = [x0] + [ulp_moved(x0, rng) for _ in range(members)]
+        out[(str(a), str(b))] = [
+            prob.solve(x0=s, tol=WL_TOL, max_iter=WL_MAX_ITER,
+                       nesterov_ratio=(float(a), float(b))).nit
+            for s in starts
+        ]
+    return out
+
+
+def cameraman_sweep(device: str) -> dict:
+    """(b), in a worker: ``python -m zfista_tpu_torch.examples.cameraman_deblur``
+    with ``--out`` in a temporary directory."""
+    from zfista_tpu_torch.examples import cameraman_deblur
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rows, res = cameraman_deblur.main(["--out", tmp, "--device", device])
+        wall = time.perf_counter() - t0
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    return dict(rows=rows, nit=res.nit, status=res.status, fun=np.reshape(res.fun, -1),
+                wall=wall, written=written, stdout=buf.getvalue())
+
+
+def logistic_problem() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 14c's data, float32: A and the +-1 labels."""
+    m, n = LOGISTIC_SHAPE
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((m, n))
+    w = np.zeros(n)
+    w[rng.choice(n, LOGISTIC_NNZ, replace=False)] = rng.standard_normal(LOGISTIC_NNZ)
+    y = np.sign(A @ w + LOGISTIC_NOISE * rng.standard_normal(m))
+    return A.astype(np.float32), y.astype(np.float32)
+
+
+def model_problem(name: str, device, dtype: torch.dtype):
+    """(c)'s ``SparseLogistic`` or (d)'s ``GroupLasso`` on ``device`` in
+    ``dtype``."""
+    from zfista_tpu_torch.models import GroupLasso, SparseLogistic
+
+    if name == "logistic":
+        A, y = logistic_problem()
+        return SparseLogistic(torch.tensor(A, dtype=dtype, device=device),
+                              torch.tensor(y, dtype=dtype, device=device), LOGISTIC_LAM)
+    A, b = make_problem()
+    return GroupLasso(torch.tensor(A, dtype=dtype, device=device),
+                      torch.tensor(b, dtype=dtype, device=device), LAM, GROUP_SIZE)
+
+
+def model_solve(name: str, prob, **kw):
+    """(c)'s and (d)'s backtracking solve (Nesterov; the group LASSO from
+    zeros to ``GROUP_TOL``), with the options ``kw``."""
+    if name == "logistic":
+        return prob.solve(**kw)
+    kw.setdefault("tol", GROUP_TOL)
+    return prob.solve(torch.zeros(N, dtype=prob.A.dtype, device=prob.A.device),
+                      nesterov=True, **kw)
+
+
+def model_windows(name: str, device: str, dtype: torch.dtype, lr: float | None) -> dict:
+    """The first ``MODEL_WINDOW`` iterations (tol 0) of (c)'s and (d)'s
+    solves on ``device`` in ``dtype``: the backtracking solve, and for the
+    logistic model the fixed step at ``lr``.  Returns each one's x, nit and
+    trial count."""
+    prob = model_problem(name, device, dtype)
+    kw = dict(tol=0, max_iter=MODEL_WINDOW)
+    runs = {"backtracking": quiet(model_solve, name, prob, **kw)}
+    if name == "logistic":
+        runs["fixed"] = quiet(prob.solve, decay_rate=1, lr=lr, **kw)
+    return {k: dict(x=r.x, nit=r.nit, nit_internal=r.nit_internal) for k, r in runs.items()}
+
+
+def model_cpu(name: str) -> dict:
+    """(c)'s and (d)'s reference, in a worker: the backtracking default
+    solve in float64 on the CPU."""
+    prob = model_problem(name, "cpu", torch.float64)
+    t0 = time.perf_counter()
+    res = model_solve(name, prob)
+    return dict(status=res.status, nit=res.nit, fun=float(res.fun[0]),
+                wall=time.perf_counter() - t0)
+
+
+def phase14_tasks(dev, card14: dict) -> list:
+    """Phase 14's pool work: (b)'s sweep on the card, and the CPU float64
+    references of (a), (c) and (d)."""
+    return [
+        ("cameraman_sweep", str(dev)),
+        ("wavelet_cpu",),
+        ("wavelet_windows",),
+        ("model_cpu", "logistic"),
+        ("model_cpu", "group_lasso"),
+        ("windows", "logistic", card14["logistic_lr"]),
+        ("windows", "group_lasso", None),
+    ]
+
+
+def phase14a(card: str, dev) -> dict:
+    """The cameraman solve on the card, float32: ``WaveletDeblur.solve()``
+    (default pair (0, 1/4), ``check_every`` 64 on a card), then with
+    ``check_every`` 8 and 1 (bitwise equal), each launching
+    ``lasso_step_tail`` once per step run; the first ``AGREE_ITERS``
+    iterations; two starts moved by one ulp (printed); and (b)'s 15 pairs
+    as one batch over the first ``AGREE_ITERS`` iterations, through the
+    example's ``momentum_sweep`` (held against the CPU later)."""
+    from zfista_tpu_torch.bench.momentum_sweep import momentum_sweep
+    from zfista_tpu_torch.models import WaveletDeblur
+    from zfista_tpu_torch.ops import fused
+
+    truth, kernel, observed = cameraman_scene(torch.float32, dev)
+    prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
+    runs, walls, launches = {}, {}, {}
+    for ce in (None, 8, 1):
+        zero(fused.launch_counts)  # a main-path solve starts here
+        t0 = time.perf_counter()
+        runs[ce] = prob.solve(tol=WL_TOL, max_iter=WL_MAX_ITER, check_every=ce)
+        torch.cuda.synchronize()
+        walls[ce] = time.perf_counter() - t0
+        launches[ce] = fused.launch_counts["lasso_step_tail"]  # ... and ends here
+    res = runs[None]
+    steps = {ce: -(-runs[ce].nit // chunk_of(ce, dev)) * chunk_of(ce, dev) for ce in runs}
+    log(
+        f"phase 14a [{card}]: WaveletDeblur(cameraman {WL_SIDE}x{WL_SIDE} f32, l1_ratio {WL_L1}, "
+        f"levels {prob.levels}).solve(tol={WL_TOL}, max_iter={WL_MAX_ITER}): status={res.status} "
+        f"nit={res.nit} fun={float(res.fun[0])!r} lr={res.lr!r} wall {walls[None]:.3f} s "
+        f"({1e3 * walls[None] / steps[None]:.3f} ms per step run); lasso_step_tail launches "
+        f"by check_every {launches} against steps run {steps}; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } s"
+    )
+    if res.status != 1 or not np.all(np.isfinite(res.x)) or res.x.shape != (WL_SIDE**2,):
+        raise AssertionError("phase 14a: the cameraman solve did not converge")
+    if launches != steps:
+        raise AssertionError(f"phase 14a: lasso_step_tail launches {launches} != steps {steps}")
+    for ce in (8, None):
+        for name, a, c in zip(runs[1].state._fields, runs[1].state, runs[ce].state):
+            if not np.array_equal(a, c):
+                raise AssertionError(f"phase 14a: check_every={ce} differs from 1 in State.{name}")
+    log("phase 14a: check_every=8 and 64 are bitwise equal to check_every=1 (x, nit, State)")
+    window = quiet(prob.solve, tol=0, max_iter=AGREE_ITERS)
+    rng = np.random.default_rng(5)
+    spread = [
+        prob.solve(x0=ulp_moved(prob.x0(), rng), tol=WL_TOL, max_iter=WL_MAX_ITER).nit
+        for _ in range(2)
+    ]
+    log(f"phase 14a [{card}]: the same solve from two starts moved by one ulp: nit {spread}")
+    sweep_window = quiet(
+        momentum_sweep, prob, 0.0, 0.0, n_starts=1, x0s=prob.x0().cpu().numpy()[None, :],
+        measure_times=False, nesterov=True, lr=1.0 / prob.lipschitz(), decay_rate=1, tol=0,
+        max_iter=AGREE_ITERS, check_every=8, device=dev,
+    )[1]
+    return dict(
+        wl_sweep_window=np.asarray(sweep_window.x, np.float64),
+        wl_nit=res.nit, wl_fun=float(res.fun[0]), wl_levels=prob.levels,
+        wl_psnr=wavelet_psnr(res.x, prob.levels, truth.double().cpu().numpy()),
+        wl_window=window.x, wl_launches=launches[None], wl_wall_per_step=walls[None] / steps[None],
+    )
+
+
+def phase14c(card: str, dev) -> dict:
+    """``SparseLogistic`` on the card, float32: the backtracking default
+    (KKT residual at most ``KKT_TOL_F32_DEFAULT``), the backtracking solve
+    with the float32 accept slack ``F32_ACCEPT_REL`` and the fixed step
+    ``decay_rate=1, lr=1/L`` (each at most ``KKT_TOL``); the fixed step
+    launches ``lasso_step_tail`` once per step run; each F and the first
+    ``MODEL_WINDOW`` iterations in float32 and in float64 are held against
+    the CPU later."""
+    from zfista_tpu_torch.ops import fused
+
+    prob = model_problem("logistic", dev, torch.float32)
+    lr = 1.0 / prob.lipschitz()
+    runs, walls = {}, {}
+    for name, kw in (("default", {}), ("f32 accept slack", dict(tol_internal_rel=F32_ACCEPT_REL)),
+                     ("fixed", dict(decay_rate=1, lr=lr))):
+        zero(fused.launch_counts)
+        t0 = time.perf_counter()
+        runs[name] = prob.solve(**kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        r = runs[name]
+        log(
+            f"phase 14c [{card}]: SparseLogistic({LOGISTIC_SHAPE[0]}x{LOGISTIC_SHAPE[1]} f32, "
+            f"lambda {LOGISTIC_LAM}).solve({kw}): status={r.status} nit={r.nit} "
+            f"nit_internal={r.nit_internal} lr={r.lr!r} fun={float(r.fun[0])!r} nonzeros "
+            f"{int(np.sum(r.x != 0))} kkt_residual {prob.kkt_residual(r.x)!r} wall {walls[name]:.3f} s; "
+            f"kernel launches {dict(fused.launch_counts)}"
+        )
+    fixed = runs["fixed"]
+    steps = -(-fixed.nit // chunk_of(None, dev)) * chunk_of(None, dev)
+    launched = fused.launch_counts["lasso_step_tail"]
+    for name, r in runs.items():
+        bound = KKT_TOL_F32_DEFAULT if name == "default" else KKT_TOL
+        if r.status != 1 or not prob.kkt_residual(r.x) <= bound:
+            raise AssertionError(f"phase 14c: the {name} solve misses the KKT bound {bound}")
+        if not 10 <= int(np.sum(r.x != 0)) <= 1000:
+            raise AssertionError(f"phase 14c: the {name} solve has {int(np.sum(r.x != 0))} nonzeros")
+    if launched != steps:
+        raise AssertionError(f"phase 14c: lasso_step_tail launched {launched} in {steps} steps")
+    return dict(
+        logistic_lr=lr, logistic_launches=launched,
+        logistic_wall_per_step=walls["fixed"] / steps,
+        logistic_funs={k: float(r.fun[0]) for k, r in runs.items()},
+        logistic_f32=model_windows("logistic", str(dev), torch.float32, lr),
+        logistic_f64=model_windows("logistic", str(dev), torch.float64, lr),
+    )
+
+
+def phase14d(card: str, dev) -> dict:
+    """``GroupLasso`` on the module's LASSO problem, groups of
+    ``GROUP_SIZE``, backtracking: float32 converges to ``GROUP_TOL``, with
+    and without the float32 accept slack (each F held against the CPU
+    later); the first ``MODEL_WINDOW`` float64 iterations (held against
+    the CPU later)."""
+    prob = model_problem("group_lasso", dev, torch.float32)
+    runs = {}
+    for name, kw in (("default", {}), ("f32 accept slack", dict(tol_internal_rel=F32_ACCEPT_REL))):
+        t0 = time.perf_counter()
+        r = runs[name] = model_solve("group_lasso", prob, **kw)
+        torch.cuda.synchronize()
+        groups = int(np.sum(np.abs(r.x.reshape(-1, GROUP_SIZE)).sum(1) > 0))
+        log(
+            f"phase 14d [{card}]: GroupLasso(m={M}, n={N} f32, lambda {LAM}, group_size "
+            f"{GROUP_SIZE}).solve(nesterov=True, tol={GROUP_TOL}, {kw}): status={r.status} "
+            f"nit={r.nit} nit_internal={r.nit_internal} lr={r.lr!r} fun={float(r.fun[0])!r} "
+            f"nonzero groups {groups} wall {time.perf_counter() - t0:.3f} s"
+        )
+    for name, r in runs.items():
+        if r.status != 1 or not np.all(np.isfinite(r.x)):
+            raise AssertionError(f"phase 14d: the float32 group-LASSO {name} solve did not converge")
+    return dict(group_f64=model_windows("group_lasso", str(dev), torch.float64, None),
+                group_funs={k: float(r.fun[0]) for k, r in runs.items()})
+
+
+def phase14e(card: str) -> None:
+    """The two kernel benches on the card (their bitwise checks raise)."""
+    from zfista_tpu_torch.bench import kernels, tv_bench
+
+    for name, main_, argv in (("kernels", kernels.main, KERNELS_BENCH_ARGS),
+                              ("tv_bench", tv_bench.main, TV_BENCH_ARGS)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main_(argv)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"phase 14e [{card}]: bench.{name}: {line}")
+        log(f"phase 14e: bench.{name}.main({argv}) in {time.perf_counter() - t0:.1f} s; "
+            "kernel against plain bitwise: held")
+
+
+def phase14(card: str, dev, card14: dict, results: dict) -> None:
+    """Phase 14's comparisons, after the pool: (a) the card's cameraman
+    solve against the float64 CPU solve and the CSV, and its launches per
+    step by torch.profiler; (b) the 15-pair sweep against the CSV; (c) and
+    (d) the card's windows against the CPU's."""
+    from zfista_tpu_torch.models import WaveletDeblur
+
+    ref = results[("wavelet_cpu",)]
+    csv = _ab_csv("cameraman")
+    d_nit = abs(card14["wl_nit"] - ref["nit"]) / ref["nit"]
+    d_csv = abs(card14["wl_nit"] - csv[WL_PAIR][1]) / csv[WL_PAIR][1]
+    d_f = _rel(card14["wl_fun"], ref["fun"])
+    d_psnr = abs(card14["wl_psnr"] - ref["psnr"])
+    d_win = float(np.linalg.norm(card14["wl_window"] - ref["window"]) / np.linalg.norm(ref["window"]))
+    log(
+        f"phase 14a: card f32 against CPU f64: nit {card14['wl_nit']} vs {ref['nit']} ({d_nit:.3f}, "
+        f"bound {WL_NIT_RTOL}; CSV {csv[WL_PAIR][1]}: {d_csv:.3f}), F {card14['wl_fun']!r} vs "
+        f"{ref['fun']!r} ({d_f:.3e}, bound {WL_FRTOL}), PSNR {card14['wl_psnr']:.4f} vs "
+        f"{ref['psnr']:.4f} dB ({d_psnr:.4f}, bound {WL_PSNR_DB}); first {AGREE_ITERS} "
+        f"iterations: x relative 2-norm diff {d_win!r} (bound {AGREE_RTOL}); the CPU solve "
+        f"{ref['wall']:.3f} s (one thread, in the pool)"
+    )
+    if not (d_nit <= WL_NIT_RTOL and d_csv <= WL_NIT_RTOL and d_f <= WL_FRTOL
+            and d_psnr <= WL_PSNR_DB and d_win <= AGREE_RTOL):
+        raise AssertionError("phase 14a: the cameraman solve disagrees with the CPU or the CSV")
+    truth, kernel, observed = cameraman_scene(torch.float32, dev)
+    prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
+    n_events, busy = device_events(lambda: quiet(prob.solve, tol=0, max_iter=64))
+    log(
+        f"phase 14a [{card}]: torch.profiler over a 64-step solve: {n_events / 64:.2f} device "
+        f"events per step ({n_events} with the set-up), busy {busy / 64:.1f} us per step; wall "
+        f"per step run without the profiler {1e3 * card14['wl_wall_per_step']:.3f} ms"
+    )
+
+    sweep = results[("cameraman_sweep", str(dev))]
+    nits, fails = [], []
+    if len(sweep["fun"]) != len(sweep["rows"]):
+        raise AssertionError(f"phase 14b: {len(sweep['fun'])} lanes for {len(sweep['rows'])} pairs")
+    for r, fun in zip(sweep["rows"], sweep["fun"]):  # one lane per pair, in grid order
+        n_ref = csv[(r["a"], r["b"])][1]
+        d = math.inf if r["nit"] is None else abs(r["nit"] - n_ref) / n_ref
+        d_fun = _rel(float(fun), ref["fun"])
+        nits.append(math.nan if r["nit"] is None else r["nit"])
+        log(
+            f"phase 14b [{card}]: (a, b) = ({r['a']}, {r['b']}): nit {r['nit']!r} (CSV {n_ref!r}, "
+            f"{d:.3f}), F {float(fun)!r} against the CPU f64 solve's ({d_fun:.3e}, bound "
+            f"{WL_FRTOL}), error rate {r['error_rate']!r}, s per solve on the card {r['time']!r}"
+        )
+        if r["error_rate"] != 0 or not d <= WL_NIT_RTOL or not d_fun <= WL_FRTOL:
+            fails.append(f"({r['a']}, {r['b']}): nit {r['nit']} against {n_ref}, F {d_fun:.3e}")
+    cpu_windows = results[("wavelet_windows",)]
+    card_windows = card14["wl_sweep_window"]
+    for i, r in enumerate(sweep["rows"]):
+        dist = [float(np.linalg.norm(card_windows[i] - w) / np.linalg.norm(w)) for w in cpu_windows]
+        own, other = dist[i], min(d for j, d in enumerate(dist) if j != i)
+        log(
+            f"phase 14b [{card}]: (a, b) = ({r['a']}, {r['b']}): lane {i} of the batch, first "
+            f"{AGREE_ITERS} iterations against its pair's float64 CPU single solve: x relative "
+            f"{own!r} (bound {AGREE_RTOL}); against the nearest other pair's {other!r}"
+        )
+        if not own <= AGREE_RTOL:
+            fails.append(f"({r['a']}, {r['b']}): window {own!r}")
+    csv_mean = statistics.mean(v[1] for v in csv.values())
+    d_mean = abs(statistics.mean(nits) - csv_mean) / csv_mean
+    log(
+        f"phase 14b [{card}]: examples.cameraman_deblur (15 pairs, {len(sweep['nit'])} lanes): "
+        f"{sweep['wall']:.3f} s inside the pool; wrote {sweep['written']}; mean nit "
+        f"{statistics.mean(nits)!r} against the CSV's {csv_mean!r} ({d_mean:.4f}, bound "
+        f"{WL_MEAN_RTOL}); largest pair deviation "
+        f"{max(abs(a - csv[(r['a'], r['b'])][1]) / csv[(r['a'], r['b'])][1] for a, r in zip(nits, sweep['rows']))!r}"
+        f" (bound {WL_NIT_RTOL})"
+    )
+    if fails or not d_mean <= WL_MEAN_RTOL or "cameraman_ab.csv" not in sweep["written"]:
+        raise AssertionError(f"phase 14b: the sweep does not hold: {fails}, mean {d_mean!r}")
+
+    for name, key, lr in (("logistic", "logistic", card14["logistic_lr"]),
+                          ("group_lasso", "group", None)):
+        for run, c in results[("windows", name, lr)].items():
+            f64 = card14[f"{key}_f64"][run]
+            rel = float(np.linalg.norm(f64["x"] - c["x"]) / np.linalg.norm(c["x"]))
+            log(
+                f"phase 14{'c' if name == 'logistic' else 'd'}: {name} {run}, {MODEL_WINDOW} "
+                f"iterations, float64 card vs CPU: nit {f64['nit']} vs {c['nit']}, trials "
+                f"{f64['nit_internal']} vs {c['nit_internal']}, x relative {rel!r} (bound 1e-9)"
+            )
+            if (f64["nit"], f64["nit_internal"]) != (c["nit"], c["nit_internal"]) or not rel <= 1e-9:
+                raise AssertionError(f"phase 14: {name} {run} float64 card and CPU differ")
+            f32 = card14.get(f"{key}_f32", {}).get(run)
+            if f32 is not None:
+                rel = float(np.linalg.norm(f32["x"] - c["x"]) / np.linalg.norm(c["x"]))
+                log(
+                    f"phase 14c: {name} {run}, {MODEL_WINDOW} iterations, float32 card vs float64 "
+                    f"CPU: x relative {rel!r} (bound {AGREE_RTOL}); trials {f32['nit_internal']} "
+                    f"vs {c['nit_internal']}"
+                )
+                if not rel <= AGREE_RTOL:
+                    raise AssertionError(f"phase 14c: {name} {run} float32 disagrees with float64")
+        ref = results[("model_cpu", name)]
+        for run, fun in card14[f"{key}_funs"].items():
+            d_fun = _rel(fun, ref["fun"])
+            log(
+                f"phase 14{'c' if name == 'logistic' else 'd'}: {name} {run} solve, float32 card "
+                f"F {fun!r} against the float64 CPU default solve's {ref['fun']!r} (nit "
+                f"{ref['nit']}, {ref['wall']:.1f} s in the pool): relative {d_fun:.3e} "
+                f"(bound {MODEL_FRTOL})"
+            )
+            if ref["status"] != 1 or not d_fun <= MODEL_FRTOL:
+                raise AssertionError(f"phase 14: {name} {run} F disagrees with the float64 solve")
 
 
 def main() -> None:
@@ -2067,7 +2573,7 @@ def main() -> None:
         )
 
     kern_ms: dict[str, dict[int, tuple[float, float]]] = {k: {} for k in LASSO_KERNELS}
-    for n in (N, 10_000_000):
+    for n in (N, WL_SIDE**2, 10_000_000):
         y, g, x = (torch.randn(n, device=dev) for _ in range(3))
         tail_kw = step_tail_cases(y, g, x, torch.float32, dev)["active"]
         scal = {
@@ -2091,12 +2597,12 @@ def main() -> None:
         reps = 500 if n == N else 100
         for name, (kernel, plain) in calls.items():
             k_ms = event_ms(kernel, reps)
-            p_ms = event_ms(plain, reps)
+            p_ms = event_ms(plain, reps, device_bound=False)
             kern_ms[name][n] = (k_ms, p_ms)
             log(
                 f"phase 5 [{smi}]: {name} f32 n={n}: kernel {k_ms * 1e3:.2f} us per call back "
                 f"to back ({20 * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at 20 B/elem), "
-                f"plain {p_ms * 1e3:.2f} us (host-bound at n={N})"
+                f"plain {p_ms * 1e3:.2f} us (host-bound)"
             )
 
     t0 = time.perf_counter()
@@ -2115,7 +2621,12 @@ def main() -> None:
     # before the first profiled region (timings after one come out slower).
     pooled: dict = {}
     walls: dict = {}
+    card14: dict = {}
     for n_phase, run in (
+        ("14a", lambda: card14.update(phase14a(smi, dev))),
+        ("14c", lambda: card14.update(phase14c(smi, dev))),
+        ("14d", lambda: card14.update(phase14d(smi, dev))),
+        ("14e", lambda: phase14e(smi)),
         ("12b", lambda: phase12b(smi, dev)),
         ("12c", lambda: phase12c(smi, dev)),
         ("13d", lambda: phase13d(smi)),
@@ -2124,14 +2635,19 @@ def main() -> None:
         # Phase 5's profile, here because timings taken after a profiled
         # region in the same process come out slower, and phase 9 profiles.
         (5, lambda: lasso_loops(dev, smi)),
-        ("10, 12 and 13's pool", lambda: pooled.update(
-            run_pool(smi, dev, phase10_tasks(dev) + phase12_tasks(dev) + phase13_tasks(dev))
+        ("10, 12, 13 and 14's pool", lambda: pooled.update(
+            run_pool(
+                smi, dev,
+                phase10_tasks(dev) + phase12_tasks(dev) + phase13_tasks(dev)
+                + phase14_tasks(dev, card14),
+            )
         )),
         (10, lambda: walls.update(phase10(smi, dev, pooled))),
         ("12a", lambda: phase12a(smi, dev, pooled, walls)),
         ("13a", lambda: phase13a(smi, dev, pooled)),
         ("13b", lambda: phase13b(smi, pooled[("cli", str(dev))])),
         ("13c", lambda: phase13c(smi, dev, pooled)),
+        ("14a-d", lambda: phase14(smi, dev, card14, pooled)),
         (11, lambda: phase11(smi, dev)),
         ("12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
         ("12e", lambda: phase12e(smi, dev)),
@@ -2162,6 +2678,25 @@ def main() -> None:
         }
         for name, replaces in LASSO_KERNELS.items()
     ]
+    # The step tail runs on three main paths: its launches are their sum,
+    # and each path's time and bound stand at that path's n.
+    tail = next(k for k in kernels if k["name"] == "lasso_step_tail")
+    tail["by_path"] = [
+        {
+            "path": path,
+            "n": n,
+            "launches": launched,
+            "ms": kern_ms["lasso_step_tail"][n][0],
+            "plain_ms": kern_ms["lasso_step_tail"][n][1],
+            "bound_ms": 1e3 * 5 * n * 4 / PEAK_BYTES_PER_S,
+        }
+        for path, n, launched in (
+            ("Lasso.solve_fixed_step (phase 4)", N, lasso_launches["lasso_step_tail"]),
+            ("WaveletDeblur.solve (phase 14a)", WL_SIDE**2, card14["wl_launches"]),
+            ("SparseLogistic.solve fixed step (phase 14c)", N, card14["logistic_launches"]),
+        )
+    ]
+    tail["launches"] = sum(p["launches"] for p in tail["by_path"])
     for name, (source, replaces) in TV_KERNELS.items():
         # Each kernel's time at the size and n_iter its main-path run used.
         n, n_iter = tv_runs[name]

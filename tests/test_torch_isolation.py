@@ -43,6 +43,11 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch.bench.harness, zfista_tpu_torch.bench.plots\n"
         "import zfista_tpu_torch.bench.momentum_sweep, zfista_tpu_torch.bench.gap_bench\n"
         "import zfista_tpu_torch.bench.restart_bench\n"
+        "import zfista_tpu_torch.models.logistic, zfista_tpu_torch.models.lasso\n"
+        "import zfista_tpu_torch.bench.kernels, zfista_tpu_torch.bench.tv_bench\n"
+        "import zfista_tpu_torch.examples, zfista_tpu_torch.examples.cameraman_deblur\n"
+        "import zfista_tpu_torch.examples.tv_deblur, zfista_tpu_torch.examples.optimality_gap\n"
+        "import zfista_tpu_torch.examples.momentum_experiment\n"
         "assert zfista_tpu_torch.native.load() is not None\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"

@@ -8,7 +8,9 @@ port's other entry points: without a card that raises, and
 ``device="cpu"`` asks for the CPU) and back, so a solve,
 a single step or a warm-started TV prox can be continued in the port from
 where the JAX package left it; :func:`problem_from_spec` builds the port's
-zoo problem matching a JAX one.  Nothing here imports JAX.
+zoo problem matching a JAX one, and :func:`model_from_jax` the port's
+``WaveletDeblur``, ``SparseLogistic`` or ``GroupLasso`` from a JAX
+instance's data.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,10 +24,14 @@ import torch
 from zfista_tpu_torch.core.solver import State, data_device, state_to_numpy
 from zfista_tpu_torch.models import zoo
 from zfista_tpu_torch.models.base import Problem
+from zfista_tpu_torch.models.deblur import WaveletDeblur
+from zfista_tpu_torch.models.lasso import GroupLasso
+from zfista_tpu_torch.models.logistic import SparseLogistic
 
 __all__ = [
     "dual_from_numpy",
     "lasso_params_from_numpy",
+    "model_from_jax",
     "problem_from_spec",
     "state_from_numpy",
     "state_to_numpy",
@@ -135,3 +141,29 @@ def problem_from_spec(problem: Any) -> Problem:
             f"{name}'s constructor cannot reproduce {problem!r} (got {out!r})"
         )
     return out
+
+
+def model_from_jax(model: Any, *, device: Any = "cuda") -> Any:
+    """The port's ``WaveletDeblur``, ``SparseLogistic`` or ``GroupLasso``
+    built from a JAX instance of the class of the same name: its arrays
+    (``b``; ``A`` and ``y``; ``A`` and ``b``) through ``np.asarray`` onto
+    ``device``, its ``kernel``, ``levels``, ``l1_ratio`` and ``group_size``
+    as they are.  Reads attributes only; raises ``ValueError`` for any
+    other class."""
+    name = type(model).__name__
+    device = data_device(device)
+
+    def arr(v: Any) -> torch.Tensor:
+        return torch.tensor(np.asarray(v), device=device)
+
+    if name == "WaveletDeblur":
+        return WaveletDeblur(
+            arr(model.b), l1_ratio=model.l1_ratio, kernel=model.kernel, levels=model.levels
+        )
+    if name == "SparseLogistic":
+        return SparseLogistic(arr(model.A), arr(model.y), l1_ratio=model.l1_ratio)
+    if name == "GroupLasso":
+        return GroupLasso(
+            arr(model.A), arr(model.b), l1_ratio=model.l1_ratio, group_size=model.group_size
+        )
+    raise ValueError(f"model_from_jax: no port of {name!r}")

@@ -1,9 +1,10 @@
-"""Problems (PyTorch port): the multiobjective zoo, LASSO and
-TV-regularized deblurring."""
+"""Problems (PyTorch port): the multiobjective zoo, LASSO and group LASSO,
+sparse logistic regression, and TV- and wavelet-regularized deblurring."""
 
 from zfista_tpu_torch.models.base import Problem
-from zfista_tpu_torch.models.deblur import TVDeblur
-from zfista_tpu_torch.models.lasso import Lasso
+from zfista_tpu_torch.models.deblur import TVDeblur, WaveletDeblur
+from zfista_tpu_torch.models.lasso import GroupLasso, Lasso
+from zfista_tpu_torch.models.logistic import SparseLogistic
 from zfista_tpu_torch.models.zoo import (
     FDS,
     JOS1,
@@ -24,5 +25,8 @@ __all__ = [
     "TRIDIA",
     "LinearFunctionRank1",
     "Lasso",
+    "GroupLasso",
+    "SparseLogistic",
     "TVDeblur",
+    "WaveletDeblur",
 ]

@@ -14,12 +14,25 @@ configs[1]; reference settings: 9×9 Gaussian σ=4, fixed step lr = 1/L).
   one of the hand-written FGP kernels per prox call, on a CPU image the
   plain loop.
 
-The wavelet-L1 formulation (``WaveletDeblur``, ``dwt2``, ``idwt2``) runs no
-kernel and is not ported yet (ROADMAP.md Queue 1 item 7).
+And the wavelet-L1 half, ``min_x ||blur(IDWT(x)) - b||² + λ‖x‖₁`` over
+Haar coefficients (``WaveletDeblur``; reference: examples/cameraman.ipynb,
+256×256, 9×9 Gaussian σ=4, λ=2e-5, fixed step lr=1/L):
+
+* :func:`dwt2`/:func:`idwt2` are the JAX package's butterflies, rows then
+  columns, each level out of place (``torch.cat`` of the packed block and
+  the untouched rest), so they run under ``torch.func.vmap`` (the momentum
+  sweep's lanes).  A level is a dozen small launches, whatever the image
+  side: one gradient runs ``levels`` of them each way.
+* ``WaveletDeblur.solve`` passes params-style callables whose prox is
+  ``soft_threshold(x, w·λ)``, marked for the solver's fused-step seam: the
+  fixed-step solve runs its whole step tail as one launch of the CUDA
+  kernel ``lasso_step_tail`` (:mod:`zfista_tpu_torch.ops.fused`) on a card,
+  and the tail's plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import math
 import time as _time
 from typing import Any, Callable, NamedTuple
 
@@ -31,7 +44,70 @@ from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient, run_masked
 from zfista_tpu_torch.ops import tv_cuda
 from zfista_tpu_torch.ops.precision import conv2d_hp, matmul_hp
+from zfista_tpu_torch.ops.prox import soft_threshold
 from zfista_tpu_torch.ops.tv import PIPELINED, check_method, prox_tv, tv2d
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _haar_1d(a: Array, axis: int) -> tuple[Array, Array]:
+    """One Haar analysis step along ``axis`` (0 or 1 of a 2-D block):
+    (approx, detail)."""
+    lo = a[0::2] if axis == 0 else a[:, 0::2]
+    hi = a[1::2] if axis == 0 else a[:, 1::2]
+    return (lo + hi) * _INV_SQRT2, (lo - hi) * _INV_SQRT2
+
+
+def _ihaar_1d(approx: Array, detail: Array, axis: int) -> Array:
+    """Inverse of :func:`_haar_1d` along ``axis``: the two halves
+    interleaved."""
+    lo = (approx + detail) * _INV_SQRT2
+    hi = (approx - detail) * _INV_SQRT2
+    shape = list(lo.shape)
+    shape[axis] *= 2
+    return torch.stack([lo, hi], dim=axis + 1).reshape(shape)
+
+
+def _put_block(out: Array, block: Array) -> Array:
+    """``out`` with its top-left corner replaced by ``block``, out of place
+    (the JAX ``out.at[:s, :s].set(block)``)."""
+    s = block.shape[0]
+    if s == out.shape[0]:
+        return block
+    top = torch.cat([block, out[:s, s:]], dim=1)
+    return torch.cat([top, out[s:]], dim=0)
+
+
+def dwt2(image: Array, levels: int) -> Array:
+    """Orthonormal 2-D Haar DWT, coefficients packed in place (the approx
+    block at the top-left corner, standard pyramid layout).  Out of place:
+    ``image`` is never written."""
+    out = image
+    size = image.shape[0]
+    for _ in range(levels):
+        lo_r, hi_r = _haar_1d(out[:size, :size], 0)
+        # The column step of both row halves at once: [ll; hl], [lh; hh].
+        approx, detail = _haar_1d(torch.cat([lo_r, hi_r], dim=0), 1)
+        out = _put_block(out, torch.cat([approx, detail], dim=1))
+        size //= 2
+    return out
+
+
+def idwt2(coeffs: Array, levels: int) -> Array:
+    """Inverse of :func:`dwt2` (exact: the transform is orthonormal).
+    ``idwt2(c, 0)`` is ``c`` itself, as ``dwt2(img, 0)`` is ``img``."""
+    if levels <= 0:
+        return coeffs
+    out = coeffs
+    size = out.shape[0] >> (levels - 1)
+    for _ in range(levels):
+        h = size // 2
+        block = out[:size, :size]
+        # The column step of both row halves at once: [lo_r; hi_r].
+        rows = _ihaar_1d(block[:, :h], block[:, h:], 1)
+        out = _put_block(out, _ihaar_1d(rows[:h], rows[h:], 0))
+        size *= 2
+    return out
 
 
 def gaussian_kernel(size: int = 9, sigma: float = 4.0) -> np.ndarray:
@@ -175,6 +251,125 @@ def _as_image(observed: Any, device: Any) -> Array:
     return b
 
 
+def _band_pair(kernel: np.ndarray, b: Array) -> tuple[Array, Array] | None:
+    """Banded blur matrices ``(Gr, Gc)`` for ``b``'s shape, dtype and device,
+    or None for a kernel :func:`_separable_taps` rejects."""
+    taps = _separable_taps(np.asarray(kernel, np.float64))
+    if taps is None:
+        return None
+    return tuple(
+        torch.as_tensor(_band_matrix(taps, n), dtype=b.dtype, device=b.device)
+        for n in b.shape
+    )
+
+
+def _blur_params(
+    b: Array, kernel: np.ndarray, ratio: float, bands: tuple[Array, Array] | None
+) -> tuple[Array, ...]:
+    """The params tuple of the deblurring callables: ``(b, Gr, Gc, lam)``
+    with the bands, else ``(b, K, lam)``."""
+    lam = torch.tensor(ratio, dtype=b.dtype, device=b.device)
+    if bands is not None:
+        return (b, *bands, lam)
+    return (b, torch.as_tensor(kernel, dtype=b.dtype, device=b.device), lam)
+
+
+class WaveletDeblur:
+    """Composite problem ``F(x) = ‖blur(IDWT(x)) − b‖² + λ‖x‖₁``.
+
+    ``x`` is the flattened Haar coefficient array, reshaped to the image
+    grid inside ``f``/``jac_f``; the gradient is ``2·DWT(blur*(r))`` with
+    the blur's TRUE adjoint (the DWT is orthonormal).  The image must be
+    square with a power-of-two side, and ``1 <= levels <= log2(side)``
+    (default ``log2(side)``).  The solve runs on ``observed``'s device: a
+    tensor keeps its own (a CPU tensor asks for the CPU), and a numpy image
+    goes to ``device`` (default ``"cuda"``; a machine with no card raises).
+
+    The bound methods (``f``, ``jac_f``, ``g``, ``prox_wsum_g``) serve the
+    batch solver and the momentum sweep; :meth:`solve` runs the
+    params-style callables of :func:`_wavelet_callables` through the
+    fused-step seam.
+    """
+
+    def __init__(
+        self,
+        observed: Any,
+        l1_ratio: float = 2e-5,
+        kernel: np.ndarray | None = None,
+        levels: int | None = None,
+        device: Any = "cuda",
+    ) -> None:
+        self.b = _as_image(observed, device)
+        if self.b.ndim != 2:
+            raise ValueError("observed must be a 2-D image")
+        size = self.b.shape[0]
+        if self.b.shape[0] != self.b.shape[1] or size & (size - 1):
+            raise ValueError("image must be square with power-of-two side")
+        self.kernel = gaussian_kernel() if kernel is None else kernel
+        self.levels = int(math.log2(size)) if levels is None else int(levels)
+        if not 1 <= self.levels <= int(math.log2(size)):
+            raise ValueError(f"levels must be in [1, log2(size)]; got {self.levels}")
+        self.l1_ratio = float(l1_ratio)
+        self._blur = make_blur(self.kernel)
+        self._blur_T = make_blur(self.kernel, adjoint=True)
+        self.n_objectives = 1
+        self.n_features = size * size
+
+    def _coeffs(self, x: Array) -> Array:
+        return torch.reshape(x, self.b.shape)
+
+    def f(self, x: Array) -> Array:
+        r = self._blur(idwt2(self._coeffs(x), self.levels)) - self.b
+        return torch.reshape(torch.sum(r * r), (1,))
+
+    def jac_f(self, x: Array) -> Array:
+        r = self._blur(idwt2(self._coeffs(x), self.levels)) - self.b
+        return 2 * torch.reshape(dwt2(self._blur_T(r), self.levels), (1, -1))
+
+    def g(self, x: Array) -> Array:
+        return torch.reshape(self.l1_ratio * torch.sum(torch.abs(x)), (1,))
+
+    def prox_wsum_g(self, weight: Any, x: Array) -> Array:
+        return soft_threshold(
+            x, torch.as_tensor(weight, dtype=x.dtype, device=x.device) * self.l1_ratio
+        )
+
+    def lipschitz(self) -> float:
+        return blur_lipschitz(self.kernel, tuple(self.b.shape))
+
+    def x0(self) -> Array:
+        """Reference warm start: the DWT of the observed image (nb cell 8)."""
+        return torch.reshape(dwt2(self.b, self.levels), (-1,))
+
+    def solve(self, **kwargs: Any):
+        """Fixed-step accelerated solve at ``lr = 1/L`` (reference settings:
+        ``decay_rate=1``, ``nesterov=True``; cameraman.ipynb cell 11),
+        through the params-style callables of :func:`_wavelet_callables`
+        with ``(b, Gr, Gc, lam)`` (separable) or ``(b, K, lam)`` as params.
+        ``lr`` is computed only when not given, and ``x0()`` only when
+        ``x0`` is not passed; a given ``x0`` takes the image's dtype and
+        device.
+
+        .. warning:: The instance is FROZEN after the first call (the
+           params tuple is cached); build a new instance per observation.
+        """
+        if "lr" not in kwargs:
+            kwargs["lr"] = 1.0 / self.lipschitz()
+        kwargs.setdefault("decay_rate", 1)
+        kwargs.setdefault("nesterov", True)
+        if "x0" in kwargs:
+            x0 = torch.as_tensor(kwargs.pop("x0"), dtype=self.b.dtype, device=self.b.device)
+        else:
+            x0 = self.x0()
+        p = getattr(self, "_params", None)
+        if p is None:
+            p = self._params = _blur_params(
+                self.b, self.kernel, self.l1_ratio, _band_pair(self.kernel, self.b)
+            )
+        fns = _wavelet_callables(self.levels, separable=len(p) == 4)
+        return minimize_proximal_gradient(*fns, x0, params=p, **kwargs)
+
+
 class TVDeblur:
     """Composite problem ``F(X) = ‖blur(X) − b‖² + λ·TV(X)`` on the image
     domain.
@@ -278,16 +473,7 @@ class TVDeblur:
         once per instance, or None for non-separable kernels."""
         bands = getattr(self, "_bands_cache", False)
         if bands is False:
-            taps = _separable_taps(np.asarray(self.kernel, np.float64))
-            if taps is None:
-                bands = None
-            else:
-                dt, dev = self.b.dtype, self.b.device
-                bands = (
-                    torch.as_tensor(_band_matrix(taps, self.b.shape[0]), dtype=dt, device=dev),
-                    torch.as_tensor(_band_matrix(taps, self.b.shape[1]), dtype=dt, device=dev),
-                )
-            self._bands_cache = bands
+            bands = self._bands_cache = _band_pair(self.kernel, self.b)
         return bands
 
     def solve(self, **kwargs: Any):
@@ -306,14 +492,7 @@ class TVDeblur:
         x0 = kwargs.pop("x0") if "x0" in kwargs else self.x0()
         p = getattr(self, "_params", None)
         if p is None:
-            dt, dev = self.b.dtype, self.b.device
-            lam = torch.tensor(self.tv_ratio, dtype=dt, device=dev)
-            bands = self._bands()
-            if bands is not None:
-                p = (self.b, *bands, lam)
-            else:
-                p = (self.b, torch.as_tensor(self.kernel, dtype=dt, device=dev), lam)
-            self._params = p
+            p = self._params = _blur_params(self.b, self.kernel, self.tv_ratio, self._bands())
         fns = _tv_deblur_callables(
             self.prox_iter,
             self.isotropic,
@@ -450,19 +629,10 @@ def _tv_warm_driver(
     return x_f, F_, nit, err, (pd_f, qd_f)
 
 
-#: Params-style callables for TVDeblur.solve, one set per static config.
-#: Params layout: (b, Gr, Gc, lam) separable, else (b, K, lam).
-_TV_CALLABLES: dict = {}
-
-
-def _tv_deblur_callables(
-    prox_iter: int, isotropic: bool, separable: bool, prox_method: str = "auto"
-):
-    key = (int(prox_iter), bool(isotropic), bool(separable), str(prox_method))
-    fns = _TV_CALLABLES.get(key)
-    if fns is not None:
-        return fns
-
+def _blur_callables(separable: bool):
+    """``(blur_p, blur_T_p)``: the blur and its TRUE adjoint on an image,
+    reading the operator from a deblurring params tuple ``(b, Gr, Gc, lam)``
+    (separable) or ``(b, K, lam)``."""
     if separable:
 
         def blur_p(X: Array, p) -> Array:
@@ -488,6 +658,23 @@ def _tv_deblur_callables(
             return _correlate(
                 Y, torch.flip(K, (0, 1)), _same_pad(*K.shape, adjoint=True)
             )
+
+    return blur_p, blur_T_p
+
+
+#: Params-style callables for TVDeblur.solve, one set per static config.
+#: Params layout: (b, Gr, Gc, lam) separable, else (b, K, lam).
+_TV_CALLABLES: dict = {}
+
+
+def _tv_deblur_callables(
+    prox_iter: int, isotropic: bool, separable: bool, prox_method: str = "auto"
+):
+    key = (int(prox_iter), bool(isotropic), bool(separable), str(prox_method))
+    fns = _TV_CALLABLES.get(key)
+    if fns is not None:
+        return fns
+    blur_p, blur_T_p = _blur_callables(separable)
 
     def f_p(x, p):
         b = p[0]
@@ -517,4 +704,41 @@ def _tv_deblur_callables(
         return torch.reshape(u, (-1,))
 
     fns = _TV_CALLABLES[key] = (f_p, g_p, jac_p, prox_p)
+    return fns
+
+
+#: Params-style callables for WaveletDeblur.solve, one set per static
+#: config (levels, separable); params as for TVDeblur.
+_WAVELET_CALLABLES: dict = {}
+
+
+def _wavelet_callables(levels: int, separable: bool):
+    key = (int(levels), bool(separable))
+    fns = _WAVELET_CALLABLES.get(key)
+    if fns is not None:
+        return fns
+    blur_p, blur_T_p = _blur_callables(separable)
+
+    def f_p(x, p):
+        b = p[0]
+        r = blur_p(idwt2(torch.reshape(x, b.shape), levels), p) - b
+        return torch.reshape(torch.sum(r * r), (1,))
+
+    def jac_p(x, p):
+        b = p[0]
+        r = blur_p(idwt2(torch.reshape(x, b.shape), levels), p) - b
+        return 2 * torch.reshape(dwt2(blur_T_p(r, p), levels), (1, -1))
+
+    def g_p(x, p):
+        return torch.reshape(p[-1] * torch.sum(torch.abs(x)), (1,))
+
+    def prox_p(w, x, p):
+        w = w[0] if getattr(w, "ndim", 0) else w
+        return soft_threshold(x, w * p[-1])
+
+    # The solver's private fused-step seam (zfista_tpu_torch.core.solver):
+    # this prox is soft_threshold(x, w * p[-1]), so the fixed-step nesterov
+    # step runs its whole tail as one fused kernel launch.
+    prox_p._soft_threshold_lam_of = lambda p: p[-1]
+    fns = _WAVELET_CALLABLES[key] = (f_p, g_p, jac_p, prox_p)
     return fns

@@ -1,7 +1,8 @@
-r"""LASSO / elastic-net: the framework's flagship workload.
+r"""LASSO / elastic-net: the framework's flagship workload, and group LASSO.
 
 PyTorch-port counterpart of :mod:`zfista_tpu.models.lasso`:
-``min_x ||A x - b||² + λ‖x‖₁ (+ (μ/2)‖x‖²)`` with dense ``A (m, n)``.
+``min_x ||A x - b||² + λ‖x‖₁ (+ (μ/2)‖x‖²)`` with dense ``A (m, n)``, and
+``GroupLasso`` with ``λ Σ_g ||x_g||₂`` in place of the ℓ1 term.
 
 * ``f``/``jac_f`` are two dense matvecs in full fp32 (cuBLAS on a card,
   :mod:`zfista_tpu_torch.ops.precision`).
@@ -52,7 +53,25 @@ def operator_norm_sq(
     return dot_hp(v, w)
 
 
-class Lasso(Problem):
+class _OnOperator(Problem):
+    """A problem on a dense operator ``A``: its solves start from ``x0``
+    cast to ``A``'s dtype and moved to its device."""
+
+    def minimize_proximal_gradient(self, x0, **kwargs):
+        """Solve from ``x0``, cast to ``A``'s dtype and moved to its device."""
+        x0 = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
+        return super().minimize_proximal_gradient(x0, **kwargs)
+
+    solve = minimize_proximal_gradient
+
+    def solve_batch(self, x0s, **kwargs):
+        """Solve from every row of ``x0s``, cast to ``A``'s dtype and moved
+        to its device, as one lane-batched solve."""
+        x0s = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
+        return super().solve_batch(x0s, **kwargs)
+
+
+class Lasso(_OnOperator):
     r"""``F(x) = ||A x - b||² + λ‖x‖₁ + (μ/2)‖x‖²`` (elastic net for μ>0).
 
     Matches the reference's test formulation ``f = ||Ax-b||²`` (no 1/2),
@@ -109,19 +128,6 @@ class Lasso(Problem):
         ``decay_rate=1`` for the fixed-step fast path."""
         return float(2 * operator_norm_sq(self.A, n_iter, generator) + self.l2_ratio)
 
-    def minimize_proximal_gradient(self, x0, **kwargs):
-        """Solve from ``x0``, cast to ``A``'s dtype and moved to its device."""
-        x0 = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
-        return super().minimize_proximal_gradient(x0, **kwargs)
-
-    solve = minimize_proximal_gradient
-
-    def solve_batch(self, x0s, **kwargs):
-        """Solve from every row of ``x0s``, cast to ``A``'s dtype and moved
-        to its device, as one lane-batched solve."""
-        x0s = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
-        return super().solve_batch(x0s, **kwargs)
-
     def solve_fixed_step(self, x0, **kwargs):
         """Fixed-step FISTA at ``lr = 1/L`` (no backtracking) — the
         bandwidth-bound hot path.
@@ -158,6 +164,47 @@ class Lasso(Problem):
             _lasso_f_p, _lasso_g_p, _lasso_jac_p, _lasso_prox_p, x0,
             params=p, **kwargs
         )
+
+
+class GroupLasso(_OnOperator):
+    r"""``F(x) = ||A x - b||² + λ Σ_g ||x_g||₂`` with contiguous equal-size
+    feature groups (block soft-threshold prox,
+    :func:`~zfista_tpu_torch.ops.prox.prox_group_lasso`).
+
+    ``A`` and ``b`` as in :class:`Lasso` (tensors keep their device, numpy
+    goes to ``device``); ``n_features`` must divide by ``group_size``.
+    """
+
+    def __init__(self, A, b, l1_ratio: float, group_size: int, device: Any = "cuda") -> None:
+        A, b = _operands(A, b, device)
+        if not A.is_floating_point():
+            A = A.to(torch.get_default_dtype())
+        self.A = A
+        self.b = b.to(A.dtype)
+        self.l1_ratio = float(l1_ratio)
+        self.group_size = int(group_size)
+        if self.A.shape[1] % self.group_size:
+            raise ValueError("n_features must divide by group_size")
+        super().__init__(n_features=self.A.shape[1], n_objectives=1)
+
+    def f(self, x: Array) -> Array:
+        r = _DOT(self.A, x) - self.b
+        return torch.reshape(dot_hp(r, r), (1,))
+
+    def jac_f(self, x: Array) -> Array:
+        return torch.reshape(2 * _DOT(self.A.T, _DOT(self.A, x) - self.b), (1, -1))
+
+    def g(self, x: Array) -> Array:
+        v = x.reshape(-1, self.group_size)
+        return torch.reshape(
+            self.l1_ratio * torch.sum(torch.sqrt(torch.sum(v * v, dim=-1))), (1,)
+        )
+
+    def prox_wsum_g(self, weight, x: Array) -> Array:
+        return prox_group_lasso(x, weight * self.l1_ratio, self.group_size)
+
+    def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
+        return float(2 * operator_norm_sq(self.A, n_iter, generator))
 
 
 # Module-level params-style callables for Lasso.solve_fixed_step, with all
