@@ -27,7 +27,13 @@ of them against its plain PyTorch version:
 * the models left (phase 14): wavelet-L1 deblurring of the cameraman
   (``WaveletDeblur``, whose fixed-step solve runs the fused LASSO kernel's
   step tail), its 15-pair momentum sweep by the port's example script,
-  sparse logistic regression and group LASSO, and the two kernel benches.
+  sparse logistic regression and group LASSO, and the two kernel benches;
+* scale-out (phase 15): the n = 10^6 dense LASSO of
+  ``zfista_tpu_torch.examples.large_lasso`` (A 8 GB float32, the fused
+  raw step's tail ``fista_tail`` once per step), a world of one NCCL rank,
+  two ranks sharing the card over Gloo (the feature-sharded ``Lasso`` runs
+  the kernel's ``fused_prox_momentum`` once per step), and the weak-scaling
+  bench's one-card row.
 
 Phases:
 
@@ -36,8 +42,9 @@ Phases:
 2. the fused LASSO kernel's three entries (prox + momentum, the raw step's
    tail, the solver's step tail) against their plain versions, bitwise,
    float32 and float64, n from 1 to 10^7 (the LASSO and logistic paths'
-   10^4 and the wavelet path's 65,536 among them), on active, converging,
-   stopped and NaN-carrying states;
+   10^4, the wavelet path's 65,536, phase 15c's per-rank 5,000 and phase
+   15a's 10^6 among them), on active, converging, stopped and NaN-carrying
+   states;
 3. one dense FISTA step, fused against plain, at the full problem size;
 4. the LASSO slice through the public entry point: launch counts (the
    step tail once per step), agreement with a float64 numpy FISTA loop,
@@ -45,7 +52,8 @@ Phases:
    convergence, and ``check_every`` chunking bitwise equal to per-step
    checking;
 5. the card's own times of the LASSO slice and of its kernel's entries at
-   n = 10^4, 65,536 and 10^7 (``bench._card.held_ms``: the calls queued
+   n = 10^4, 65,536, 10^6 and 10^7 in float32 and 5,000 in float64
+   (``bench._card.held_ms``: the calls queued
    behind a stream hold long enough for the host to queue them all), and
    (run after phase 9) device events and busy time per iteration of
    the public path and the raw loops, by torch.profiler;
@@ -127,6 +135,24 @@ Phases:
     ``bench.kernels`` and ``bench.tv_bench`` (256²-2048²), their kernel
     against plain checks bitwise.  The CPU references and the sweep run in
     the pool of phases 10, 12 and 13.
+15. scale-out, after the rest: (a) ``large_lasso`` at m=2,000, n=10^6,
+    float32, 200 steps, in this process (``fista_tail`` once per step of
+    its warm-up and timed runs), iter/s and GB/s beside a ``copy_`` rate
+    measured in the same run and the bound (A read twice per step: 4.78
+    ms); the same 200 steps fused against plain bitwise, and F within 1e-4
+    of the same steps in float64 on the card; (b) an NCCL world of one rank:
+    the headline LASSO through ``Lasso`` on ``distribute_global(A, mesh,
+    P(None, "model"))`` to convergence, nit and x bitwise the unsharded
+    solve, ``fused_prox_momentum`` once per step run and never
+    ``lasso_step_tail``; a 16-lane lambda sweep with ``in_sharding``
+    bitwise the unsharded sweep; (c) two spawned processes sharing the card
+    over Gloo (NCCL refuses two ranks on one device; Gloo takes CUDA
+    tensors in all-reduce, the port's only collective), float64: the
+    headline LASSO feature-sharded over ``model=2``, equal nit and x within
+    1e-9 of the unsharded card solve, ``fused_prox_momentum`` once per
+    step run on each rank, and the sweep's lanes over ``batch=2`` bitwise
+    the unsharded sweep in every field; (d)
+    ``bench.scaling.weak_scaling((1,), device="cuda")`` at its defaults.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -167,9 +193,18 @@ LASSO_KERNELS = {
 #: Phase 14a-b: the cameraman's side; the wavelet solve's step tail runs at
 #: n = WL_SIDE**2.
 WL_SIDE = 256
+#: Phase 15: the large LASSO's width (large_lasso's default), its rows, its
+#: steps, and the ranks that share the card over Gloo in 15c.
+LARGE_N, LARGE_M, LARGE_ITERS, GLOO_RANKS = 1_000_000, 2000, 200, 2
 #: Phase 2: vector lengths (edge cases, the LASSO and logistic paths' n, one
-#: past it, the wavelet path's n, and 10^7, past the L2).
-FUSED_CHECK_SIZES = (1, 1000, N, 10_001, WL_SIDE**2, 10_000_000)
+#: past it, the wavelet path's n, a rank's block of the LASSO in phase 15c,
+#: the large LASSO's n and 10^7, past the L2).
+FUSED_CHECK_SIZES = (1, 1000, N, 10_001, WL_SIDE**2, N // GLOO_RANKS, LARGE_N, 10_000_000)
+#: Phase 5: the kernel entries' timed sizes (n, dtype): every main path's.
+KERNEL_TIME_SIZES = (
+    (N, torch.float32), (WL_SIDE**2, torch.float32), (LARGE_N, torch.float32),
+    (10_000_000, torch.float32), (N // GLOO_RANKS, torch.float64),
+)
 #: First iterations of the slice compared with the float64 numpy loop, and
 #: the bound on their relative 2-norm difference: float32 rounding
 #: (eps 6e-8) amplified over 200 momentum steps.
@@ -837,7 +872,9 @@ def device_events(fn, by_name: bool = False) -> tuple:
     """``fn()``'s device events by torch.profiler: how many there were
     (kernel launches and copies) and the sum of their own time in µs (one
     stream, no overlap), as the profiler table's "Self CUDA time total"
-    sums them; with ``by_name`` also the count of each event's name."""
+    sums them; with ``by_name`` also the count of each event's name.  The
+    host is traced too: tracing the device alone lost events of a long run
+    on the H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -845,6 +882,8 @@ def device_events(fn, by_name: bool = False) -> tuple:
         fn()
         torch.cuda.synchronize()
     on_device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    if not on_device:
+        raise AssertionError("device_events: the profiler saw no device event")
     out = (
         sum(e.count for e in on_device),
         float(sum(e.self_device_time_total for e in on_device)),
@@ -1274,7 +1313,7 @@ def phase11(card: str, dev) -> None:
 #: starts tiled), over COUNT_ITERS iterations, within COUNT_RTOL.
 SWEEP_SHAPE, SWEEP_LAMBDAS, SWEEP_MU, SWEEP_CHECK, SWEEP_RTOL = (500, 2000), 1000, 0.1, 8, 1e-5
 JOS1_LANES, FDS_LANES, FDS_CHUNK, CHUNK_ITERS = 10_000, 1024, 256, 20
-COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 10, 0.01
+COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 5, 0.01
 
 
 def phase12_tasks(dev) -> list:
@@ -1497,12 +1536,15 @@ def phase12e(card: str, dev) -> None:
     starts tiled, so every width runs the same rounds of every loop.  Per
     iteration is the difference between a run of ``2 * COUNT_ITERS`` and
     one of ``COUNT_ITERS`` iterations, over ``COUNT_ITERS``: the set-up and
-    the result's host copy cancel."""
+    the result's host copy cancel.  One uncounted solve of each problem
+    goes first: a problem's first solve in the process makes a few host
+    reads more (one-time set-up), which would land on the first width."""
     from zfista_tpu_torch.models import FDS, JOS1
 
     for name, p, low, high in (("JOS1 n=50", JOS1(n_features=50), -2.0, 4.0),
                                ("FDS n=10", FDS(n_features=10), -2.0, 2.0)):
         base = torch.tensor(np.random.default_rng(42).uniform(low, high, (16, p.n_features)), device=dev)
+        p.solve_batch(base, nesterov=True, tol=0, max_iter=COUNT_ITERS)  # the warm-up
         seen = {}
         for B in COUNT_WIDTHS:
             x0s = base.repeat(B // 16, 1)
@@ -1525,8 +1567,6 @@ def phase12e(card: str, dev) -> None:
         if (ra, ea) != (rb, eb):
             diff = {k: (na.get(k, 0), nb.get(k, 0)) for k in set(na) | set(nb) if na.get(k, 0) != nb.get(k, 0)}
             log(f"phase 12e: {name}: events that differ by width (over {COUNT_ITERS} iterations): {diff}")
-        # Flat in the lane count: FDS's counts came out 0.3-0.8% apart at 16
-        # and 1,024 lanes (cause not identified), JOS1's equal.
         if abs(ra - rb) > COUNT_RTOL * max(ra, rb) or abs(ea - eb) > COUNT_RTOL * max(ea, eb):
             raise AssertionError(f"phase 12e: {name}'s counts depend on the width")
 
@@ -2405,6 +2445,298 @@ def phase14(card: str, dev, card14: dict, results: dict) -> None:
                 raise AssertionError(f"phase 14: {name} {run} F disagrees with the float64 solve")
 
 
+# -- phase 15: scale-out ---------------------------------------------------------
+
+#: Phase 15b-c: the lambda sweep's lanes (over the headline LASSO's A).
+SWEEP15_LANES = 16
+#: Phase 15a: the relative bound on the float32 objective after the large
+#: LASSO's steps against the same steps in float64 (float32 rounding over
+#: 200 momentum steps).
+LARGE_FRTOL = 1e-4
+#: Phase 15c: the m=1 class, in float64 (equal nit, x within 1e-9).
+GLOO_XTOL = 1e-9
+
+
+def copy_gbps(dev, n_bytes: int = 2**31, reps: int = 10) -> float:
+    """The card's device-to-device ``copy_`` rate (bytes read plus bytes
+    written per second), by CUDA events over ``reps`` copies of
+    ``n_bytes``, after one untimed copy."""
+    src = torch.empty(n_bytes // 4, dtype=torch.float32, device=dev).uniform_()
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src)
+    end.record()
+    torch.cuda.synchronize()
+    return 2 * n_bytes * reps / (start.elapsed_time(end) * 1e-3) / 1e9
+
+
+def phase15a(card: str, dev) -> dict:
+    """The n = 10^6 LASSO at full width (``large_lasso``'s main path, A 8 GB
+    float32): its script's run in this process (launch counts), then the
+    same 200 steps fused against plain (bitwise) and in float64 (the
+    objective within LARGE_FRTOL)."""
+    from zfista_tpu_torch.examples import large_lasso
+    from zfista_tpu_torch.models.lasso import fista_step_dense, operator_norm_sq
+    from zfista_tpu_torch.ops import fused
+
+    argv = ["--n", str(LARGE_N), "--m", str(LARGE_M), "--iters", str(LARGE_ITERS)]
+    out = io.StringIO()
+    zero(fused.launch_counts)  # the main-path run starts here
+    with contextlib.redirect_stdout(out):
+        large_lasso.main(argv)
+    torch.cuda.synchronize()
+    launched = dict(fused.launch_counts)  # ... and ends here
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    if launched != {"fused_prox_momentum": 0, "fista_tail": 2 * LARGE_ITERS, "lasso_step_tail": 0}:
+        raise AssertionError(f"phase 15a: large_lasso launched {launched}")
+    gbps = copy_gbps(dev)
+    bound_ms = 1e3 * 2 * LARGE_M * LARGE_N * 4 / PEAK_BYTES_PER_S
+    log(
+        f"phase 15a [{card}]: large_lasso m={LARGE_M} n={LARGE_N} f32 (A {LARGE_M * LARGE_N * 4 / 1e9:.0f} GB): "
+        f"{rec['value']!r} iter/s, {rec['achieved_GBps']!r} GB/s over {LARGE_ITERS} steps "
+        f"(copy_ {gbps!r} GB/s in this run; bound {bound_ms:.3f} ms = {1e3 / bound_ms:.1f} iter/s "
+        f"at 3.35 TB/s); warm-up {rec['warmup_s']!r} s; final_obj {rec['final_obj']!r}; "
+        f"fista_tail launches {launched['fista_tail']} in {2 * LARGE_ITERS} steps (warm-up and timed); "
+        f"the script's device {rec['device']!r}"
+    )
+
+    A, b = large_lasso.build_operator(LARGE_M, LARGE_N, 0, None, dev)
+    lr = (1.0 / (2 * operator_norm_sq(A, 30))).to(torch.float32)
+    lam = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    x0 = torch.zeros(LARGE_N, dtype=torch.float32, device=dev)
+    got = large_lasso.iterate(A, b, lam, lr, x0, LARGE_ITERS)
+    c = (x0, x0, torch.ones((), dtype=torch.float32, device=dev))
+    for _ in range(LARGE_ITERS):
+        c = fista_step_dense(A, b, lam, lr, c)
+    err = max(abs_err(u, v) for u, v in zip(got, c))
+    if err != 0.0 or not all(same_bits(u, v) for u, v in zip(got, c)):
+        raise AssertionError(f"phase 15a: fused steps differ from plain by {err!r}")
+    F32 = large_lasso.objective(A, b, lam, got[0])
+    if F32 != rec["final_obj"]:
+        raise AssertionError(f"phase 15a: the script's final_obj {rec['final_obj']!r} is not {F32!r}")
+    A64, b64 = A.double(), b.double()
+    del A, c
+    x64 = torch.zeros(LARGE_N, dtype=torch.float64, device=dev)
+    c = (x64, x64, torch.ones((), dtype=torch.float64, device=dev))
+    lr64, lam64 = lr.double(), lam.double()
+    for _ in range(LARGE_ITERS):
+        c = fista_step_dense(A64, b64, lam64, lr64, c)
+    F64 = large_lasso.objective(A64, b64, lam64, c[0])
+    rel = abs(F32 - F64) / abs(F64)
+    log(
+        f"phase 15a: {LARGE_ITERS} fused steps == plain bitwise (x, y, t); F float32 {F32!r} "
+        f"against float64 {F64!r} on the card (A cast, 16 GB): relative {rel!r} "
+        f"(bound {LARGE_FRTOL})"
+    )
+    if not rel <= LARGE_FRTOL:
+        raise AssertionError("phase 15a: float32 objective off float64's")
+    del A64, c
+    torch.cuda.empty_cache()
+    return dict(launches=launched["fista_tail"], iter_s=rec["value"], gbps=rec["achieved_GBps"],
+                copy_gbps=gbps, step_err=err)
+
+
+def sweep15(A, b, lams, lr: float, in_sharding=None):
+    """Phase 15's lambda sweep over the headline LASSO's A, to convergence."""
+    from zfista_tpu_torch.models.lasso import make_lasso_lambda_sweep
+    from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
+
+    f, g, jac_f, prox = make_lasso_lambda_sweep(A, b)
+    return quiet(
+        minimize_proximal_gradient_batch, f, g, jac_f, prox,
+        torch.zeros((len(lams), A.shape[1]), dtype=A.dtype, device=A.device),
+        batch_params=lams, in_sharding=in_sharding, lr=lr, nesterov=True, max_iter=5000,
+    )
+
+
+def same_batch(u, v) -> bool:
+    return all(np.array_equal(np.asarray(u[k]), np.asarray(v[k])) for k in ("x", "nit", "status")) and all(
+        np.array_equal(a, c) for a, c in zip(u.state, v.state)
+    )
+
+
+def phase15b(card: str, dev, A_np, b_np, lr: float) -> dict:
+    """A world of one NCCL rank on the card: the headline LASSO through
+    ``Lasso`` on ``distribute_global(A, mesh, operator_sharding)`` to
+    convergence, bitwise the unsharded solve, through the composed tail;
+    the lambda sweep with ``in_sharding`` bitwise the unsharded sweep."""
+    import socket
+
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.ops import fused
+    from zfista_tpu_torch.parallel import batch_sharding, distributed
+    from zfista_tpu_torch.parallel.sharding import P
+
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = distributed.global_mesh()
+        b = torch.as_tensor(b_np, device=dev)
+        sharded = Lasso(distributed.distribute_global(A_np, mesh, P(None, "model"), dev), b, LAM)
+        x0 = distributed.distribute_global(np.zeros(N, np.float32), mesh, P("model"), dev)
+        zero(fused.launch_counts)  # the main-path solve starts here
+        res_sh = sharded.solve_fixed_step(x0, lr=lr)
+        torch.cuda.synchronize()
+        launched = dict(fused.launch_counts)  # ... and ends here
+        res = Lasso(torch.as_tensor(A_np, device=dev), b, LAM).solve_fixed_step(
+            torch.zeros(N, dtype=torch.float32, device=dev), lr=lr
+        )
+        chunk = chunk_of(None, dev)
+        steps = chunk * math.ceil(res_sh.nit / chunk)  # the solver runs whole chunks
+        log(
+            f"phase 15b [{card}]: NCCL world of 1: feature-sharded Lasso.solve_fixed_step "
+            f"nit={res_sh.nit} status={res_sh.status} (unsharded {res.nit}, {res.status}); x "
+            f"bitwise equal: {np.array_equal(res_sh.x, res.x)}; kernel launches {launched} in "
+            f"{steps} steps run"
+        )
+        if res_sh.status != 1 or res_sh.nit != res.nit or not np.array_equal(res_sh.x, res.x):
+            raise AssertionError("phase 15b: the sharded solve differs from the unsharded one")
+        if launched != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0}:
+            raise AssertionError(f"phase 15b: launches {launched}, expected {steps} of fused_prox_momentum")
+        A_t = torch.as_tensor(A_np, device=dev)
+        lams = torch.linspace(0.005, 0.05, SWEEP15_LANES, dtype=torch.float32, device=dev)
+        sw_sh = sweep15(A_t, b, lams, lr, batch_sharding(mesh))
+        sw = sweep15(A_t, b, lams, lr)
+        log(
+            f"phase 15b: lambda sweep of {SWEEP15_LANES} lanes with in_sharding: nit "
+            f"{sw_sh.nit.tolist()}; bitwise the unsharded sweep: {same_batch(sw_sh, sw)}"
+        )
+        if not (sw_sh.success.all() and same_batch(sw_sh, sw)):
+            raise AssertionError("phase 15b: the sharded sweep differs from the unsharded one")
+    finally:
+        distributed.shutdown()
+    return dict(launches=launched["fused_prox_momentum"])
+
+
+def phase15c_rank(rank: int, port: int, lr: float, device: str, out) -> None:
+    """One of phase 15c's Gloo ranks on ``device`` (card 0): the headline
+    LASSO in float64 with its features over ``model=2``, and the lambda
+    sweep with its lanes over ``batch=2``; puts (rank, results) on
+    ``out``."""
+    warnings.simplefilter("ignore")
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.ops import fused
+    from zfista_tpu_torch.parallel import batch_sharding, distributed
+    from zfista_tpu_torch.parallel.sharding import P
+
+    dev = torch.device(device)
+    distributed.initialize(
+        f"localhost:{port}", GLOO_RANKS, rank,
+        local_device_ids=None if dev.index is None else [dev.index], backend="gloo",
+    )
+    try:
+        A_np, b_np = (v.astype(np.float64) for v in make_problem())
+        mesh = distributed.global_mesh(batch=1, model=GLOO_RANKS)
+        prob = Lasso(distributed.distribute_global(A_np, mesh, P(None, "model"), dev),
+                     torch.as_tensor(b_np, device=dev), LAM)
+        x0 = distributed.distribute_global(np.zeros(N), mesh, P("model"), dev)
+        zero(fused.launch_counts)  # the main-path solve starts here
+        res = prob.solve_fixed_step(x0, lr=lr)
+        torch.cuda.synchronize()
+        launched = dict(fused.launch_counts)  # ... and ends here
+        mesh_b = distributed.global_mesh(batch=GLOO_RANKS, model=1)
+        lams = torch.linspace(0.005, 0.05, SWEEP15_LANES, dtype=torch.float64, device=dev)
+        sw = sweep15(torch.as_tensor(A_np, device=dev), torch.as_tensor(b_np, device=dev), lams,
+                     lr, batch_sharding(mesh_b))
+        out.put((rank, dict(x=res.x, nit=res.nit, status=res.status, launched=launched,
+                            block=int(prob.A.shape[1]),
+                            sweep=dict(x=sw.x, nit=sw.nit, status=sw.status, state=tuple(sw.state)))))
+    finally:
+        distributed.shutdown()
+
+
+def phase15c(card: str, dev) -> dict:
+    """Two processes sharing the card over Gloo (NCCL refuses two ranks on
+    one device; Gloo takes CUDA tensors in all-reduce), in float64: the
+    feature-sharded headline LASSO in the m=1 class of the unsharded card
+    solve, and the lane-sharded sweep bitwise the unsharded sweep."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+
+    from zfista_tpu_torch.models import Lasso
+
+    A_np, b_np = (v.astype(np.float64) for v in make_problem())
+    b = torch.as_tensor(b_np, device=dev)
+    A = torch.as_tensor(A_np, device=dev)
+    lr = 1.0 / Lasso(A, b, LAM).lipschitz()
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [
+        ctx.Process(target=phase15c_rank, args=(r, port, lr, str(dev), out))
+        for r in range(GLOO_RANKS)
+    ]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + 600
+    try:
+        while len(ranks) < GLOO_RANKS:  # drained before the joins
+            try:
+                r, got = out.get(timeout=5.0)
+                ranks[r] = got
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 15c: a rank failed: {[p.exitcode for p in procs]}")
+        for p in procs:
+            p.join(timeout=300)
+            if p.exitcode != 0:
+                raise AssertionError(f"phase 15c: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ref = Lasso(A, b, LAM).solve_fixed_step(torch.zeros(N, dtype=torch.float64, device=dev), lr=lr)
+    lams = torch.linspace(0.005, 0.05, SWEEP15_LANES, dtype=torch.float64, device=dev)
+    sw = sweep15(A, b, lams, lr)
+    chunk = chunk_of(None, dev)
+    for r, got in sorted(ranks.items()):
+        dx = float(np.max(np.abs(got["x"] - ref.x)))
+        sw_got = got["sweep"]
+        differ = [k for k in ("x", "nit", "status") if not np.array_equal(sw_got[k], sw[k])] + [
+            name for name, a, c in zip(sw.state._fields, sw_got["state"], sw.state)
+            if not np.array_equal(a, c)
+        ]
+        steps = chunk * math.ceil(got["nit"] / chunk)  # the solver runs whole chunks
+        log(
+            f"phase 15c [{card}]: Gloo rank {r}/{GLOO_RANKS} on {dev}, float64: feature-sharded "
+            f"(block of {got['block']}) nit={got['nit']} status={got['status']} (unsharded {ref.nit}), "
+            f"max|x - x_unsharded| {dx!r} (bound {GLOO_XTOL}); kernel launches {got['launched']} in "
+            f"{steps} steps run; lane-sharded sweep nit {got['sweep']['nit'].tolist()}; fields not "
+            f"bitwise the unsharded sweep's: {differ}"
+        )
+        if got["status"] != 1 or got["nit"] != ref.nit or not dx <= GLOO_XTOL:
+            raise AssertionError(f"phase 15c: rank {r}'s sharded solve is outside the m=1 class")
+        if got["launched"] != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0}:
+            raise AssertionError(f"phase 15c: rank {r} launched {got['launched']}, expected {steps} "
+                                 "of fused_prox_momentum")
+        if differ:
+            raise AssertionError(f"phase 15c: rank {r}'s sharded sweep differs from the unsharded one")
+    return dict(launches=sum(g["launched"]["fused_prox_momentum"] for g in ranks.values()),
+                block=ranks[0]["block"])
+
+
+def phase15d(card: str) -> dict:
+    """``bench.scaling.weak_scaling((1,), device="cuda")`` at its defaults:
+    the 1-device row (one NCCL process)."""
+    from zfista_tpu_torch.bench import scaling
+
+    rows = scaling.weak_scaling((1,), device="cuda")
+    log(f"phase 15d [{card}]: weak_scaling((1,), device='cuda'):\n{scaling.format_table(rows)}\n{rows!r}")
+    if len(rows) != 1 or rows[0]["devices"] != 1 or not rows[0]["lane_iters_per_s"] > 0:
+        raise AssertionError(f"phase 15d: rows {rows}")
+    return rows[0]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -2572,13 +2904,13 @@ def main() -> None:
             f"{BYTES_PER_ITER / 1e6:.0f} MB/iter"
         )
 
-    kern_ms: dict[str, dict[int, tuple[float, float]]] = {k: {} for k in LASSO_KERNELS}
-    for n in (N, WL_SIDE**2, 10_000_000):
-        y, g, x = (torch.randn(n, device=dev) for _ in range(3))
-        tail_kw = step_tail_cases(y, g, x, torch.float32, dev)["active"]
+    kern_ms: dict[str, dict[tuple, tuple[float, float]]] = {k: {} for k in LASSO_KERNELS}
+    for n, dtype in KERNEL_TIME_SIZES:
+        y, g, x = (torch.randn(n, device=dev, dtype=dtype) for _ in range(3))
+        tail_kw = step_tail_cases(y, g, x, dtype, dev)["active"]
         scal = {
-            "fused_prox_momentum": [torch.tensor(v, device=dev) for v in (0.1, 0.05, 0.3)],
-            "fista_tail": [torch.tensor(v, device=dev) for v in (3.7, 0.1, 0.5)],
+            "fused_prox_momentum": [torch.tensor(v, device=dev, dtype=dtype) for v in (0.1, 0.05, 0.3)],
+            "fista_tail": [torch.tensor(v, device=dev, dtype=dtype) for v in (3.7, 0.1, 0.5)],
         }
         calls = {
             "fused_prox_momentum": (
@@ -2594,15 +2926,16 @@ def main() -> None:
                 lambda: fused.lasso_step_tail_plain(**tail_kw),
             ),
         }
-        reps = 500 if n == N else 100
+        reps = 500 if n <= N else 100
+        width = torch.finfo(dtype).bits // 8
         for name, (kernel, plain) in calls.items():
             k_ms = event_ms(kernel, reps)
             p_ms = event_ms(plain, reps, device_bound=False)
-            kern_ms[name][n] = (k_ms, p_ms)
+            kern_ms[name][n, dtype] = (k_ms, p_ms)
             log(
-                f"phase 5 [{smi}]: {name} f32 n={n}: kernel {k_ms * 1e3:.2f} us per call back "
-                f"to back ({20 * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at 20 B/elem), "
-                f"plain {p_ms * 1e3:.2f} us (host-bound)"
+                f"phase 5 [{smi}]: {name} {str(dtype)[6:]} n={n}: kernel {k_ms * 1e3:.2f} us per "
+                f"call back to back ({5 * width * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at "
+                f"{5 * width} B/elem), plain {p_ms * 1e3:.2f} us (host-bound)"
             )
 
     t0 = time.perf_counter()
@@ -2622,6 +2955,7 @@ def main() -> None:
     pooled: dict = {}
     walls: dict = {}
     card14: dict = {}
+    card15: dict = {}
     for n_phase, run in (
         ("14a", lambda: card14.update(phase14a(smi, dev))),
         ("14c", lambda: card14.update(phase14c(smi, dev))),
@@ -2653,10 +2987,19 @@ def main() -> None:
         ("12e", lambda: phase12e(smi, dev)),
         ("13f", lambda: phase13f(smi, dev, A, b, res.lr)),
         ("13g", lambda: phase13g(smi)),
+        ("15a", lambda: card15.update(a=phase15a(smi, dev))),
+        ("15b", lambda: card15.update(b=phase15b(smi, dev, A_np, b_np, res.lr))),
+        ("15c", lambda: card15.update(c=phase15c(smi, dev))),
+        ("15d", lambda: card15.update(d=phase15d(smi))),
     ):
         t0 = time.perf_counter()
         run()
         log(f"phase {n_phase} [{smi}]: done in {time.perf_counter() - t0:.1f} s")
+
+    def bound_ms(n: int, dtype: torch.dtype) -> float:
+        # y, g, x read and x, y written once (the 0-d scalars and flags add
+        # under 100 bytes).
+        return 1e3 * 5 * n * (torch.finfo(dtype).bits // 8) / PEAK_BYTES_PER_S
 
     kernels = [
         {
@@ -2665,12 +3008,13 @@ def main() -> None:
             "source": KERNEL_SOURCE,
             "replaces": replaces,
             "launches": lasso_launches[name],
-            "max_abs_err": max(lasso_err[name], step_err if name == "fista_tail" else 0.0),
-            "ms": kern_ms[name][N][0],
-            "plain_ms": kern_ms[name][N][1],
-            # y, g, x read and x, y written once, float32 (the 0-d scalars
-            # and flags add under 100 bytes).
-            "bound_ms": 1e3 * 5 * N * 4 / PEAK_BYTES_PER_S,
+            "max_abs_err": max(
+                lasso_err[name],
+                max(step_err, card15["a"]["step_err"]) if name == "fista_tail" else 0.0,
+            ),
+            "ms": kern_ms[name][N, torch.float32][0],
+            "plain_ms": kern_ms[name][N, torch.float32][1],
+            "bound_ms": bound_ms(N, torch.float32),
             "bound_by": "bytes",
             # No single PyTorch call computes the soft-threshold and the
             # momentum step together, let alone the step's tail.
@@ -2678,25 +3022,44 @@ def main() -> None:
         }
         for name, replaces in LASSO_KERNELS.items()
     ]
-    # The step tail runs on three main paths: its launches are their sum,
-    # and each path's time and bound stand at that path's n.
-    tail = next(k for k in kernels if k["name"] == "lasso_step_tail")
-    tail["by_path"] = [
-        {
-            "path": path,
-            "n": n,
-            "launches": launched,
-            "ms": kern_ms["lasso_step_tail"][n][0],
-            "plain_ms": kern_ms["lasso_step_tail"][n][1],
-            "bound_ms": 1e3 * 5 * n * 4 / PEAK_BYTES_PER_S,
-        }
-        for path, n, launched in (
-            ("Lasso.solve_fixed_step (phase 4)", N, lasso_launches["lasso_step_tail"]),
-            ("WaveletDeblur.solve (phase 14a)", WL_SIDE**2, card14["wl_launches"]),
-            ("SparseLogistic.solve fixed step (phase 14c)", N, card14["logistic_launches"]),
-        )
-    ]
-    tail["launches"] = sum(p["launches"] for p in tail["by_path"])
+    # An entry that runs on several main paths: its launches are their
+    # sum, and each path's time and bound stand at that path's n and dtype.
+    by_path = {
+        "lasso_step_tail": (
+            ("Lasso.solve_fixed_step (phase 4)", N, torch.float32, lasso_launches["lasso_step_tail"]),
+            ("WaveletDeblur.solve (phase 14a)", WL_SIDE**2, torch.float32, card14["wl_launches"]),
+            ("SparseLogistic.solve fixed step (phase 14c)", N, torch.float32,
+             card14["logistic_launches"]),
+        ),
+        "fused_prox_momentum": (
+            ("Lasso.solve_fixed_step with tol_rel (phase 4)", N, torch.float32,
+             lasso_launches["fused_prox_momentum"]),
+            ("feature-sharded Lasso.solve_fixed_step, NCCL world of 1 (phase 15b)", N,
+             torch.float32, card15["b"]["launches"]),
+            (f"feature-sharded Lasso.solve_fixed_step, {GLOO_RANKS} Gloo ranks on one card, "
+             "a rank's block, both ranks' launches (phase 15c)", card15["c"]["block"],
+             torch.float64, card15["c"]["launches"]),
+        ),
+        "fista_tail": (
+            ("raw fista_step_dense_fused loop (phase 5)", N, torch.float32, lasso_launches["fista_tail"]),
+            ("examples.large_lasso, warm-up and timed run (phase 15a)", LARGE_N, torch.float32,
+             card15["a"]["launches"]),
+        ),
+    }
+    for k in kernels:
+        k["by_path"] = [
+            {
+                "path": path,
+                "n": n,
+                "dtype": str(dtype)[6:],
+                "launches": launched,
+                "ms": kern_ms[k["name"]][n, dtype][0],
+                "plain_ms": kern_ms[k["name"]][n, dtype][1],
+                "bound_ms": bound_ms(n, dtype),
+            }
+            for path, n, dtype, launched in by_path[k["name"]]
+        ]
+        k["launches"] = sum(p["launches"] for p in k["by_path"])
     for name, (source, replaces) in TV_KERNELS.items():
         # Each kernel's time at the size and n_iter its main-path run used.
         n, n_iter = tv_runs[name]

@@ -33,6 +33,7 @@ from zfista_tpu_torch import minimize_proximal_gradient as t_single
 from zfista_tpu_torch.core.solver import State
 from zfista_tpu_torch.models import lasso as tl
 from zfista_tpu_torch.parallel import batch as tb
+from zfista_tpu_torch.parallel.sharding import batch_sharding, feature_sharding, make_mesh
 
 F64 = torch.float64
 TOY_A = np.array([[1.0], [0.0], [0.0]])
@@ -152,6 +153,42 @@ def test_lambda_sweep_with_batch_params():
         *fns, torch.zeros((4, 1), dtype=F64), batch_params=lams, **kw
     )
     np.testing.assert_array_equal(rn.x, rt.x)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 1000])
+def test_lane_sum_is_a_fixed_tree(n):
+    """``precision.lane_sum`` adds pairs of halves of the zero-padded
+    vector, so a lane's sum is the same whether it runs alone or beside
+    others, and agrees with ``torch.sum`` to rounding."""
+    from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, sum_hp
+
+    V = torch.as_tensor(np.random.default_rng(n).standard_normal((16, n)))
+    padded = torch.nn.functional.pad(V[5], (0, (1 << (n - 1).bit_length()) - n)).tolist()
+    while len(padded) > 1:
+        h = len(padded) // 2
+        padded = [u + v for u, v in zip(padded[:h], padded[h:])]
+    assert lane_sum(V[5]).item() == padded[0]
+    for fn in (sum_hp, lambda v: dot_hp(v, v)):
+        many, few = torch.func.vmap(fn)(V), torch.func.vmap(fn)(V[5:7])
+        assert torch.equal(many[5:7], few)
+    np.testing.assert_allclose(torch.func.vmap(sum_hp)(V), V.sum(1), rtol=1e-13, atol=1e-13)
+    np.testing.assert_array_equal(lane_sum(V.T, dim=0), lane_sum(V))
+
+
+def test_sweep_lanes_do_not_depend_on_the_lane_count():
+    """Every per-lane field of a backtracking λ sweep, its objective and
+    model value too, is bitwise the same for a lane solved among 16 or
+    among 4: the lane-sharded batch's contract."""
+    A, b, _ = _dense(seed=3, m=24, n=40)
+    fns = tl.make_lasso_lambda_sweep(A, b, device="cpu")
+    lams = np.linspace(0.01, 0.3, 16)
+    kw = dict(lr=1.0, decay_rate=0.5, nesterov=True, max_iter=300)
+    many = tb.minimize_proximal_gradient_batch(*fns, np.zeros((16, 40)), batch_params=lams,
+                                               device="cpu", **kw)
+    few = tb.minimize_proximal_gradient_batch(*fns, np.zeros((4, 40)), batch_params=lams[8:12],
+                                              device="cpu", **kw)
+    for name, u, v in zip(State._fields, many.state, few.state):
+        np.testing.assert_array_equal(u[8:12], v, err_msg=name)
 
 
 def test_elastic_net_and_group_lasso_sweeps_match_jax():
@@ -305,8 +342,14 @@ def test_validations_and_unported_sharding():
             tb.minimize_proximal_gradient_batch(*args, lr=0.4, **kw)
     with pytest.raises(ValueError, match="x0s must be"):
         tb.minimize_proximal_gradient_batch(*_fns(T_TOY), torch.zeros(3, dtype=F64))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # in_sharding takes a lane placement of a mesh, and no lane_chunk.
+    mesh = make_mesh()
+    with pytest.raises(TypeError, match="in_sharding"):
         tb.minimize_proximal_gradient_batch(*args, in_sharding=object())
+    with pytest.raises(ValueError, match="'batch' axis"):
+        tb.minimize_proximal_gradient_batch(*args, in_sharding=feature_sharding(mesh))
+    with pytest.raises(ValueError, match="lane_chunk cannot be combined"):
+        tb.minimize_proximal_gradient_batch(*args, in_sharding=batch_sharding(mesh), lane_chunk=8)
     with pytest.warns(UserWarning, match="iter_chunk"):
         tb.minimize_proximal_gradient_batch(*args, lr=0.4, iter_chunk=64, check_every=8, max_iter=64)
     with pytest.warns(UserWarning, match="history=True"):

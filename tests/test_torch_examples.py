@@ -91,3 +91,54 @@ def test_benches_need_a_card(tmp_path, bench):
     assert r.returncode == 1
     assert "no CUDA device" in r.stderr
     assert r.stdout == ""
+
+
+def test_large_lasso(tmp_path):
+    """The n = 10⁶ example at a tiny size: one JSON line with the JAX
+    script's keys (``warmup_s`` for ``compile_s``, and the device); its
+    steps are the plain torch loop's, bitwise, and the JAX package's
+    ``fista_step_dense`` loop's within 1e-10 in float64."""
+    import json
+
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from zfista_tpu.models.lasso import fista_step_dense as j_step
+    from zfista_tpu_torch.examples import large_lasso
+    from zfista_tpu_torch.models.lasso import fista_step_dense as t_step
+
+    r = _run("zfista_tpu_torch.examples.large_lasso",
+             ["--device", "cpu", "--n", "4096", "--m", "64", "--iters", "5"], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert set(rec) == {"metric", "n", "m", "model_shards", "value", "unit", "achieved_GBps",
+                        "warmup_s", "final_obj", "device"}
+    assert (rec["metric"], rec["n"], rec["m"], rec["model_shards"], rec["unit"], rec["device"]) == (
+        "large_lasso_iterations_per_s", 4096, 64, 1, "iter/s", "cpu")
+    assert np.isfinite(rec["final_obj"]) and rec["value"] > 0
+    assert _files(tmp_path) == []
+
+    # A spans several generator blocks (3 at n = 20,000).
+    A, b = large_lasso.build_operator(64, 20_000, 0, None, "cpu", torch.float64)
+    lr_v = 1.0 / float(2 * np.linalg.norm(A.numpy(), 2) ** 2)
+    lam, lr = torch.tensor(0.01, dtype=torch.float64), torch.tensor(lr_v, dtype=torch.float64)
+    x0 = torch.zeros(20_000, dtype=torch.float64)
+    x, y, t = large_lasso.iterate(A, b, lam, lr, x0, 5)
+    c = (x0, x0, torch.ones((), dtype=torch.float64))
+    for _ in range(5):
+        c = t_step(A, b, lam, lr, c)
+    assert torch.equal(x, c[0]) and torch.equal(y, c[1]) and torch.equal(t, c[2])
+    jA, jb = jnp.asarray(A.numpy()), jnp.asarray(b.numpy())
+    jc = (jnp.zeros(20_000), jnp.zeros(20_000), jnp.ones(()))
+    for _ in range(5):
+        jc = j_step(jA, jb, jnp.asarray(0.01), jnp.asarray(lr_v), jc)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jc[0]), rtol=0, atol=1e-10)
+    # Every shard count holds the same A: a block is the same columns.
+    from zfista_tpu_torch.parallel.sharding import make_mesh, operator_sharding
+
+    A1, _ = large_lasso.build_operator(64, 20_000, 0, operator_sharding(make_mesh()), "cpu",
+                                       torch.float64)
+    assert torch.equal(A1, A)

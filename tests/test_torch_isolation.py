@@ -13,7 +13,8 @@ import torch
 from zfista_tpu_torch import interop
 from zfista_tpu_torch.core import solver
 from zfista_tpu_torch.models import deblur, lasso
-from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
+from zfista_tpu_torch.parallel import distributed, minimize_proximal_gradient_batch
+from zfista_tpu_torch.parallel.sharding import P, make_mesh
 from zfista_tpu_torch.ops import precision
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -48,6 +49,8 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch.examples, zfista_tpu_torch.examples.cameraman_deblur\n"
         "import zfista_tpu_torch.examples.tv_deblur, zfista_tpu_torch.examples.optimality_gap\n"
         "import zfista_tpu_torch.examples.momentum_experiment\n"
+        "import zfista_tpu_torch.parallel.sharding, zfista_tpu_torch.parallel.distributed\n"
+        "import zfista_tpu_torch.bench.scaling, zfista_tpu_torch.examples.large_lasso\n"
         "assert zfista_tpu_torch.native.load() is not None\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
@@ -123,6 +126,9 @@ _CARD_BY_DEFAULT = {
     "make_group_lasso_lambda_sweep": lambda **kw: lasso.make_group_lasso_lambda_sweep(
         np.eye(2), np.ones(2), 2, **kw
     )[0](torch.zeros(2, dtype=torch.float64), 0.1),
+    "distribute_global": lambda **kw: distributed.distribute_global(
+        np.ones(2), make_mesh(), P("model"), **kw
+    ),
 }
 
 

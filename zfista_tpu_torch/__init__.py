@@ -18,8 +18,11 @@ many starts, λ values or momentum pairs as one lane-batched solve), and
 the experiment layer: Pareto metrics (:mod:`zfista_tpu_torch.metrics`),
 the benchmark harness and its CLI, the momentum sweep, the wall-to-gap
 and restart benches (:mod:`zfista_tpu_torch.bench`), checkpoints and
-profiling (:mod:`zfista_tpu_torch.utils`).  See ROADMAP.md for what is
-next.
+profiling (:mod:`zfista_tpu_torch.utils`), and scale-out on
+``torch.distributed`` (:mod:`zfista_tpu_torch.parallel.distributed`, the
+mesh placements of :mod:`zfista_tpu_torch.parallel.sharding`: lane-sharded
+batches, the feature-sharded LASSO, the weak-scaling bench and the
+n = 10⁶ LASSO example).  See ROADMAP.md for what is next.
 """
 
 from zfista_tpu_torch.core.options import SolverOptions

@@ -37,6 +37,16 @@ convergence test, the counters and the chunk loop's mask.  With
 ``tol_rel`` or ``warm_start`` the kernel computes the prox and the
 extrapolation (:func:`zfista_tpu_torch.ops.fused.fused_prox_momentum`) and
 the rest of the tail runs as eager launches.
+
+A start ``x0`` that is this rank's block of a feature-sharded iterate
+(tagged by :mod:`zfista_tpu_torch.parallel.sharding`, as
+``Lasso.solve_fixed_step`` lays it out from its operator) makes the solve
+feature-sharded: the problem callables reduce over the ``"model"`` ranks
+themselves, the step all-reduces its convergence test (``max|x − y|``,
+NaN carried) and its other sums over features, and the facade returns the
+whole ``x`` on every rank.  Such a step takes the composed tail around
+``fused_prox_momentum``: the one-launch tail decides convergence inside
+the kernel from a block's max, and ranks would stop on different steps.
 """
 
 from __future__ import annotations
@@ -130,9 +140,15 @@ def _make_step(
     project_momentum: bool = False,
     track_objective: bool = True,
     max_iter: int | None = None,
+    feature_sum: Callable[[Array], Array] | None = None,
+    feature_max: Callable[[Array], Array] | None = None,
 ) -> Callable[[State], State]:
     """Build the outer-iteration step, as the JAX ``_make_step`` (all
     options fixed at build time).
+
+    ``feature_sum``/``feature_max`` (a feature-sharded solve; both or
+    neither) all-reduce a sum or a NaN-carrying max over features across
+    the ranks: the step's iterates are feature blocks, its scalars whole.
 
     ``track_objective=False`` (legal only for single-objective fixed-step
     solves with no history or verbose consumer) skips ``F(x) = f(x) +
@@ -145,6 +161,8 @@ def _make_step(
     chunk loop runs it without :func:`_masked`.
     """
     m = n_objectives
+    sharded = feature_sum is not None
+    fsum = feature_sum if sharded else _identity
     solve_sub = make_subproblem_solver(
         g,
         prox_wsum_g,
@@ -152,6 +170,7 @@ def _make_step(
         tol=tol_internal,
         max_iter=max_iter_internal,
         deprecated=deprecated,
+        feature_sum=feature_sum,
     )
     fixed_lr = decay_rate == 1
     a, b = nesterov_ratio
@@ -166,9 +185,10 @@ def _make_step(
         and not project_momentum
     )
     # The whole tail in one launch, for the options the kernel takes; with
-    # the others the fused branch below composes the tail around the
-    # kernel's prox and extrapolation.
-    fused_tail = fused and not tol_rel and not warm_start
+    # the others, and on feature blocks (whose convergence test needs the
+    # max over every rank), the fused branch below composes the tail
+    # around the kernel's prox and extrapolation.
+    fused_tail = fused and not tol_rel and not warm_start and not sharded
     # The only step that needs no f(y): the closed-form fixed-lr m == 1
     # step that skips the model value.
     need_f_y = not (fixed_lr and m == 1 and not track_objective)
@@ -247,10 +267,17 @@ def _make_step(
             ls = line_search(state, f_y, jac_y)
 
         err = torch.amax(torch.abs(ls.x - state.y))
+        x_max = torch.amax(torch.abs(ls.x)) if tol_rel else None
+        if sharded:
+            # One all-reduce per step: every rank stops on the same step.
+            if tol_rel:
+                err, x_max = feature_max(torch.stack([err, x_max]))
+            else:
+                err = feature_max(err)
         if tol_rel:
             # Opt-in iterate-scaled criterion: ||x - y||_inf < tol +
             # tol_rel * ||x||_inf (0 compiles to the reference test).
-            converged_now = err < tol + tol_rel * torch.amax(torch.abs(ls.x))
+            converged_now = err < tol + tol_rel * x_max
         else:
             converged_now = err < tol
         nit_internal = state.nit_internal + ls.nits
@@ -273,7 +300,7 @@ def _make_step(
             if adaptive_restart:
                 # O'Donoghue & Candes gradient-scheme restart: reset the
                 # momentum when the step opposes the previous direction.
-                osc = dot_hp(state.y - ls.x, ls.x - state.x) > 0
+                osc = fsum(dot_hp(state.y - ls.x, ls.x - state.x)) > 0
                 t_k = torch.where(osc, torch.ones_like(t_k), t_k)
             t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
             gamma = (t_k - 1) / t_new
@@ -473,6 +500,10 @@ def _make_batch_step(
 
     step.masks_itself = True
     return step
+
+
+def _identity(v: Any) -> Any:
+    return v
 
 
 def _print_row(state: State, max_iter, nit, nit_internal, err, ls: _LS) -> None:
@@ -682,6 +713,22 @@ def data_device(device: Any) -> torch.device:
     return dev
 
 
+def _feature_placement(x0: Any):
+    """The feature sharding ``x0`` is a block of (None: ``x0`` is whole)."""
+    if not isinstance(x0, torch.Tensor):
+        return None
+    # Imported here: the parallel package imports this module.
+    from zfista_tpu_torch.parallel.sharding import sharding_of
+
+    sh = sharding_of(x0)
+    if sh is not None and (sh.dim != "model" or x0.dim() != 1):
+        raise ValueError(
+            f"a single solve starts from a whole x0 or a block laid out by "
+            f"feature_sharding (P('model')); got {sh.spec!r}, shape {tuple(x0.shape)}"
+        )
+    return sh
+
+
 def _solve_device(x0: Any, params: Any, device: Any) -> torch.device:
     """The solve's device, from the tensors passed in: ``x0``'s if it is a
     tensor, else that of the first tensor in ``params``, else ``device``."""
@@ -739,7 +786,11 @@ def minimize_proximal_gradient(
     else on that of the first tensor in ``params``, else on ``device``
     (default ``"cuda"``; a machine with no card raises, and
     ``device="cpu"`` asks for the CPU); every tensor of the solve stays
-    there.
+    there.  An ``x0`` tagged as a block of a feature-sharded iterate
+    (``parallel.sharding.feature_sharding``) makes a feature-sharded
+    single-objective solve (see the module note; the callables reduce over
+    the ranks themselves); ``initial_state`` then holds whole iterates, as
+    the result does.
 
     Options, as in the JAX package: backtracking (``decay_rate < 1``) or a
     fixed step (``decay_rate == 1``), ``max_backtrack_iter``,
@@ -785,12 +836,28 @@ def minimize_proximal_gradient(
     start = _time.perf_counter()
 
     dev = _solve_device(x0, params, device)
+    fsh = _feature_placement(x0)
     x0 = torch.as_tensor(x0, device=dev)
     if not x0.is_floating_point():
         x0 = x0.to(torch.get_default_dtype())
-    # The host copy of x0 for the result, taken before the device does
-    # any work (a faulted solve must not read the device again).
-    x0_res = x0.detach().cpu().numpy().copy()
+    feature_sum = feature_max = None
+    to_host = state_to_numpy
+    if fsh is not None:
+        from zfista_tpu_torch.parallel import sharding as shd
+
+        group = fsh.group
+        feature_sum = lambda v: shd.all_reduce_sum(v, group)
+        feature_max = lambda v: shd.all_reduce_max(v, group)
+
+        def to_host(s: State) -> State:
+            # The whole iterates on every rank (JAX: _device_get_global).
+            return state_to_numpy(s._replace(x=shd.gather(s.x, fsh), y=shd.gather(s.y, fsh)))
+
+        x0_res = shd.gather(x0, fsh).cpu().numpy()
+    else:
+        # The host copy of x0 for the result, taken before the device does
+        # any work (a faulted solve must not read the device again).
+        x0_res = x0.detach().cpu().numpy().copy()
     if params is not None:
         f_b, g_b, jac_b, prox_b = _bind_params(f, g, jac_f, prox_wsum_g, params)
     else:
@@ -798,6 +865,11 @@ def minimize_proximal_gradient(
     f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
         f_b, g_b, jac_b, prox_b, x0
     )
+    if fsh is not None and m != 1:
+        raise NotImplementedError(
+            "a feature-sharded solve takes one objective (the LASSO family); "
+            f"this problem has {m}"
+        )
 
     if check_every is None:
         # The JAX rule with "device is CUDA" for "backend is TPU": chunking
@@ -852,6 +924,8 @@ def minimize_proximal_gradient(
         project_momentum=bool(project_momentum),
         track_objective=not skip_F,
         max_iter=max_iter,
+        feature_sum=feature_sum,
+        feature_max=feature_max,
     )
 
     if verbose:
@@ -862,6 +936,8 @@ def minimize_proximal_gradient(
 
     if initial_state is not None:
         state = State(*(_to_device(v, dev) for v in initial_state))
+        if fsh is not None:
+            state = state._replace(x=shd.block(state.x, fsh), y=shd.block(state.y, fsh))
     else:
         lr_t = torch.as_tensor(lr, dtype=x0.dtype, device=dev)
         state = init_state(x0, f_v(x0) + g_v(x0), m, lr_t)
@@ -882,9 +958,11 @@ def minimize_proximal_gradient(
             chunk = min(chunk, int(iter_chunk))
         # The history head: the resume iterate on a resumed solve, so that
         # allvecs[k] and allfuns[k] stay paired.
-        head_x = x0_res if initial_state is None else state.x.cpu().numpy()
+        head_x = x0_res if initial_state is None else to_host(state).x
         head_F = state.F_x.cpu().numpy()
         state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
+        if fsh is not None and xs:
+            xs = list(shd.gather_numpy(np.stack(xs), fsh, dev, axis=1))
         allvecs = [head_x] + xs
         allfuns_arr = [head_F] + fs
         if scalar_mode:
@@ -897,12 +975,12 @@ def minimize_proximal_gradient(
         # bitwise the while driver's.  The host copy taken after each good
         # chunk is the partial result if the device faults in the next.
         masked = _chunk_body(step, lambda s: _active(s, max_iter))
-        host = state_to_numpy(state)
+        host = to_host(state)
         while bool(_active(host, max_iter)):
             try:
                 for _ in range(iter_chunk):
                     state = masked(state)
-                host = state_to_numpy(state)
+                host = to_host(state)
             except torch.AcceleratorError as exc:  # how CUDA faults surface
                 warnings.warn(
                     f"device fault after {int(host.nit)} iterations — "
@@ -925,7 +1003,7 @@ def minimize_proximal_gradient(
         if skip_F:
             # The step skips F (see _make_step): recompute it once at the end.
             state = state._replace(F_x=f_v(state.x) + g_v(state.x))
-        host = state_to_numpy(state)
+        host = to_host(state)
     elapsed = _time.perf_counter() - start
 
     fun = host.F_x[0] if scalar_mode else host.F_x

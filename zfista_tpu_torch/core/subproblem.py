@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from zfista_tpu_torch._typing import Array
-from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp
+from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, matmul_hp, sum_hp
 from zfista_tpu_torch.ops.prox import project_simplex
 
 _DOT = matmul_hp
@@ -169,9 +169,16 @@ def make_subproblem_solver(
     tol: float,
     max_iter: int,
     deprecated: bool = False,
+    feature_sum: Callable[[Array], Array] | None = None,
 ) -> Callable[..., SubproblemResult]:
-    """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult``."""
+    """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult``.
+
+    ``feature_sum`` (m == 1 only) all-reduces the model value's sums over
+    features across the ranks of a feature-sharded solve."""
     m = n_objectives
+    if feature_sum is not None and m != 1:
+        raise NotImplementedError("a feature-sharded subproblem takes one objective")
+    fsum = feature_sum if feature_sum is not None else (lambda v: v)
 
     if m == 1:
 
@@ -185,7 +192,7 @@ def make_subproblem_solver(
             fun = None
             if f_y is not None:
                 d = x - y
-                fun = _VDOT(grad, d) + g(x)[0] + _VDOT(d, d) / (2 * lr)
+                fun = fsum(_VDOT(grad, d)) + g(x)[0] + fsum(_VDOT(d, d)) / (2 * lr)
                 if not deprecated:
                     fun = fun + (f_y[0] - F_old[0])
             return SubproblemResult(x=x, fun=fun, weight=ones, nit=1)
@@ -251,7 +258,7 @@ def make_subproblem_solver(
         zero1 = torch.zeros((1,), dtype=dtype, device=dev)
 
         # Gradient-mapping scale: trace(J Jᵀ) >= lambda_max, no eigensolver.
-        lam_bound = torch.sum(jac_f_y * jac_f_y)
+        lam_bound = sum_hp(jac_f_y * jac_f_y)
         Ls = torch.clamp_min(lr * lam_bound, 1.0)
 
         w = project_simplex(w0.to(dtype))
@@ -475,7 +482,7 @@ def make_batch_subproblem_solver(
         eye = torch.eye(m, dtype=dtype, device=dev)
         zero1 = torch.zeros((B, 1), dtype=dtype, device=dev)
 
-        lam_bound = torch.sum(jac_f_y * jac_f_y, dim=(-2, -1))
+        lam_bound = lane_sum((jac_f_y * jac_f_y).flatten(1))
         Ls = torch.clamp_min(lr * lam_bound, 1.0)
 
         w = project_simplex(w0.to(dtype))

@@ -12,6 +12,15 @@ PyTorch-port counterpart of :mod:`zfista_tpu.models.lasso`:
 
 The Lipschitz constant of ``∇f`` is ``2·λ_max(AᵀA)``, estimated by power
 iteration (matvec-only).
+
+Feature sharding (the JAX package's GSPMD ``P(None, "model")`` operator):
+``Lasso``, its params callables, :func:`operator_norm_sq` and
+:func:`fista_step_dense` take ``A`` as this rank's column block, laid out
+by :func:`~zfista_tpu_torch.parallel.sharding.operator_sharding`, and ``x``
+as the matching feature block.  ``A_loc @ x_loc`` is all-reduced over the
+``"model"`` ranks, so the residual ``r`` (``m`` is small) is whole on every
+rank; ``Aᵀ r`` and the prox are local, and every sum over features (the ℓ1
+and ℓ2 terms, the power iteration's norms) is all-reduced.
 """
 
 from __future__ import annotations
@@ -24,10 +33,36 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.base import Problem
-from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp
+from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp, sum_hp
 from zfista_tpu_torch.ops.prox import prox_group_lasso, soft_threshold
+from zfista_tpu_torch.parallel.sharding import (
+    all_reduce_sum,
+    block,
+    feature_sharding,
+    feature_sum,
+    sharding_of,
+    tag,
+)
 
 _DOT = matmul_hp
+
+
+def _operator(A: Array) -> Array:
+    """``A`` as a LASSO operator: whole, or a column block laid out by
+    ``operator_sharding`` (which keeps its tag)."""
+    sh = sharding_of(A)
+    if not A.is_floating_point():
+        # An integer A would truncate the λ/μ scalars packed with it
+        # into the params tuple (a silently unregularized solve).
+        A = A.to(torch.get_default_dtype())
+        if sh is not None:
+            tag(A, sh)
+    if sh is not None and (sh.dim, sh.axis) != ("model", 1):
+        raise ValueError(
+            f"a LASSO operator is whole or laid out by operator_sharding "
+            f"(P(None, 'model')); got {sh.spec!r}"
+        )
+    return A
 
 
 def operator_norm_sq(
@@ -38,35 +73,74 @@ def operator_norm_sq(
     The start vector is drawn from ``generator`` (default: a fresh one on
     ``A``'s device seeded with 0).  It cannot reproduce the JAX package's
     ``PRNGKey`` bits, so the two packages' estimates agree only to the
-    power iteration's accuracy.
+    power iteration's accuracy.  A column block of a feature-sharded ``A``
+    draws the whole start vector and keeps its block, so the estimate is
+    the unsharded one to rounding.
     """
     if generator is None:
         generator = torch.Generator(device=A.device).manual_seed(0)
+    sh = sharding_of(A)
+    k = 1 if sh is None else sh.mesh.size("model")
     v = torch.randn(
-        A.shape[1], generator=generator, dtype=A.dtype, device=A.device
+        A.shape[1] * k, generator=generator, dtype=A.dtype, device=A.device
     )
-    v = v / torch.linalg.vector_norm(v)
+    if sh is not None:
+        v = block(v, feature_sharding(sh.mesh))
+
+    def norm(u):
+        if sh is None or sh.group is None:
+            return torch.linalg.vector_norm(u)
+        return torch.sqrt(all_reduce_sum(dot_hp(u, u), sh.group))
+
+    def normal(u):
+        return _DOT(A.T, feature_sum(A, _DOT(A, u)))
+
+    v = v / norm(v)
     for _ in range(n_iter):
-        w = _DOT(A.T, _DOT(A, v))
-        v = w / torch.clamp_min(torch.linalg.vector_norm(w), 1e-30)
-    w = _DOT(A.T, _DOT(A, v))
-    return dot_hp(v, w)
+        w = normal(v)
+        v = w / torch.clamp_min(norm(w), 1e-30)
+    return feature_sum(A, dot_hp(v, normal(v)))
 
 
 class _OnOperator(Problem):
     """A problem on a dense operator ``A``: its solves start from ``x0``
     cast to ``A``'s dtype and moved to its device."""
 
+    def _start(self, x0) -> Array:
+        """``x0`` cast to ``A``'s dtype on its device; with a feature-sharded
+        ``A``, this rank's feature block of it (``x0`` whole, or already the
+        block), tagged with the placement the solver reads."""
+        x = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
+        sh = sharding_of(self.A)
+        if sh is None:
+            return x
+        fsh = feature_sharding(sh.mesh)
+        if sharding_of(x0) is None:
+            x = block(x, fsh)
+        if x.shape != (self.A.shape[1],):
+            raise ValueError(
+                f"x0 of shape {tuple(x.shape)} is not the feature block "
+                f"({self.A.shape[1]},) of this rank"
+            )
+        return tag(x.view(x.shape), fsh)
+
     def minimize_proximal_gradient(self, x0, **kwargs):
-        """Solve from ``x0``, cast to ``A``'s dtype and moved to its device."""
-        x0 = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
-        return super().minimize_proximal_gradient(x0, **kwargs)
+        """Solve from ``x0``, cast to ``A``'s dtype and moved to its device
+        (feature-sharded ``A``: this rank's block of ``x0``, the whole
+        result on every rank)."""
+        return super().minimize_proximal_gradient(self._start(x0), **kwargs)
 
     solve = minimize_proximal_gradient
 
     def solve_batch(self, x0s, **kwargs):
         """Solve from every row of ``x0s``, cast to ``A``'s dtype and moved
         to its device, as one lane-batched solve."""
+        if sharding_of(self.A) is not None:
+            raise NotImplementedError(
+                "a lane batch on a feature-sharded operator is not ported "
+                "(ROADMAP.md Queue 1, item 10); shard the lanes instead "
+                "(in_sharding) with the operator whole"
+            )
         x0s = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
         return super().solve_batch(x0s, **kwargs)
 
@@ -80,7 +154,11 @@ class Lasso(_OnOperator):
     ``A`` and ``b`` may be tensors, which keep their device (a CPU tensor
     asks for the CPU), or numpy arrays, which go to ``device`` (default
     ``"cuda"``; a machine with no card raises).  The solve runs on ``A``'s
-    device.
+    device.  ``A`` may be this rank's column block of a feature-sharded
+    operator (``distribute_global(A, mesh, P(None, "model"))``), with ``b``
+    whole: every solve then runs on the feature blocks, with the
+    collectives of the module note, and returns the whole ``x`` on every
+    rank.
     """
 
     def __init__(
@@ -88,10 +166,7 @@ class Lasso(_OnOperator):
     ) -> None:
         if not isinstance(A, torch.Tensor):
             A = torch.as_tensor(np.asarray(A), device=data_device(device))
-        if not A.is_floating_point():
-            # An integer A would truncate the λ/μ scalars packed with it
-            # into the params tuple (a silently unregularized solve).
-            A = A.to(torch.get_default_dtype())
+        A = _operator(A)
         self.A = A
         self.b = torch.as_tensor(b, dtype=A.dtype, device=A.device)
         self.l1_ratio = float(l1_ratio)
@@ -103,20 +178,22 @@ class Lasso(_OnOperator):
         )
 
     def f(self, x: Array) -> Array:
-        r = _DOT(self.A, x) - self.b
+        r = feature_sum(self.A, _DOT(self.A, x)) - self.b
         val = dot_hp(r, r)
         if self.l2_ratio:
-            val = val + 0.5 * self.l2_ratio * dot_hp(x, x)
+            val = val + 0.5 * self.l2_ratio * feature_sum(self.A, dot_hp(x, x))
         return torch.reshape(val, (1,))
 
     def jac_f(self, x: Array) -> Array:
-        grad = 2 * _DOT(self.A.T, _DOT(self.A, x) - self.b)
+        grad = 2 * _DOT(self.A.T, feature_sum(self.A, _DOT(self.A, x)) - self.b)
         if self.l2_ratio:
             grad = grad + self.l2_ratio * x
         return torch.reshape(grad, (1, -1))
 
     def g(self, x: Array) -> Array:
-        return torch.reshape(self.l1_ratio * torch.sum(torch.abs(x)), (1,))
+        return torch.reshape(
+            self.l1_ratio * feature_sum(self.A, sum_hp(torch.abs(x))), (1,)
+        )
 
     def prox_wsum_g(self, weight, x: Array) -> Array:
         return soft_threshold(x, weight * self.l1_ratio)
@@ -159,9 +236,8 @@ class Lasso(_OnOperator):
             if self.l2_ratio:
                 p = p + (torch.tensor(self.l2_ratio, dtype=dt, device=dev),)
             self._params_cache = p
-        x0 = torch.as_tensor(x0, dtype=self.A.dtype, device=self.A.device)
         return minimize_proximal_gradient(
-            _lasso_f_p, _lasso_g_p, _lasso_jac_p, _lasso_prox_p, x0,
+            _lasso_f_p, _lasso_g_p, _lasso_jac_p, _lasso_prox_p, self._start(x0),
             params=p, **kwargs
         )
 
@@ -172,11 +248,19 @@ class GroupLasso(_OnOperator):
     :func:`~zfista_tpu_torch.ops.prox.prox_group_lasso`).
 
     ``A`` and ``b`` as in :class:`Lasso` (tensors keep their device, numpy
-    goes to ``device``); ``n_features`` must divide by ``group_size``.
+    goes to ``device``); ``n_features`` must divide by ``group_size``.  A
+    feature-sharded ``A`` raises: its group norms need blocks aligned to
+    the groups (not ported).
     """
 
     def __init__(self, A, b, l1_ratio: float, group_size: int, device: Any = "cuda") -> None:
         A, b = _operands(A, b, device)
+        if sharding_of(A) is not None:
+            raise NotImplementedError(
+                "GroupLasso on a feature-sharded operator (group norms need "
+                "blocks aligned to group_size) is not ported: ROADMAP.md "
+                "Queue 1, item 10"
+            )
         if not A.is_floating_point():
             A = A.to(torch.get_default_dtype())
         self.A = A
@@ -197,7 +281,7 @@ class GroupLasso(_OnOperator):
     def g(self, x: Array) -> Array:
         v = x.reshape(-1, self.group_size)
         return torch.reshape(
-            self.l1_ratio * torch.sum(torch.sqrt(torch.sum(v * v, dim=-1))), (1,)
+            self.l1_ratio * sum_hp(torch.sqrt(torch.sum(v * v, dim=-1))), (1,)
         )
 
     def prox_wsum_g(self, weight, x: Array) -> Array:
@@ -211,18 +295,19 @@ class GroupLasso(_OnOperator):
 # operand data — A, b, lambda (and mu for elastic net) — in the params
 # tuple ``p = (A, b, lam[, l2])``.  Pure-LASSO solves omit l2 and pay
 # nothing for the elastic-net terms.
+# A feature-sharded A (a column block) makes them reduce over its ranks.
 def _lasso_f_p(x, p):
     A, b = p[:2]
-    r = _DOT(A, x) - b
+    r = feature_sum(A, _DOT(A, x)) - b
     val = dot_hp(r, r)
     if len(p) > 3:
-        val = val + 0.5 * p[3] * dot_hp(x, x)
+        val = val + 0.5 * p[3] * feature_sum(A, dot_hp(x, x))
     return torch.reshape(val, (1,))
 
 
 def _lasso_jac_p(x, p):
     A, b = p[:2]
-    grad = 2 * _DOT(A.T, _DOT(A, x) - b)
+    grad = 2 * _DOT(A.T, feature_sum(A, _DOT(A, x)) - b)
     if len(p) > 3:
         grad = grad + p[3] * x
     return torch.reshape(grad, (1, -1))
@@ -230,7 +315,7 @@ def _lasso_jac_p(x, p):
 
 def _lasso_g_p(x, p):
     lam = p[2]
-    return torch.reshape(lam * torch.sum(torch.abs(x)), (1,))
+    return torch.reshape(lam * feature_sum(p[0], sum_hp(torch.abs(x))), (1,))
 
 
 def _lasso_prox_p(w, x, p):
@@ -284,7 +369,7 @@ def make_lasso_lambda_sweep(A, b, l2_ratio: float = 0.0, device: Any = "cuda"):
         return torch.reshape(grad, (1, -1))
 
     def g(x, lam):
-        return torch.reshape(lam * torch.sum(torch.abs(x)), (1,))
+        return torch.reshape(lam * sum_hp(torch.abs(x)), (1,))
 
     def prox(weight, x, lam):
         w = weight[0] if getattr(weight, "ndim", 0) else weight
@@ -313,7 +398,7 @@ def make_group_lasso_lambda_sweep(A, b, group_size: int, device: Any = "cuda"):
 
     def g(x, lam):
         v = x.reshape(-1, gs)
-        return torch.reshape(lam * torch.sum(torch.sqrt(torch.sum(v * v, dim=-1))), (1,))
+        return torch.reshape(lam * sum_hp(torch.sqrt(torch.sum(v * v, dim=-1))), (1,))
 
     def prox(weight, x, lam):
         w = weight[0] if getattr(weight, "ndim", 0) else weight
@@ -326,10 +411,12 @@ def fista_step_dense(A: Array, b: Array, lam: Array, lr: Array, carry):
     """One fixed-step FISTA iteration on dense LASSO, written as a plain
     function ``carry=(x, y, t) -> carry`` — the unfused step that
     :func:`zfista_tpu_torch.ops.fused.fista_step_dense_fused` replaces.
-    ``t`` is a 0-d tensor.
+    ``t`` is a 0-d tensor.  A feature-sharded ``A`` (a column block, with
+    ``x, y`` the feature blocks) all-reduces ``A @ y`` between the two
+    matvecs; the rest is local, ``t`` replicated.
     """
     x, y, t = carry
-    grad = 2 * _DOT(A.T, _DOT(A, y) - b)
+    grad = 2 * _DOT(A.T, feature_sum(A, _DOT(A, y)) - b)
     x_new = soft_threshold(y - lr * grad, lr * lam)
     t_new = torch.sqrt(t * t + 0.25) + 0.5
     y_new = x_new + ((t - 1) / t_new) * (x_new - x)

@@ -322,8 +322,15 @@ def fista_step_dense_fused(A: Array, b: Array, lam: Scalar, lr: Scalar, carry):
     and a drop-in for :func:`zfista_tpu_torch.models.lasso.fista_step_dense`.
 
     ``carry = (x, y, t)``; ``t``, ``lr`` and ``lam`` are 0-d tensors on
-    ``A``'s device, so a loop of steps never reads the device.
+    ``A``'s device, so a loop of steps never reads the device.  A
+    feature-sharded ``A`` (a column block, with ``x, y`` the feature
+    blocks) all-reduces ``A @ y`` between the two matvecs; the tail runs on
+    the local blocks, ``t`` replicated.
     """
+    # Imported here: the parallel package imports the solver, which imports
+    # this module.
+    from zfista_tpu_torch.parallel.sharding import feature_sum
+
     x, y, t = carry
-    grad = 2 * matmul_hp(A.T, matmul_hp(A, y) - b)
+    grad = 2 * matmul_hp(A.T, feature_sum(A, matmul_hp(A, y)) - b)
     return fista_tail(y, grad, x, t, lr, lam)

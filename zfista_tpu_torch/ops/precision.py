@@ -49,30 +49,65 @@ def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Under ``torch.func.vmap``, when each lane has its own matrix (or the
     operands are vectors), the product is a sum of elementwise products
-    instead: vmap would turn ``matmul`` into a batched cuBLAS call whose
-    kernel, and so its rounding, changes with the number of lanes, and a
-    lane's result must not depend on how many lanes run beside it.  A
-    shared matrix (one operator, many lanes) stays one GEMM."""
+    instead (:func:`lane_sum`): vmap would turn ``matmul`` into a batched
+    cuBLAS call whose kernel, and so its rounding, changes with the number
+    of lanes, and a lane's result must not depend on how many lanes run
+    beside it.  A shared matrix (one operator, many lanes) stays one GEMM."""
     _require_full_fp32()
     la, lb = _over_lanes(a), _over_lanes(b)
     shared_matrix = (a.dim() == 2 and not la) or (b.dim() == 2 and not lb)
     if (la or lb) and not shared_matrix and a.dim() <= 2 and b.dim() <= 2:
         if a.dim() == 1:
-            return torch.sum(a * b) if b.dim() == 1 else torch.sum(a[:, None] * b, dim=0)
+            return lane_sum(a * b) if b.dim() == 1 else lane_sum(a[:, None] * b, dim=0)
         if b.dim() == 1:
-            return torch.sum(a * b, dim=-1)
-        return torch.sum(a[:, :, None] * b[None, :, :], dim=1)
+            return lane_sum(a * b)
+        return lane_sum(a[:, :, None] * b[None, :, :], dim=1)
     return torch.matmul(a, b)
 
 
 def dot_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.dot`` in full precision (vector-vector); under
-    ``torch.func.vmap`` a sum of elementwise products (see
+    ``torch.func.vmap`` the :func:`lane_sum` of elementwise products (see
     :func:`matmul_hp`)."""
     _require_full_fp32()
     if _over_lanes(a) or _over_lanes(b):
-        return torch.sum(a * b)
+        return lane_sum(a * b)
     return torch.dot(a, b)
+
+
+def sum_hp(v: torch.Tensor) -> torch.Tensor:
+    """``torch.sum`` of every element; under ``torch.func.vmap`` the
+    :func:`lane_sum` of the flattened lane, so that the sum does not
+    depend on the number of lanes (see :func:`lane_sum`)."""
+    if _over_lanes(v):
+        return lane_sum(v.reshape(-1))
+    return torch.sum(v)
+
+
+def lane_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.sum(v, dim)`` in an order set by the length of ``dim``
+    alone: a pairwise tree of elementwise adds over ``v`` zero-padded to a
+    power of two.
+
+    A reduction kernel over a ``(lanes, n)`` tensor splits each row among
+    its threads and blocks by the number of rows (torch's CUDA reduction
+    does), so a lane's sum, and every decision it feeds, would change with
+    the number of lanes beside it: a lane-sharded batch would part from
+    the unsharded one.  An elementwise add rounds each element alone, so
+    every lane's tree is the same whatever the lane count or device.
+    ``log2(n)`` adds of halving width read about twice the bytes of one
+    reduction."""
+    v = v.movedim(dim, -1)
+    n = v.shape[-1]
+    if n == 0:
+        return torch.sum(v, dim=-1)
+    width = 1 << (n - 1).bit_length()
+    if width != n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while width > 1:
+        width //= 2
+        v = v[..., :width] + v[..., width:]
+    return v[..., 0]
 
 
 def conv2d_hp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

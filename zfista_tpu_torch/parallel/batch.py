@@ -28,10 +28,13 @@ Per-lane problem data (a λ sweep, per-lane operators) enters through
 ``batch_params``, passed as the callables' last argument, and per-lane
 momentum pairs through ``batch_nesterov_ratio``.  ``lane_chunk`` solves
 the batch in chunks of lanes and concatenates the results.
+``in_sharding`` (or a start batch that is a rank's lanes,
+:func:`zfista_tpu_torch.parallel.distributed.distribute_batch`) splits the
+lanes over the ``"batch"`` ranks of a mesh: each rank solves its own, as
+one chunk, and every rank returns the whole batch.
 
 Not ported: the TPU backend's width and depth auto-guards and the
-compiled-driver cache (eager PyTorch compiles nothing); ``in_sharding``
-belongs to the scale-out slice.
+compiled-driver cache (eager PyTorch compiles nothing).
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ from zfista_tpu_torch.core.solver import (
     _to_device,
     run_masked,
     state_to_numpy,
+)
+from zfista_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    all_reduce_max,
+    gather_numpy,
+    sharding_of,
 )
 
 #: Result fields carrying a leading lane axis — the lane_chunk merge's
@@ -345,6 +354,100 @@ def _lane_chunked_solve(
     return res
 
 
+def _sharded_solve(
+    f,
+    g,
+    jac_f,
+    prox_wsum_g,
+    x0s,
+    sharding: NamedSharding,
+    *,
+    batch_params,
+    batch_nesterov_ratio,
+    initial_states,
+    keep_state,
+    start,
+    solver_kwargs,
+) -> BatchResult:
+    """Solve this rank's lanes of the batch along the mesh's ``"batch"``
+    axis, through the same path as one chunk of :func:`_lane_chunked_solve`,
+    and gather every per-lane field over the ``"batch"`` ranks: every rank
+    returns the whole batch.  Lanes share nothing, so the lanes' results
+    are bitwise what the unsharded batch computes for them.
+
+    An input tagged as a rank's block (``distribute_batch``) is this rank's
+    lanes already; any other is the whole batch, of which the rank takes
+    its lanes.
+    """
+    if not isinstance(sharding, NamedSharding):
+        raise TypeError(
+            f"in_sharding is a placement of zfista_tpu_torch.parallel.sharding "
+            f"(batch_sharding(mesh)); got {type(sharding).__name__}"
+        )
+    if (sharding.dim, sharding.axis) != ("batch", 0):
+        raise ValueError(
+            f"in_sharding places lanes over the 'batch' axis (P('batch')); got {sharding.spec!r}"
+        )
+    mesh = sharding.mesh
+    k, i = mesh.size("batch"), mesh.index("batch")
+
+    def lanes(a):
+        if sharding_of(a) is not None:
+            return a.view(a.shape)
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+        if a.shape[0] % k:
+            raise ValueError(
+                f"a batch of {a.shape[0]} lanes does not divide over the "
+                f"mesh's {k} 'batch' ranks (pad upstream)"
+            )
+        n = a.shape[0] // k
+        return a[i * n : (i + 1) * n]
+
+    x0_loc = lanes(x0s)
+    params_loc = None if batch_params is None else _tree_map(lanes, batch_params)
+    part = minimize_proximal_gradient_batch(
+        f,
+        g,
+        jac_f,
+        prox_wsum_g,
+        x0_loc,
+        batch_params=params_loc,
+        batch_nesterov_ratio=(
+            None if batch_nesterov_ratio is None else lanes(batch_nesterov_ratio)
+        ),
+        initial_states=None if initial_states is None else _tree_map(lanes, initial_states),
+        keep_state=keep_state,
+        **solver_kwargs,
+    )
+    dev = x0_loc.device
+    hist_keys = {"allfuns", "allerrs", "history_mask", "allvecs"}
+    T = 0
+    if part.get("allfuns") is not None:
+        # Ranks stop at different step counts: pad to the longest
+        # (history_mask False), as the lane-chunk merge does.
+        T = int(all_reduce_max(
+            torch.tensor([float(np.asarray(part.allfuns).shape[1])], device=dev), sharding.group
+        )[0])
+    res = BatchResult()
+    for key, v in part.items():
+        if key == "state":
+            continue
+        if key in _PER_LANE_RESULT_KEYS and isinstance(v, np.ndarray) and v.ndim >= 1:
+            if key in hist_keys and v.shape[1] < T:
+                widths = [(0, 0), (0, T - v.shape[1])] + [(0, 0)] * (v.ndim - 2)
+                v = np.pad(v, widths, constant_values=False if v.dtype == np.bool_ else np.nan)
+            res[key] = gather_numpy(v, sharding, dev)
+        else:
+            res[key] = v
+    res.state = (
+        None if part.get("state") is None
+        else State(*(gather_numpy(np.asarray(a), sharding, dev) for a in part.state))
+    )
+    res.time = _time.perf_counter() - start
+    return res
+
+
 def minimize_proximal_gradient_batch(
     f: Callable,
     g: Callable,
@@ -409,17 +512,19 @@ def minimize_proximal_gradient_batch(
     2).  ``initial_states`` (e.g. a previous result's ``state``, tensors or
     numpy) resumes every lane; ``keep_state`` returns the final batched
     :class:`State` as numpy.  ``tol_rel`` and ``tol_internal_rel`` are the
-    single solve's opt-in relative terms.  ``in_sharding`` is not ported
-    (ROADMAP item 9) and raises.
+    single solve's opt-in relative terms.  ``in_sharding``
+    (:func:`zfista_tpu_torch.parallel.sharding.batch_sharding` of a mesh;
+    implied by an ``x0s`` that is a rank's lanes from ``distribute_batch``)
+    splits the lanes of ``x0s``, ``batch_params``,
+    ``batch_nesterov_ratio`` and ``initial_states`` over the mesh's
+    ``"batch"`` ranks (``B`` must divide by their count); each rank solves
+    its lanes and returns the whole batch, bitwise the unsharded one.
+    Combining it with ``lane_chunk`` raises.
 
     Returns a :class:`BatchResult`; per-solve views via ``.to_list()``.
     """
     start = _time.perf_counter()
-    if in_sharding is not None:
-        raise NotImplementedError(
-            "in_sharding (placing the batch on a device mesh) is not ported to "
-            "zfista_tpu_torch yet: ROADMAP.md Queue 1 item 9 (scale-out)"
-        )
+    sharding = in_sharding if in_sharding is not None else sharding_of(x0s)
     dev = _solve_device(x0s, batch_params, device)
     x0s = torch.as_tensor(x0s, device=dev)
     if x0s.ndim != 2:
@@ -441,9 +546,41 @@ def minimize_proximal_gradient_batch(
     if not x0s.is_floating_point():
         x0s = x0s.to(torch.get_default_dtype())
 
+    # What a part of the batch (a lane chunk, a rank's lanes) is solved with.
+    solver_kwargs = dict(
+        lr=lr,
+        tol=tol,
+        tol_rel=tol_rel,
+        tol_internal=tol_internal,
+        tol_internal_rel=tol_internal_rel,
+        max_iter=max_iter,
+        max_iter_internal=max_iter_internal,
+        max_backtrack_iter=max_backtrack_iter,
+        warm_start=warm_start,
+        decay_rate=decay_rate,
+        nesterov=nesterov,
+        nesterov_ratio=nesterov_ratio,
+        deprecated=deprecated,
+        history=history,
+        history_chunk=history_chunk,
+        record_vecs=record_vecs,
+        check_every=check_every,
+        adaptive_restart=adaptive_restart,
+        project_momentum=project_momentum,
+        iter_chunk=iter_chunk,
+        device=dev,
+    )
     if lane_chunk is not None:
         if int(lane_chunk) < 1:
             raise ValueError(f"lane_chunk must be >= 1; got {lane_chunk}")
+        if sharding is not None:
+            # Checked whenever lane_chunk is passed (not only when it
+            # splits), as the JAX package does.
+            raise ValueError(
+                "lane_chunk cannot be combined with in_sharding: "
+                "chunking is a single-process device-capacity knob — "
+                "shard OR chunk the batch axis, not both"
+            )
         if int(lane_chunk) < int(x0s.shape[0]):
             return _lane_chunked_solve(
                 f,
@@ -457,30 +594,23 @@ def minimize_proximal_gradient_batch(
                 lane_chunk=int(lane_chunk),
                 keep_state=keep_state,
                 start=start,
-                solver_kwargs=dict(
-                    lr=lr,
-                    tol=tol,
-                    tol_rel=tol_rel,
-                    tol_internal=tol_internal,
-                    tol_internal_rel=tol_internal_rel,
-                    max_iter=max_iter,
-                    max_iter_internal=max_iter_internal,
-                    max_backtrack_iter=max_backtrack_iter,
-                    warm_start=warm_start,
-                    decay_rate=decay_rate,
-                    nesterov=nesterov,
-                    nesterov_ratio=nesterov_ratio,
-                    deprecated=deprecated,
-                    history=history,
-                    history_chunk=history_chunk,
-                    record_vecs=record_vecs,
-                    check_every=check_every,
-                    adaptive_restart=adaptive_restart,
-                    project_momentum=project_momentum,
-                    iter_chunk=iter_chunk,
-                    device=dev,
-                ),
+                solver_kwargs=solver_kwargs,
             )
+    if sharding is not None:
+        return _sharded_solve(
+            f,
+            g,
+            jac_f,
+            prox_wsum_g,
+            x0s,
+            sharding,
+            batch_params=batch_params,
+            batch_nesterov_ratio=batch_nesterov_ratio,
+            initial_states=initial_states,
+            keep_state=keep_state,
+            start=start,
+            solver_kwargs=solver_kwargs,
+        )
     check_every = int(check_every)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
