@@ -33,7 +33,11 @@ of them against its plain PyTorch version:
   raw step's tail ``fista_tail`` once per step), a world of one NCCL rank,
   two ranks sharing the card over Gloo (the feature-sharded ``Lasso`` runs
   the kernel's ``fused_prox_momentum`` once per step), and the weak-scaling
-  bench's one-card row.
+  bench's one-card row;
+* the two-axis ``("batch", "model")`` mesh (phase 16): lane batches on a
+  feature-sharded operator over four ranks sharing the card, and
+  ``GroupLasso`` on feature blocks.  It adds no kernel: the batch step
+  bypasses the fused LASSO kernel.
 
 Phases:
 
@@ -153,6 +157,24 @@ Phases:
     step run on each rank, and the sweep's lanes over ``batch=2`` bitwise
     the unsharded sweep in every field; (d)
     ``bench.scaling.weak_scaling((1,), device="cuda")`` at its defaults.
+16. the two-axis mesh, four spawned processes sharing the card over
+    Gloo: (a) the headline LASSO in float64 (A cast) as a 16-lane lambda
+    sweep, geometric 0.005-0.05, backtracking from 1/L, on 2 (batch) x 2
+    (model) ranks (blocks 2,000 x 5,000, 8 lanes a rank): every field of
+    every lane bitwise the 1x2 (model-only) batch of the same lanes, and
+    against the unsharded batch equal nit per lane, x within 1e-12;
+    (b) the same problem in float32, 64 lanes, 200 fixed steps at 1/L on
+    the 2x2 mesh: lane-iterations/s, exactly one all-reduce per product
+    and one max per step for all of a rank's lanes, F per lane within
+    1e-4 of the float64 batch; (c) ``GroupLasso`` in float64 on two ranks'
+    blocks of 5,000 (each row of the mesh, one group size), backtracking
+    as 14d, groups of 10 (aligned) and 16 (one group straddles the
+    blocks): equal nit and x within 1e-12 of the unsharded solve, the
+    aligned prox bitwise the unsharded prox, and the group sweep's lanes
+    bitwise among 16 or 8; (d) the parity worker (``python -m
+    zfista_tpu_torch.parallel.distributed``) as four CUDA ranks over Gloo,
+    beside (a)-(c)'s unsharded references: its ``PARITY_OK``,
+    ``TP_PARITY_OK`` and ``MESH2D_PARITY_OK`` lines.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -168,6 +190,7 @@ import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -1313,7 +1336,7 @@ def phase11(card: str, dev) -> None:
 #: starts tiled), over COUNT_ITERS iterations, within COUNT_RTOL.
 SWEEP_SHAPE, SWEEP_LAMBDAS, SWEEP_MU, SWEEP_CHECK, SWEEP_RTOL = (500, 2000), 1000, 0.1, 8, 1e-5
 JOS1_LANES, FDS_LANES, FDS_CHUNK, CHUNK_ITERS = 10_000, 1024, 256, 20
-COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 5, 0.01
+COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 3, 0.01
 
 
 def phase12_tasks(dev) -> list:
@@ -2563,17 +2586,12 @@ def phase15b(card: str, dev, A_np, b_np, lr: float) -> dict:
     ``Lasso`` on ``distribute_global(A, mesh, operator_sharding)`` to
     convergence, bitwise the unsharded solve, through the composed tail;
     the lambda sweep with ``in_sharding`` bitwise the unsharded sweep."""
-    import socket
-
     from zfista_tpu_torch.models import Lasso
     from zfista_tpu_torch.ops import fused
     from zfista_tpu_torch.parallel import batch_sharding, distributed
     from zfista_tpu_torch.parallel.sharding import P
 
-    with socket.socket() as s_:
-        s_.bind(("localhost", 0))
-        port = s_.getsockname()[1]
-    distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    distributed.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
     try:
         mesh = distributed.global_mesh()
         b = torch.as_tensor(b_np, device=dev)
@@ -2655,46 +2673,13 @@ def phase15c(card: str, dev) -> dict:
     one device; Gloo takes CUDA tensors in all-reduce), in float64: the
     feature-sharded headline LASSO in the m=1 class of the unsharded card
     solve, and the lane-sharded sweep bitwise the unsharded sweep."""
-    import multiprocessing as mp
-    import queue as queue_mod
-    import socket
-
     from zfista_tpu_torch.models import Lasso
 
     A_np, b_np = (v.astype(np.float64) for v in make_problem())
     b = torch.as_tensor(b_np, device=dev)
     A = torch.as_tensor(A_np, device=dev)
     lr = 1.0 / Lasso(A, b, LAM).lipschitz()
-    with socket.socket() as s_:
-        s_.bind(("localhost", 0))
-        port = s_.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    procs = [
-        ctx.Process(target=phase15c_rank, args=(r, port, lr, str(dev), out))
-        for r in range(GLOO_RANKS)
-    ]
-    for p in procs:
-        p.start()
-    ranks = {}
-    deadline = time.monotonic() + 600
-    try:
-        while len(ranks) < GLOO_RANKS:  # drained before the joins
-            try:
-                r, got = out.get(timeout=5.0)
-                ranks[r] = got
-            except queue_mod.Empty:
-                if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                    raise AssertionError(f"phase 15c: a rank failed: {[p.exitcode for p in procs]}")
-        for p in procs:
-            p.join(timeout=300)
-            if p.exitcode != 0:
-                raise AssertionError(f"phase 15c: a rank exited with {p.exitcode}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    ranks = run_ranks("phase 15c", phase15c_rank, GLOO_RANKS, (lr, str(dev)))
     ref = Lasso(A, b, LAM).solve_fixed_step(torch.zeros(N, dtype=torch.float64, device=dev), lr=lr)
     lams = torch.linspace(0.005, 0.05, SWEEP15_LANES, dtype=torch.float64, device=dev)
     sw = sweep15(A, b, lams, lr)
@@ -2735,6 +2720,289 @@ def phase15d(card: str) -> dict:
     if len(rows) != 1 or rows[0]["devices"] != 1 or not rows[0]["lane_iters_per_s"] > 0:
         raise AssertionError(f"phase 15d: rows {rows}")
     return rows[0]
+
+
+#: Phase 16: the two-axis ("batch", "model") mesh of four Gloo ranks on the
+#: card, the headline LASSO in float64 (A cast: 80 MB a rank's block).
+MESH16, SWEEP16_LANES, WIDE16_LANES, WIDE16_STEPS = (2, 2), 16, 64, 200
+#: 16a and 16c against the unsharded batch and solve: the m=1 class in
+#: float64 (equal nit, x within 1e-12); 16b's float32 F against float64's.
+X16_TOL, F16_RTOL = 1e-12, 1e-4
+#: 16c's group sizes over blocks of N / 2: 10 holds whole groups, 16 has
+#: one group straddle the blocks' edge.
+GROUPS16 = (10, 16)
+#: The sums a fixed-step batch all-reduces beside its steps' own: f of the
+#: first lane (the objective count), and F at the start and at the end
+#: (f's product and g's sum, each one all-reduce for every lane).
+SUMS_OUTSIDE_STEPS = 5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        return s_.getsockname()[1]
+
+
+def run_ranks(label: str, target, world: int, args: tuple, timeout: float = 600) -> dict:
+    """``target(rank, port, *args, out)`` in ``world`` spawned processes
+    (they re-import this module); returns each rank's result from ``out``,
+    by rank.  A rank that fails fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, *args, out)) for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(ranks) < world:  # drained before the joins
+            try:
+                r, got = out.get(timeout=5.0)
+                ranks[r] = got
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    raise AssertionError(f"{label}: a rank failed: {[p.exitcode for p in procs]}")
+        for p in procs:
+            p.join(timeout=300)
+            if p.exitcode != 0:
+                raise AssertionError(f"{label}: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return ranks
+
+
+def batch_fields(r) -> dict:
+    """A batch result's per-lane fields and state, as numpy."""
+    out = {k: np.asarray(r[k]) for k in ("x", "nit", "nit_internal", "fun", "lr", "error_criterion", "status")}
+    if r.state is not None:
+        out.update({f"state.{k}": np.asarray(v) for k, v in r.state._asdict().items()})
+    return out
+
+
+def lams16(lanes: int) -> np.ndarray:
+    return np.geomspace(0.005, 0.05, lanes)
+
+
+def phase16_rank(rank: int, port: int, device: str, lr64: float, lr32: float, out) -> None:
+    """One of phase 16's four Gloo ranks on ``device`` (card 0): (a) the
+    float64 lambda sweep on the 2x2 mesh and on the 1x2 mesh of the rank's
+    batch row; (b) the float32 fixed-step sweep on the 2x2 mesh, with its
+    all-reduces counted; (c) ``GroupLasso`` on the two feature blocks of
+    the rank's batch row, one group size a row.  Puts (rank, results) on
+    ``out``."""
+    warnings.simplefilter("ignore")
+    from zfista_tpu_torch.models import GroupLasso
+    from zfista_tpu_torch.models.lasso import make_lasso_lambda_sweep
+    from zfista_tpu_torch.parallel import distributed, minimize_proximal_gradient_batch
+    from zfista_tpu_torch.parallel import sharding as shd
+    from zfista_tpu_torch.parallel.sharding import P
+
+    dev = torch.device(device)
+    world = MESH16[0] * MESH16[1]
+    distributed.initialize(f"localhost:{port}", world, rank,
+                           local_device_ids=None if dev.index is None else [dev.index], backend="gloo")
+    try:
+        A32, b32 = make_problem()
+        A64, b64 = A32.astype(np.float64), b32.astype(np.float64)
+        mesh = distributed.global_mesh(*MESH16)
+        # Every rank makes every mesh, in one order (new_group).
+        rows = [shd.make_mesh(1, MESH16[1], devices=list(r)) for r in mesh.devices.tolist()]
+        got: dict = {}
+        for name, m_ in (("2x2", mesh), ("1x2", rows[mesh.index("batch")])):
+            fns = make_lasso_lambda_sweep(distributed.distribute_global(A64, m_, P(None, "model"), dev),
+                                          torch.as_tensor(b64, device=dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = minimize_proximal_gradient_batch(
+                *fns, np.zeros((SWEEP16_LANES, N)), batch_params=torch.as_tensor(lams16(SWEEP16_LANES), device=dev),
+                lr=lr64, nesterov=True, max_iter=5000)
+            torch.cuda.synchronize()
+            got[f"a_{name}"] = dict(batch_fields(r), wall=time.perf_counter() - t0)
+        fns = make_lasso_lambda_sweep(distributed.distribute_global(A32, mesh, P(None, "model"), dev),
+                                      torch.as_tensor(b32, device=dev))
+        kw = dict(batch_params=torch.as_tensor(lams16(WIDE16_LANES), dtype=torch.float32, device=dev),
+                  lr=lr32, decay_rate=1, nesterov=True, tol=0, keep_state=False)
+        x0s = np.zeros((WIDE16_LANES, N), np.float32)
+        minimize_proximal_gradient_batch(*fns, x0s, max_iter=2, **kw)  # first-use costs
+        torch.cuda.synchronize()
+        before = dict(shd.collective_counts)
+        t0 = time.perf_counter()
+        r = minimize_proximal_gradient_batch(*fns, x0s, max_iter=WIDE16_STEPS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got["b"] = dict(fun=np.asarray(r.fun), nit=np.asarray(r.nit), wall=wall,
+                        counts={k: shd.collective_counts[k] - before[k] for k in before})
+        # (c) each row of the mesh, two ranks, one group size.
+        row, gs = rows[mesh.index("batch")], GROUPS16[mesh.index("batch")]
+        x = torch.as_tensor(np.random.default_rng(16).standard_normal(N), device=dev)
+        prob = GroupLasso(distributed.distribute_global(A64, row, P(None, "model"), dev),
+                          torch.as_tensor(b64, device=dev), LAM, gs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prob.solve(np.zeros(N), nesterov=True, tol=GROUP_TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        whole = GroupLasso(torch.as_tensor(A64, device=dev), torch.as_tensor(b64, device=dev),
+                           LAM, gs).prox_wsum_g(0.5, x)
+        fsh = shd.feature_sharding(row)
+        prox = prob.prox_wsum_g(0.5, shd.block(x, fsh))
+        got["c"] = dict(gs=gs, x=res.x, nit=res.nit, nit_internal=res.nit_internal, status=res.status,
+                        wall=wall, prox_bitwise=same_bits(prox, shd.block(whole, fsh)),
+                        prox_err=abs_err(prox, shd.block(whole, fsh)))
+        out.put((rank, got))
+    finally:
+        distributed.shutdown()
+
+
+def phase16(card: str, dev) -> dict:
+    """The two-axis mesh on the card: (a) the headline LASSO's 16-lane
+    float64 lambda sweep (backtracking from 1/L) on 2 (batch) x 2 (model)
+    Gloo ranks, every field of every lane bitwise the 1x2 (model-only)
+    batch of the same lanes and, against the unsharded batch, equal nit and
+    x within X16_TOL; (b) 64 float32 lanes, 200 fixed steps at 1/L on the
+    same mesh: lane-iterations/s, one all-reduce per product and one max
+    per step for all lanes, F per lane within F16_RTOL of the float64
+    batch; (c) ``GroupLasso`` on two feature blocks with groups that align
+    and that straddle: equal nit and x within X16_TOL of unsharded, the
+    aligned prox bitwise; and the group sweep's lanes bitwise among 16 or
+    8; (d) the parity worker on four ranks of the card, while this process
+    computes (a)-(c)'s unsharded references."""
+    from zfista_tpu_torch.models import Lasso
+
+    A32, b32 = make_problem()
+    A64, b64 = (torch.as_tensor(v.astype(np.float64), device=dev) for v in (A32, b32))
+    lr64 = 1.0 / Lasso(A64, b64, LAM).lipschitz()
+    lr32 = 1.0 / Lasso(torch.as_tensor(A32, device=dev), torch.as_tensor(b32, device=dev), LAM).lipschitz()
+    world = MESH16[0] * MESH16[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks("phase 16", phase16_rank, world, (str(dev), lr64, lr32))
+    wall_ranks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "zfista_tpu_torch.parallel.distributed", "--coordinator",
+             f"localhost:{port}", "--num-processes", str(world), "--process-id", str(i),
+             "--platform", "cuda", "--backend", "gloo"],
+            env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        for i in range(world)
+    ]
+    try:
+        rates = checks16(card, dev, ranks, A64, b64, lr64, lr32)
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_d = time.perf_counter() - t0
+    for i, (p, text) in enumerate(zip(procs, outs)):
+        oks = [ln for ln in text.splitlines() if "_OK " in ln]
+        log(f"phase 16d [{card}]: parity worker rank {i}/{world} on cuda:0 (rc {p.returncode}): {oks}")
+        for tag in ("PARITY_OK", "TP_PARITY_OK", "MESH2D_PARITY_OK"):
+            if p.returncode != 0 or not any(ln.startswith(f"{tag} process={i}/{world}") for ln in oks):
+                raise AssertionError(f"phase 16d: rank {i} printed no {tag}:\n{text[-3000:]}")
+    log(f"phase 16 [{card}]: ranks of 16a-c {wall_ranks:.1f} s; the parity worker, beside the "
+        f"references, {wall_d:.1f} s")
+    return dict(lane_iters_per_s=rates, wall_ranks=wall_ranks, wall_parity=wall_d)
+
+
+def checks16(card: str, dev, ranks: dict, A64, b64, lr64: float, lr32: float) -> list[float]:
+    """Phase 16's checks of the ranks' results against unsharded
+    references computed here; returns 16b's lane-iterations/s by rank."""
+    from zfista_tpu_torch.models import GroupLasso
+    from zfista_tpu_torch.models.lasso import make_group_lasso_lambda_sweep, make_lasso_lambda_sweep
+    from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
+
+    world = len(ranks)
+    # (a) 2x2 against 1x2 bitwise, and against the unsharded batch.
+    ref = batch_fields(minimize_proximal_gradient_batch(
+        *make_lasso_lambda_sweep(A64, b64), torch.zeros((SWEEP16_LANES, N), dtype=torch.float64, device=dev),
+        batch_params=torch.as_tensor(lams16(SWEEP16_LANES), device=dev), lr=lr64, nesterov=True,
+        max_iter=5000))
+    for r, got in sorted(ranks.items()):
+        two, one = got["a_2x2"], got["a_1x2"]
+        differ = [k for k in ref if not np.array_equal(two[k], one[k])]
+        dx = float(np.max(np.abs(two["x"] - ref["x"])))
+        log(
+            f"phase 16a [{card}]: Gloo rank {r}/{world} on {dev}, 2x2 mesh, float64 sweep of "
+            f"{SWEEP16_LANES} lanes (blocks {M}x{N // MESH16[1]}, {SWEEP16_LANES // MESH16[0]} lanes a rank): "
+            f"nit {two['nit'].tolist()} (unsharded {ref['nit'].tolist()}); max|x - x_unsharded| {dx!r} "
+            f"(bound {X16_TOL}); fields not bitwise the 1x2 batch's: {differ}; walls 2x2 {two['wall']:.3f} s, "
+            f"1x2 {one['wall']:.3f} s"
+        )
+        if differ:
+            raise AssertionError(f"phase 16a: rank {r}'s 2x2 batch differs from the 1x2 batch in {differ}")
+        if not (np.all(two["status"] == 1) and np.array_equal(two["nit"], ref["nit"]) and dx <= X16_TOL):
+            raise AssertionError(f"phase 16a: rank {r}'s sweep is outside the m=1 class of the unsharded one")
+
+    # (b) float32 against float64, all-reduces per step, lane-iterations/s.
+    ref64 = minimize_proximal_gradient_batch(
+        *make_lasso_lambda_sweep(A64, b64), torch.zeros((WIDE16_LANES, N), dtype=torch.float64, device=dev),
+        batch_params=torch.as_tensor(lams16(WIDE16_LANES), device=dev), lr=lr32, decay_rate=1,
+        nesterov=True, tol=0, max_iter=WIDE16_STEPS, keep_state=False)
+    want = {"sum": WIDE16_STEPS + SUMS_OUTSIDE_STEPS, "max": WIDE16_STEPS}
+    rates = []
+    for r, got in sorted(ranks.items()):
+        b = got["b"]
+        rel = float(np.max(np.abs(b["fun"] - ref64.fun) / np.abs(ref64.fun)))
+        rates.append(WIDE16_LANES * WIDE16_STEPS / b["wall"])
+        log(
+            f"phase 16b [{card}]: Gloo rank {r}/{world}, 2x2 mesh, {WIDE16_LANES} float32 lanes x "
+            f"{WIDE16_STEPS} fixed steps: wall {b['wall']:.3f} s, {rates[-1]:.1f} lane-iterations/s; "
+            f"all-reduces {b['counts']} = {(b['counts']['sum'] - SUMS_OUTSIDE_STEPS) / WIDE16_STEPS!r} "
+            f"per step for the products and {b['counts']['max'] / WIDE16_STEPS!r} for the maxima, "
+            f"for all {WIDE16_LANES // MESH16[0]} lanes of the rank; F against float64: largest "
+            f"relative {rel!r} (bound {F16_RTOL})"
+        )
+        if {k: b["counts"][k] for k in want} != want or not np.all(b["nit"] == WIDE16_STEPS):
+            raise AssertionError(f"phase 16b: rank {r} issued {b['counts']}, expected {want}")
+        if not rel <= F16_RTOL:
+            raise AssertionError(f"phase 16b: rank {r}'s float32 F is off float64's")
+
+    # (c) GroupLasso on two blocks against unsharded; the group sweep's lanes.
+    for gs in GROUPS16:
+        one = GroupLasso(A64, b64, LAM, gs).solve(np.zeros(N), nesterov=True, tol=GROUP_TOL)
+        for r, got in sorted(ranks.items()):
+            c = got["c"]
+            if c["gs"] != gs:
+                continue
+            dx = float(np.max(np.abs(c["x"] - one.x)))
+            log(
+                f"phase 16c [{card}]: Gloo rank {r}/{world} (a row of 2), GroupLasso(m={M}, n={N} f64, "
+                f"group_size {gs}, {'aligned' if (N // 2) % gs == 0 else 'one group straddling the blocks'}"
+                f") backtracking: status={c['status']} nit={c['nit']} nit_internal={c['nit_internal']} "
+                f"(unsharded {one.nit}, {one.nit_internal}); max|x - x_unsharded| {dx!r} (bound "
+                f"{X16_TOL}); prox on the block bitwise the unsharded prox: {c['prox_bitwise']} (max "
+                f"err {c['prox_err']!r}); wall {c['wall']:.3f} s"
+            )
+            if c["status"] != 1 or c["nit"] != one.nit or not dx <= X16_TOL:
+                raise AssertionError(f"phase 16c: rank {r}'s group LASSO (groups of {gs}) is off unsharded")
+            if (N // 2) % gs == 0 and not c["prox_bitwise"]:
+                raise AssertionError(f"phase 16c: rank {r}'s aligned prox is not the unsharded prox")
+    fns = make_group_lasso_lambda_sweep(A64, b64, GROUP_SIZE)
+    lams = torch.as_tensor(lams16(SWEEP16_LANES), device=dev)
+    x0s = torch.zeros((SWEEP16_LANES, N), dtype=torch.float64, device=dev)
+    kw = dict(lr=lr64, nesterov=True, max_iter=30)
+    many = batch_fields(minimize_proximal_gradient_batch(*fns, x0s, batch_params=lams, **kw))
+    few = batch_fields(minimize_proximal_gradient_batch(*fns, x0s[:8], batch_params=lams[:8], **kw))
+    differ = [k for k in few if not np.array_equal(many[k][:8], few[k])]
+    log(f"phase 16c [{card}]: group sweep (groups of {GROUP_SIZE}, 30 iterations) of {SWEEP16_LANES} "
+        f"lanes against its first 8 alone: fields not bitwise: {differ}")
+    if differ:
+        raise AssertionError(f"phase 16c: the group sweep's lanes depend on the lane count in {differ}")
+    return rates
 
 
 def main() -> None:
@@ -2991,6 +3259,7 @@ def main() -> None:
         ("15b", lambda: card15.update(b=phase15b(smi, dev, A_np, b_np, res.lr))),
         ("15c", lambda: card15.update(c=phase15c(smi, dev))),
         ("15d", lambda: card15.update(d=phase15d(smi))),
+        (16, lambda: phase16(smi, dev)),
     ):
         t0 = time.perf_counter()
         run()

@@ -433,3 +433,57 @@ def test_batch_runs_on_the_card_by_default(monkeypatch):
         tb.minimize_proximal_gradient_batch(*_fns(T_TOY), TOY_X0)
     res = tb.minimize_proximal_gradient_batch(*_fns(T_TOY), TOY_X0, device="cpu", lr=0.4)
     assert res.x.shape == TOY_X0.shape and res.success.all()
+
+
+def _model_lanes(name):
+    """A model's callables and 16 float64 starts (lanes x n a multiple of
+    16), with the batch options its solve takes."""
+    from zfista_tpu_torch.models import GroupLasso, SparseLogistic, TVDeblur, WaveletDeblur
+    from zfista_tpu_torch.models.deblur import gaussian_kernel
+
+    rng = np.random.default_rng(11)
+    kw = dict(nesterov=True, max_iter=40, device="cpu")
+    if name in ("TVDeblur", "WaveletDeblur"):
+        img = rng.uniform(0.0, 1.0, (8, 8))
+        cls = TVDeblur if name == "TVDeblur" else WaveletDeblur
+        extra = dict(tv_ratio=1e-2, prox_iter=5) if name == "TVDeblur" else dict(l1_ratio=1e-2)
+        p = cls(torch.tensor(img), kernel=gaussian_kernel(3, 1.0), **extra)
+        # Backtracking from 1/L: the objective of every trial, g included.
+        kw.update(lr=1.0 / p.lipschitz())
+        n = 64
+    elif name == "SparseLogistic":
+        A = rng.standard_normal((24, 32))
+        y = np.sign(A @ rng.standard_normal(32) + 0.1)
+        p = SparseLogistic(torch.tensor(A), torch.tensor(y), 0.02)
+        n = 32
+    else:
+        A, b, _ = _dense(seed=4, m=24, n=32)
+        # Groups of 4, or one group of all 32 features: with the lanes
+        # innermost, the CPU orders a sum over a lane's whole vector by the
+        # lane count, so that case holds the group norms' own sums.
+        gs = 32 if name == "GroupLassoOneGroup" else 4
+        p = GroupLasso(torch.tensor(A), torch.tensor(b), 0.05, gs)
+        n = 32
+    return (p.f, p.g, p.jac_f, p.prox_wsum_g), rng.uniform(-1.0, 1.0, (16, n)), kw
+
+
+@pytest.mark.parametrize("layout", ["lanes_outer", "lanes_inner"])
+@pytest.mark.parametrize(
+    "name", ["SparseLogistic", "TVDeblur", "WaveletDeblur", "GroupLasso", "GroupLassoOneGroup"]
+)
+def test_model_lanes_do_not_depend_on_the_lane_count(name, layout):
+    """A model's lane solved among 16 or among 8 is bitwise the same in
+    every field (its sums under vmap are lane sums, whose order the lane
+    count does not set): the contract of a lane-sharded or lane-chunked
+    batch of the model.  Starts with the lanes innermost in memory (the
+    transpose of an ``(n, B)`` array) keep that layout through the step,
+    where a reduction kernel's order follows the lane count."""
+    fns, x0s, kw = _model_lanes(name)
+
+    def starts(a):
+        return torch.tensor(a) if layout == "lanes_outer" else torch.tensor(a.T.copy()).T
+
+    many = tb.minimize_proximal_gradient_batch(*fns, starts(x0s), **kw)
+    few = tb.minimize_proximal_gradient_batch(*fns, starts(x0s[:8]), **kw)
+    for field, u, v in zip(State._fields, many.state, few.state):
+        np.testing.assert_array_equal(u[:8], v, err_msg=field)

@@ -4,9 +4,11 @@ Gloo on the CPU (``python -m zfista_tpu_torch.parallel.distributed``, as
 
 Every rank solves a λ-sweep batch and an m=3 momentum-pair batch with the
 lanes sharded over all ranks (bitwise their unsharded torch twin on the
-rank) and a LASSO with its features sharded over all ranks (equal ``nit``,
-x within 1e-9 of the unsharded torch solve), and prints ``PARITY_OK`` and
-``TP_PARITY_OK``.  Rank 0 writes the feature-sharded solve, which this test
+rank), a LASSO with its features sharded over all ranks (equal ``nit``,
+x within 1e-9 of the unsharded torch solve) and, on the ``(n/2, 2)``
+``("batch", "model")`` mesh, the vmapped dense step, a λ sweep and
+``Lasso.solve_batch`` (equal ``nit``, x within 1e-10), and prints
+``PARITY_OK``, ``TP_PARITY_OK`` and ``MESH2D_PARITY_OK``.  Rank 0 writes the feature-sharded solve, which this test
 holds against the JAX package's unsharded solve on the same data (JAX x64:
 equal ``nit``, x within 1e-10).
 """
@@ -60,6 +62,7 @@ def test_sharded_solves_match_unsharded(n_processes, tmp_path):
         assert p.returncode == 0, f"process {i} failed:\n{text[-3000:]}"
         assert f"PARITY_OK process={i}/{n_processes}" in text, text[-2000:]
         assert f"TP_PARITY_OK process={i}/{n_processes}" in text, text[-2000:]
+        assert f"MESH2D_PARITY_OK process={i}/{n_processes}" in text, text[-2000:]
 
     r = np.load(out)
     ref = Lasso(r["A"], r["b"], l1_ratio=0.05).solve_fixed_step(

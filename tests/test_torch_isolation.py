@@ -51,9 +51,12 @@ def test_port_imports_no_jax():
         "import zfista_tpu_torch.examples.momentum_experiment\n"
         "import zfista_tpu_torch.parallel.sharding, zfista_tpu_torch.parallel.distributed\n"
         "import zfista_tpu_torch.bench.scaling, zfista_tpu_torch.examples.large_lasso\n"
+        "import zfista_tpu_torch.examples.notebooks\n"
         "assert zfista_tpu_torch.native.load() is not None\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zfista_tpu')\n"
         "             or m.startswith(('jax.', 'zfista_tpu.')))\n"
+        "# The card's machine has no nbformat: the generator imports it late.\n"
+        "bad += sorted(m for m in sys.modules if m in ('nbformat', 'nbclient'))\n"
         "print(bad)\n"
         "raise SystemExit(1 if bad else 0)\n"
     )

@@ -71,8 +71,15 @@ def test_world_of_one_mesh_and_checks():
     with pytest.raises(ValueError, match="needs more than"):
         ts.make_mesh(batch=2, model=1)
     assert ts.make_mesh(batch=1, model=1, devices=[0]).devices.size == 1
-    with pytest.raises(ValueError, match="at most one"):
-        ts.NamedSharding(mesh, P("batch", "model"))
+    # A spec names each mesh axis at most once; one that names both is a
+    # lane batch laid out by lanes and by features.
+    for bad in (P("model", "model"), P("rows")):
+        with pytest.raises(ValueError, match="at most once"):
+            ts.NamedSharding(mesh, bad)
+    two = ts.NamedSharding(mesh, P("batch", "model"))
+    assert two.named == ((0, "batch"), (1, "model"))
+    with pytest.raises(ValueError, match="read .named"):
+        two.dim
     assert ts.operator_sharding(mesh) == ts.NamedSharding(mesh, P(None, "model"))
     assert (ts.operator_sharding(mesh).dim, ts.operator_sharding(mesh).axis) == ("model", 1)
     assert (ts.batch_sharding(mesh).dim, ts.feature_sharding(mesh).axis) == ("batch", 0)
@@ -154,14 +161,51 @@ def test_world_of_one_feature_sharded_solve_is_the_unsharded_solve(monkeypatch):
 
 
 def test_groups_of_a_feature_sharded_operator_are_not_ported():
+    """Once not ported, now run: GroupLasso and a lane batch on a
+    feature-sharded operator (a world of one: the unsharded results)."""
     mesh = td.global_mesh()
-    A_g = td.distribute_global(np.ones((4, 8)), mesh, P(None, "model"), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.GroupLasso(A_g, np.ones(4), 0.1, group_size=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.Lasso(A_g, np.ones(4), 0.1).solve_batch(np.zeros((2, 8)))
+    A, b = _rand_lasso(m=8, n=16)
+    A_g = td.distribute_global(A, mesh, P(None, "model"), device=CPU)
+    got = tl.GroupLasso(A_g, b, 0.1, group_size=4).solve(np.zeros(16), nesterov=True)
+    want = tl.GroupLasso(torch.as_tensor(A), b, 0.1, group_size=4).solve(np.zeros(16), nesterov=True)
+    assert got.nit == want.nit and np.array_equal(got.x, want.x)
+    x0s = np.zeros((2, 16))
+    got = tl.Lasso(A_g, b, 0.1).solve_batch(x0s, nesterov=True)
+    want = tl.Lasso(torch.as_tensor(A), b, 0.1).solve_batch(x0s, nesterov=True)
+    assert np.array_equal(got.nit, want.nit) and np.array_equal(got.x, want.x)
     with pytest.raises(ValueError, match="operator_sharding"):
         tl.Lasso(td.distribute_batch(np.ones((4, 8)), mesh, device=CPU), np.ones(4), 0.1)
+
+
+def test_lanes_on_an_operator_lie_by_features():
+    """The one place that decides that lanes are feature blocks: callables
+    on a feature-sharded operator (a sweep factory's mark) give
+    ``P("batch", "model")`` on its mesh, a lanes-only placement gains the
+    features, and any other is left for the batch solver to check."""
+    mesh = td.global_mesh()
+    A, b = _rand_lasso(m=8, n=16)
+    A_g = td.distribute_global(A, mesh, P(None, "model"), device=CPU)
+    fns = tl.make_lasso_lambda_sweep(A_g, b, device=CPU)
+    op = ts.operator_of(*fns)
+    two = ts.NamedSharding(mesh, P("batch", "model"))
+    assert op == ts.operator_sharding(mesh)
+    assert ts.operator_of(*tl.make_lasso_lambda_sweep(A, b, device=CPU)) is None
+    assert ts.lanes_on_operator(op) == two
+    assert ts.lanes_on_operator(op, ts.batch_sharding(mesh)) == two
+    assert ts.lanes_on_operator(op, two) == two
+    for other in (ts.feature_sharding(mesh), "lanes"):
+        assert ts.lanes_on_operator(op, other) is other
+    from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
+
+    lams = torch.tensor([0.05, 0.1], dtype=F64)
+    kw = dict(batch_params=lams, nesterov=True, max_iter=50, device=CPU)
+    got = minimize_proximal_gradient_batch(*fns, np.zeros((2, 16)), **kw)
+    want = minimize_proximal_gradient_batch(
+        *tl.make_lasso_lambda_sweep(A, b, device=CPU), np.zeros((2, 16)), **kw
+    )
+    assert np.array_equal(got.nit, want.nit) and np.array_equal(got.x, want.x)
+    with pytest.raises(ValueError, match="places lanes over the 'batch' axis"):
+        minimize_proximal_gradient_batch(*fns, np.zeros((2, 16)), in_sharding=ts.feature_sharding(mesh), **kw)
 
 
 # -- four processes, a 2x2 mesh ------------------------------------------------

@@ -21,8 +21,11 @@ and restart benches (:mod:`zfista_tpu_torch.bench`), checkpoints and
 profiling (:mod:`zfista_tpu_torch.utils`), and scale-out on
 ``torch.distributed`` (:mod:`zfista_tpu_torch.parallel.distributed`, the
 mesh placements of :mod:`zfista_tpu_torch.parallel.sharding`: lane-sharded
-batches, the feature-sharded LASSO, the weak-scaling bench and the
-n = 10⁶ LASSO example).  See ROADMAP.md for what is next.
+batches, the feature-sharded LASSO and group LASSO, lane batches on a
+feature-sharded operator over the two-axis ``("batch", "model")`` mesh,
+the weak-scaling bench and the n = 10⁶ LASSO example), and the
+notebooks (:mod:`zfista_tpu_torch.examples.notebooks`).  See ROADMAP.md
+for what is next.
 """
 
 from zfista_tpu_torch.core.options import SolverOptions

@@ -360,6 +360,8 @@ def _make_batch_step(
     project_momentum: bool = False,
     track_objective: bool = True,
     max_iter: int,
+    feature_sum: Callable[[Array], Array] | None = None,
+    feature_max: Callable[[Array], Array] | None = None,
 ) -> Callable[[State], State]:
     """The outer-iteration step of B independent solves at once: every
     :class:`State` field carries a leading lane axis.
@@ -379,8 +381,22 @@ def _make_batch_step(
     ``max_iter``) enter the trial loop already done, and the step returns
     their state as it was: the step masks itself.  There is no fused LASSO
     tail here.
+
+    ``feature_sum``/``feature_max`` (lanes that are feature blocks, m == 1;
+    both or neither) all-reduce over the ``"model"`` ranks, as in
+    :func:`_make_step`: each lane's ``max|x − y|`` (with ``‖x‖∞`` under
+    ``tol_rel``) in one NaN-carrying all-reduce for every lane, and the
+    sums over features inside the subproblem and the restart test, so every
+    rank takes each lane's decisions alike.
     """
     m = n_objectives
+    sharded = feature_sum is not None
+    if sharded and m != 1:
+        raise NotImplementedError(
+            "a feature-sharded solve takes one objective (the LASSO family); "
+            f"this problem has {m}"
+        )
+    fsum = feature_sum if sharded else _identity
     solve_sub = make_batch_subproblem_solver(
         g,
         prox_wsum_g,
@@ -389,6 +405,7 @@ def _make_batch_step(
         tol=tol_internal,
         max_iter=max_iter_internal,
         deprecated=deprecated,
+        feature_sum=feature_sum,
     )
     v_f = _over_lanes(f, 1, params)
     v_g = _over_lanes(g, 1, params)
@@ -450,8 +467,15 @@ def _make_batch_step(
         ls = line_search(state, f_y, jac_y, active)
 
         err = torch.amax(torch.abs(ls.x - state.y), dim=1)
+        x_max = torch.amax(torch.abs(ls.x), dim=1) if tol_rel else None
+        if sharded:
+            # One all-reduce per step for every lane.
+            if tol_rel:
+                err, x_max = feature_max(torch.stack([err, x_max]))
+            else:
+                err = feature_max(err)
         if tol_rel:
-            converged_now = err < tol + tol_rel * torch.amax(torch.abs(ls.x), dim=1)
+            converged_now = err < tol + tol_rel * x_max
         else:
             converged_now = err < tol
         nit_internal = state.nit_internal + ls.nits
@@ -459,7 +483,7 @@ def _make_batch_step(
         if nesterov:
             t_k = state.t
             if adaptive_restart:
-                osc = v_dot(state.y - ls.x, ls.x - state.x) > 0
+                osc = fsum(v_dot(state.y - ls.x, ls.x - state.x)) > 0
                 t_k = torch.where(osc, torch.ones_like(t_k), t_k)
             t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
             gamma = (t_k - 1) / t_new

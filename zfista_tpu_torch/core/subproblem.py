@@ -173,11 +173,10 @@ def make_subproblem_solver(
 ) -> Callable[..., SubproblemResult]:
     """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult``.
 
-    ``feature_sum`` (m == 1 only) all-reduces the model value's sums over
+    ``feature_sum`` (m == 1 only: the solver refuses a feature-sharded
+    solve of more objectives) all-reduces the model value's sums over
     features across the ranks of a feature-sharded solve."""
     m = n_objectives
-    if feature_sum is not None and m != 1:
-        raise NotImplementedError("a feature-sharded subproblem takes one objective")
     fsum = feature_sum if feature_sum is not None else (lambda v: v)
 
     if m == 1:
@@ -399,6 +398,7 @@ def make_batch_subproblem_solver(
     tol: float,
     max_iter: int,
     deprecated: bool = False,
+    feature_sum: Callable[[Array], Array] | None = None,
 ) -> Callable[..., SubproblemResult]:
     """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0, live) ->
     SubproblemResult`` over a leading lane axis.
@@ -409,6 +409,9 @@ def make_batch_subproblem_solver(
     is used: the m>=3 loops start with the others done, so they never run
     longer for them.  ``nit (B,)`` is each lane's own count, as the single
     solver counts it; ``fun`` is ``None`` when ``f_y`` is (m=1).
+    ``feature_sum`` (m == 1, lanes that are feature blocks) reduces the
+    model value's sums over the ranks inside ``vmap``: one all-reduce for
+    every lane (:func:`zfista_tpu_torch.parallel.sharding.all_reduce_sum`).
     """
     m = n_objectives
 
@@ -420,6 +423,7 @@ def make_batch_subproblem_solver(
             tol=tol,
             max_iter=max_iter,
             deprecated=deprecated,
+            feature_sum=feature_sum,
         )
 
     if m <= 2:

@@ -5,6 +5,7 @@
     python -m zfista_tpu_torch.examples.momentum_experiment
     python -m zfista_tpu_torch.examples.optimality_gap
     python -m zfista_tpu_torch.examples.large_lasso
+    python -m zfista_tpu_torch.examples.notebooks   # rebuilds examples/notebooks/*_torch.ipynb
 
 Counterparts of the JAX package's ``examples/*.py`` with their flags plus
 ``--device`` (default ``"cuda"``; ``--device cpu`` asks for the CPU).  The

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient, run_masked
 from zfista_tpu_torch.ops import tv_cuda
-from zfista_tpu_torch.ops.precision import conv2d_hp, matmul_hp
+from zfista_tpu_torch.ops.precision import conv2d_hp, matmul_hp, sum_hp
 from zfista_tpu_torch.ops.prox import soft_threshold
 from zfista_tpu_torch.ops.tv import PIPELINED, check_method, prox_tv, tv2d
 
@@ -320,14 +320,14 @@ class WaveletDeblur:
 
     def f(self, x: Array) -> Array:
         r = self._blur(idwt2(self._coeffs(x), self.levels)) - self.b
-        return torch.reshape(torch.sum(r * r), (1,))
+        return torch.reshape(sum_hp(r * r), (1,))
 
     def jac_f(self, x: Array) -> Array:
         r = self._blur(idwt2(self._coeffs(x), self.levels)) - self.b
         return 2 * torch.reshape(dwt2(self._blur_T(r), self.levels), (1, -1))
 
     def g(self, x: Array) -> Array:
-        return torch.reshape(self.l1_ratio * torch.sum(torch.abs(x)), (1,))
+        return torch.reshape(self.l1_ratio * sum_hp(torch.abs(x)), (1,))
 
     def prox_wsum_g(self, weight: Any, x: Array) -> Array:
         return soft_threshold(
@@ -416,7 +416,7 @@ class TVDeblur:
 
     def f(self, x: Array) -> Array:
         r = self._blur(self._image(x)) - self.b
-        return torch.reshape(torch.sum(r * r), (1,))
+        return torch.reshape(sum_hp(r * r), (1,))
 
     def jac_f(self, x: Array) -> Array:
         r = self._blur(self._image(x)) - self.b
@@ -679,7 +679,7 @@ def _tv_deblur_callables(
     def f_p(x, p):
         b = p[0]
         r = blur_p(torch.reshape(x, b.shape), p) - b
-        return torch.reshape(torch.sum(r * r), (1,))
+        return torch.reshape(sum_hp(r * r), (1,))
 
     def jac_p(x, p):
         b = p[0]
@@ -722,7 +722,7 @@ def _wavelet_callables(levels: int, separable: bool):
     def f_p(x, p):
         b = p[0]
         r = blur_p(idwt2(torch.reshape(x, b.shape), levels), p) - b
-        return torch.reshape(torch.sum(r * r), (1,))
+        return torch.reshape(sum_hp(r * r), (1,))
 
     def jac_p(x, p):
         b = p[0]
@@ -730,7 +730,7 @@ def _wavelet_callables(levels: int, separable: bool):
         return 2 * torch.reshape(dwt2(blur_T_p(r, p), levels), (1, -1))
 
     def g_p(x, p):
-        return torch.reshape(p[-1] * torch.sum(torch.abs(x)), (1,))
+        return torch.reshape(p[-1] * sum_hp(torch.abs(x)), (1,))
 
     def prox_p(w, x, p):
         w = w[0] if getattr(w, "ndim", 0) else w

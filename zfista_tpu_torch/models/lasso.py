@@ -33,13 +33,15 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.base import Problem
-from zfista_tpu_torch.ops.precision import dot_hp, matmul_hp, sum_hp
-from zfista_tpu_torch.ops.prox import prox_group_lasso, soft_threshold
+from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, matmul_hp, sum_hp
+from zfista_tpu_torch.ops.prox import shrink_groups, soft_threshold
 from zfista_tpu_torch.parallel.sharding import (
     all_reduce_sum,
     block,
     feature_sharding,
     feature_sum,
+    lanes_on_operator,
+    mark_operator,
     sharding_of,
     tag,
 )
@@ -134,15 +136,18 @@ class _OnOperator(Problem):
 
     def solve_batch(self, x0s, **kwargs):
         """Solve from every row of ``x0s``, cast to ``A``'s dtype and moved
-        to its device, as one lane-batched solve."""
-        if sharding_of(self.A) is not None:
-            raise NotImplementedError(
-                "a lane batch on a feature-sharded operator is not ported "
-                "(ROADMAP.md Queue 1, item 10); shard the lanes instead "
-                "(in_sharding) with the operator whole"
-            )
-        x0s = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
-        return super().solve_batch(x0s, **kwargs)
+        to its device, as one lane-batched solve.  With a feature-sharded
+        ``A`` the lanes lie on its mesh as ``P("batch", "model")``: over
+        the ``"batch"`` ranks and, within a lane, by features over the
+        ``"model"`` ranks (``x0s`` whole, or this rank's block of it); the
+        whole batch returns on every rank."""
+        x0s_t = torch.as_tensor(x0s, dtype=self.A.dtype, device=self.A.device)
+        sh = sharding_of(self.A)
+        if sh is not None:
+            kwargs["in_sharding"] = lanes_on_operator(sh, kwargs.get("in_sharding"))
+            if sharding_of(x0s) is not None:
+                tag(x0s_t, sharding_of(x0s))
+        return super().solve_batch(x0s_t, **kwargs)
 
 
 class Lasso(_OnOperator):
@@ -248,47 +253,104 @@ class GroupLasso(_OnOperator):
     :func:`~zfista_tpu_torch.ops.prox.prox_group_lasso`).
 
     ``A`` and ``b`` as in :class:`Lasso` (tensors keep their device, numpy
-    goes to ``device``); ``n_features`` must divide by ``group_size``.  A
-    feature-sharded ``A`` raises: its group norms need blocks aligned to
-    the groups (not ported).
+    goes to ``device``, and ``A`` may be a feature-sharded operator's
+    column block); ``n_features`` must divide by ``group_size``, whatever
+    the blocks: a group that straddles two ranks' blocks has its norm
+    summed over them (:class:`_Groups`).
     """
 
     def __init__(self, A, b, l1_ratio: float, group_size: int, device: Any = "cuda") -> None:
         A, b = _operands(A, b, device)
-        if sharding_of(A) is not None:
-            raise NotImplementedError(
-                "GroupLasso on a feature-sharded operator (group norms need "
-                "blocks aligned to group_size) is not ported: ROADMAP.md "
-                "Queue 1, item 10"
-            )
-        if not A.is_floating_point():
-            A = A.to(torch.get_default_dtype())
-        self.A = A
-        self.b = b.to(A.dtype)
+        self.A = _operator(A)
+        self.b = b.to(self.A.dtype)
         self.l1_ratio = float(l1_ratio)
         self.group_size = int(group_size)
-        if self.A.shape[1] % self.group_size:
-            raise ValueError("n_features must divide by group_size")
+        self._groups = _Groups(self.A, self.group_size)
         super().__init__(n_features=self.A.shape[1], n_objectives=1)
 
     def f(self, x: Array) -> Array:
-        r = _DOT(self.A, x) - self.b
+        r = feature_sum(self.A, _DOT(self.A, x)) - self.b
         return torch.reshape(dot_hp(r, r), (1,))
 
     def jac_f(self, x: Array) -> Array:
-        return torch.reshape(2 * _DOT(self.A.T, _DOT(self.A, x) - self.b), (1, -1))
+        return torch.reshape(2 * _DOT(self.A.T, feature_sum(self.A, _DOT(self.A, x)) - self.b), (1, -1))
 
     def g(self, x: Array) -> Array:
-        v = x.reshape(-1, self.group_size)
-        return torch.reshape(
-            self.l1_ratio * sum_hp(torch.sqrt(torch.sum(v * v, dim=-1))), (1,)
-        )
+        return torch.reshape(self.l1_ratio * self._groups.norm_sum(x), (1,))
 
     def prox_wsum_g(self, weight, x: Array) -> Array:
-        return prox_group_lasso(x, weight * self.l1_ratio, self.group_size)
+        return self._groups.prox(x, weight * self.l1_ratio)
 
     def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
         return float(2 * operator_norm_sq(self.A, n_iter, generator))
+
+
+class _Groups:
+    """The contiguous feature groups of size ``group_size`` as a rank's
+    feature block of a feature-sharded ``A`` cuts them (the whole vector
+    when ``A`` is whole).
+
+    The block is padded with zeros to whole groups, and the squared sums
+    of the groups that straddle a block edge are all-reduced over the
+    ``"model"`` ranks: one all-reduce per call, of one entry per
+    straddling group of the whole vector (at most one per block edge).
+    Where every block starts and ends on group boundaries nothing is
+    padded or reduced: a block's prox is bitwise the whole vector's
+    :func:`~zfista_tpu_torch.ops.prox.prox_group_lasso` on its features
+    (the same operations; group norms sum in an order set by the group
+    size alone).  Each group's norm counts in the objective on the rank
+    that holds its first feature.
+    """
+
+    def __init__(self, A: Array, group_size: int) -> None:
+        sh = sharding_of(A)
+        k = 1 if sh is None else sh.mesh.size("model")
+        r = 0 if sh is None else sh.mesh.index("model")
+        n_loc, gs = int(A.shape[1]), int(group_size)
+        if (n_loc * k) % gs:
+            raise ValueError("n_features must divide by group_size")
+        self.size, self.group = gs, None if sh is None else sh.group
+        start = r * n_loc
+        self.lead = start % gs  # zeros before the block in its first group
+        n_groups = -(-(self.lead + n_loc) // gs)
+        self.trail = n_groups * gs - self.lead - n_loc
+        # The groups that straddle an edge between blocks, in order, and
+        # which of them this block holds (first and/or last of its own).
+        straddling = sorted({(j * n_loc) // gs for j in range(1, k) if (j * n_loc) % gs})
+        first = start // gs
+        mine = [j for j in sorted({0, n_groups - 1}) if first + j in straddling]
+        self.slots = len(straddling)
+        self.at = straddling.index(first + mine[0]) if mine else 0
+        self.mine = torch.tensor(mine, dtype=torch.long, device=A.device)
+        # Local groups whose norm counts here: all but a first one that
+        # began on the previous rank.
+        self.counted = slice(1 if self.lead else 0, n_groups)
+
+    def _sq(self, x: Array) -> tuple[Array, Array]:
+        """The block as ``(groups, size)`` rows, zero-padded, and each
+        group's whole squared sum."""
+        v = torch.nn.functional.pad(x, (self.lead, self.trail)).reshape(-1, self.size)
+        sq = lane_sum(v * v)
+        if self.slots:
+            part = sq.index_select(0, self.mine)
+            z = lambda n: torch.zeros(n, dtype=sq.dtype, device=sq.device)
+            buf = torch.cat([z(self.at), part, z(self.slots - self.at - len(self.mine))])
+            total = all_reduce_sum(buf, self.group).narrow(0, self.at, len(self.mine))
+            sq = sq.index_copy(0, self.mine, total)
+        return v, sq
+
+    def norm_sum(self, x: Array) -> Array:
+        """``Σ_g ‖x_g‖₂`` over every group of the whole vector (on every
+        rank)."""
+        _, sq = self._sq(x)
+        local = sum_hp(torch.sqrt(sq[self.counted]))
+        return local if self.group is None else all_reduce_sum(local, self.group)
+
+    def prox(self, x: Array, scale) -> Array:
+        """:func:`~zfista_tpu_torch.ops.prox.prox_group_lasso` of the whole
+        vector, on this block."""
+        v, sq = self._sq(x)
+        return shrink_groups(v, sq, scale).reshape(-1).narrow(0, self.lead, x.shape[-1])
 
 
 # Module-level params-style callables for Lasso.solve_fixed_step, with all
@@ -349,62 +411,66 @@ def make_lasso_lambda_sweep(A, b, l2_ratio: float = 0.0, device: Any = "cuda"):
     or numpy arrays, which go to ``device`` (default ``"cuda"``; a machine
     with no card raises).  Over the lanes the two products are GEMMs
     through :func:`~zfista_tpu_torch.ops.precision.matmul_hp` (full fp32).
-    Returns ``(f, g, jac_f, prox)``, each taking λ last; pass λ in ``A``'s
-    dtype.
+    ``A`` may be a feature-sharded operator's column block: the products
+    and the sums over features are then all-reduced over its ``"model"``
+    ranks (one all-reduce for every lane), and the batch solver lays the
+    lanes out by features on its mesh.  Returns ``(f, g, jac_f, prox)``,
+    each taking λ last; pass λ in ``A``'s dtype.
     """
     A, b = _operands(A, b, device)
+    A = _operator(A)
     mu = float(l2_ratio)
 
     def f(x, lam):
-        r = _DOT(A, x) - b
+        r = feature_sum(A, _DOT(A, x)) - b
         val = dot_hp(r, r)
         if mu:
-            val = val + 0.5 * mu * dot_hp(x, x)
+            val = val + 0.5 * mu * feature_sum(A, dot_hp(x, x))
         return torch.reshape(val, (1,))
 
     def jac_f(x, lam):
-        grad = 2 * _DOT(A.T, _DOT(A, x) - b)
+        grad = 2 * _DOT(A.T, feature_sum(A, _DOT(A, x)) - b)
         if mu:
             grad = grad + mu * x
         return torch.reshape(grad, (1, -1))
 
     def g(x, lam):
-        return torch.reshape(lam * sum_hp(torch.abs(x)), (1,))
+        return torch.reshape(lam * feature_sum(A, sum_hp(torch.abs(x))), (1,))
 
     def prox(weight, x, lam):
         w = weight[0] if getattr(weight, "ndim", 0) else weight
         return soft_threshold(x, w * lam)
 
-    return f, g, jac_f, prox
+    return mark_operator(f, A), g, jac_f, prox
 
 
 def make_group_lasso_lambda_sweep(A, b, group_size: int, device: Any = "cuda"):
     """Per-lane-λ group-lasso callables for the batch solver (the
     group-lasso half of the sweep config; block soft-threshold prox).
-    ``A`` and ``b`` as in :func:`make_lasso_lambda_sweep`.  Returns ``(f,
-    g, jac_f, prox)``, each taking λ last.
+    ``A`` and ``b`` as in :func:`make_lasso_lambda_sweep`, a
+    feature-sharded ``A`` with any ``group_size`` that divides ``n``
+    (:class:`GroupLasso`).  Returns ``(f, g, jac_f, prox)``, each taking λ
+    last.
     """
     A, b = _operands(A, b, device)
-    gs = int(group_size)
-    if A.shape[1] % gs:
-        raise ValueError("n_features must divide by group_size")
+    A = _operator(A)
+    groups = _Groups(A, group_size)
 
     def f(x, lam):
-        r = _DOT(A, x) - b
+        r = feature_sum(A, _DOT(A, x)) - b
         return torch.reshape(dot_hp(r, r), (1,))
 
     def jac_f(x, lam):
-        return torch.reshape(2 * _DOT(A.T, _DOT(A, x) - b), (1, -1))
+        return torch.reshape(2 * _DOT(A.T, feature_sum(A, _DOT(A, x)) - b), (1, -1))
 
     def g(x, lam):
-        v = x.reshape(-1, gs)
-        return torch.reshape(lam * sum_hp(torch.sqrt(torch.sum(v * v, dim=-1))), (1,))
+        return torch.reshape(lam * groups.norm_sum(x), (1,))
 
     def prox(weight, x, lam):
         w = weight[0] if getattr(weight, "ndim", 0) else weight
-        return prox_group_lasso(x, w * lam, gs)
+        return groups.prox(x, w * lam)
 
-    return f, g, jac_f, prox
+    return mark_operator(f, A), g, jac_f, prox
 
 
 def fista_step_dense(A: Array, b: Array, lam: Array, lr: Array, carry):

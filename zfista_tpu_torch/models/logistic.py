@@ -31,7 +31,7 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.lasso import operator_norm_sq
-from zfista_tpu_torch.ops.precision import matmul_hp
+from zfista_tpu_torch.ops.precision import matmul_hp, mean_hp, sum_hp
 from zfista_tpu_torch.ops.prox import soft_threshold
 
 _DOT = matmul_hp
@@ -135,7 +135,7 @@ def _softplus(z: Array) -> Array:
 def _logistic_f_p(x, p):
     A, y, _ = p
     margins = y * _DOT(A, x)
-    return torch.reshape(torch.mean(_softplus(-margins)), (1,))
+    return torch.reshape(mean_hp(_softplus(-margins)), (1,))
 
 
 def _logistic_jac_p(x, p):
@@ -147,7 +147,7 @@ def _logistic_jac_p(x, p):
 
 def _logistic_g_p(x, p):
     lam = p[2]
-    return torch.reshape(lam * torch.sum(torch.abs(x)), (1,))
+    return torch.reshape(lam * sum_hp(torch.abs(x)), (1,))
 
 
 def _logistic_prox_p(w, x, p):

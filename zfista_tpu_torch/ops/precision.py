@@ -84,6 +84,15 @@ def sum_hp(v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v)
 
 
+def mean_hp(v: torch.Tensor) -> torch.Tensor:
+    """``torch.mean`` of every element; under ``torch.func.vmap`` the
+    :func:`lane_sum` of the flattened lane over its length (see
+    :func:`sum_hp`)."""
+    if _over_lanes(v):
+        return lane_sum(v.reshape(-1)) / v.numel()
+    return torch.mean(v)
+
+
 def lane_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``torch.sum(v, dim)`` in an order set by the length of ``dim``
     alone: a pairwise tree of elementwise adds over ``v`` zero-padded to a

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from zfista_tpu_torch._typing import Array, ArrayLike
+from zfista_tpu_torch.ops.precision import lane_sum
 
 
 class DeviceConstants:
@@ -166,12 +167,22 @@ def prox_group_lasso(x: Array, scale: ArrayLike, group_size: int) -> Array:
     r"""Prox of ``scale * sum_g ||x_g||_2`` for contiguous equal-size groups.
 
     Block soft-thresholding: each group ``v`` maps to
-    ``v * max(1 - scale/||v||, 0)``.  ``group_size`` is static.
+    ``v * max(1 - scale/||v||, 0)``.  ``group_size`` is static.  The
+    norms sum in an order set by ``group_size`` alone
+    (:func:`~zfista_tpu_torch.ops.precision.lane_sum`), so a group's
+    result has the same bits whatever the groups or lanes beside it: in a
+    whole vector, in a rank's block of it and in a lane of a batch.
     """
     n = x.shape[-1]
     if n % group_size:
         raise ValueError(f"n={n} not divisible by group_size={group_size}")
     v = x.reshape(*x.shape[:-1], n // group_size, group_size)
-    norms = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-    shrink = torch.clamp_min(1.0 - scale / torch.clamp_min(norms, 1e-30), 0.0)
-    return (v * shrink).reshape(x.shape)
+    return shrink_groups(v, lane_sum(v * v), scale).reshape(x.shape)
+
+
+def shrink_groups(v: Array, sq: Array, scale: ArrayLike) -> Array:
+    """Block soft-thresholding of the groups ``v (..., groups, size)``
+    given their squared norms ``sq (..., groups)``: each group maps to
+    ``v * max(1 - scale/||v||, 0)``."""
+    norms = torch.sqrt(sq)[..., None]
+    return v * torch.clamp_min(1.0 - scale / torch.clamp_min(norms, 1e-30), 0.0)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from zfista_tpu_torch._typing import Array, Scalar
+from zfista_tpu_torch.ops.precision import sum_hp
 
 #: The method that pins the pipelined tile kernel, which ``"auto"`` picks
 #: at no size (:func:`zfista_tpu_torch.ops.tv_cuda.choose`); on a CPU
@@ -68,8 +69,8 @@ def tv2d(u: Array, isotropic: bool = True) -> Array:
     """
     px, py = _grad2d(u)
     if isotropic:
-        return torch.sum(torch.sqrt(px * px + py * py))
-    return torch.sum(torch.abs(px)) + torch.sum(torch.abs(py))
+        return sum_hp(torch.sqrt(px * px + py * py))
+    return sum_hp(torch.abs(px)) + sum_hp(torch.abs(py))
 
 
 def check_method(method: str) -> str:

@@ -60,8 +60,16 @@ from zfista_tpu_torch.core.solver import (
 )
 from zfista_tpu_torch.parallel.sharding import (
     NamedSharding,
+    P,
     all_reduce_max,
+    all_reduce_sum,
+    batch_sharding,
+    block,
+    feature_sharding,
+    gather,
     gather_numpy,
+    lanes_on_operator,
+    operator_of,
     sharding_of,
 )
 
@@ -375,20 +383,30 @@ def _sharded_solve(
     returns the whole batch.  Lanes share nothing, so the lanes' results
     are bitwise what the unsharded batch computes for them.
 
-    An input tagged as a rank's block (``distribute_batch``) is this rank's
-    lanes already; any other is the whole batch, of which the rank takes
-    its lanes.
+    With a placement ``P("batch", "model")`` the lanes are also laid out
+    by features over the ``"model"`` ranks: the callables reduce their
+    products over them, and the step all-reduces each lane's sums and
+    maxima over features, so the ranks of a ``"model"`` line take the same
+    decisions.
+
+    An input tagged as a rank's block (``distribute_batch``,
+    ``distribute_global`` with ``P("batch", "model")``) is this rank's
+    block already; any other is the whole batch, of which the rank takes
+    its block.
     """
     if not isinstance(sharding, NamedSharding):
         raise TypeError(
             f"in_sharding is a placement of zfista_tpu_torch.parallel.sharding "
             f"(batch_sharding(mesh)); got {type(sharding).__name__}"
         )
-    if (sharding.dim, sharding.axis) != ("batch", 0):
+    if sharding.named not in (((0, "batch"),), ((0, "batch"), (1, "model"))):
         raise ValueError(
-            f"in_sharding places lanes over the 'batch' axis (P('batch')); got {sharding.spec!r}"
+            "in_sharding places lanes over the 'batch' axis (P('batch'), or "
+            f"P('batch', 'model') with the features); got {sharding.spec!r}"
         )
     mesh = sharding.mesh
+    features = feature_sharding(mesh) if len(sharding.named) == 2 else None
+    lanes_sh = batch_sharding(mesh)
     k, i = mesh.size("batch"), mesh.index("batch")
 
     def lanes(a):
@@ -405,8 +423,10 @@ def _sharded_solve(
         return a[i * n : (i + 1) * n]
 
     x0_loc = lanes(x0s)
+    if features is not None and (sharding_of(x0s) is None or len(sharding_of(x0s).named) == 1):
+        x0_loc = block(x0_loc.view(x0_loc.shape), NamedSharding(mesh, P(None, "model")))
     params_loc = None if batch_params is None else _tree_map(lanes, batch_params)
-    part = minimize_proximal_gradient_batch(
+    part = _solve_lanes(
         f,
         g,
         jac_f,
@@ -418,6 +438,8 @@ def _sharded_solve(
         ),
         initial_states=None if initial_states is None else _tree_map(lanes, initial_states),
         keep_state=keep_state,
+        start=start,
+        features=features,
         **solver_kwargs,
     )
     dev = x0_loc.device
@@ -427,7 +449,7 @@ def _sharded_solve(
         # Ranks stop at different step counts: pad to the longest
         # (history_mask False), as the lane-chunk merge does.
         T = int(all_reduce_max(
-            torch.tensor([float(np.asarray(part.allfuns).shape[1])], device=dev), sharding.group
+            torch.tensor([float(np.asarray(part.allfuns).shape[1])], device=dev), lanes_sh.group
         )[0])
     res = BatchResult()
     for key, v in part.items():
@@ -437,12 +459,12 @@ def _sharded_solve(
             if key in hist_keys and v.shape[1] < T:
                 widths = [(0, 0), (0, T - v.shape[1])] + [(0, 0)] * (v.ndim - 2)
                 v = np.pad(v, widths, constant_values=False if v.dtype == np.bool_ else np.nan)
-            res[key] = gather_numpy(v, sharding, dev)
+            res[key] = gather_numpy(v, lanes_sh, dev)
         else:
             res[key] = v
     res.state = (
         None if part.get("state") is None
-        else State(*(gather_numpy(np.asarray(a), sharding, dev) for a in part.state))
+        else State(*(gather_numpy(np.asarray(a), lanes_sh, dev) for a in part.state))
     )
     res.time = _time.perf_counter() - start
     return res
@@ -519,12 +541,23 @@ def minimize_proximal_gradient_batch(
     ``batch_nesterov_ratio`` and ``initial_states`` over the mesh's
     ``"batch"`` ranks (``B`` must divide by their count); each rank solves
     its lanes and returns the whole batch, bitwise the unsharded one.
+    ``P("batch", "model")`` also lays each lane out by features over the
+    ``"model"`` ranks, for callables on a feature-sharded operator; the
+    sweep factories' callables on a column block carry its placement
+    (:func:`~zfista_tpu_torch.parallel.sharding.mark_operator`), which
+    gives that placement on its mesh
+    (:func:`~zfista_tpu_torch.parallel.sharding.lanes_on_operator`).
     Combining it with ``lane_chunk`` raises.
 
     Returns a :class:`BatchResult`; per-solve views via ``.to_list()``.
     """
     start = _time.perf_counter()
     sharding = in_sharding if in_sharding is not None else sharding_of(x0s)
+    op = operator_of(f, g, jac_f, prox_wsum_g)
+    if op is not None:
+        # Callables on a feature-sharded operator: the lanes lie on its
+        # mesh, by features too.
+        sharding = lanes_on_operator(op, sharding)
     dev = _solve_device(x0s, batch_params, device)
     x0s = torch.as_tensor(x0s, device=dev)
     if x0s.ndim != 2:
@@ -611,6 +644,63 @@ def minimize_proximal_gradient_batch(
             start=start,
             solver_kwargs=solver_kwargs,
         )
+    return _solve_lanes(
+        f,
+        g,
+        jac_f,
+        prox_wsum_g,
+        x0s,
+        batch_params=batch_params,
+        batch_nesterov_ratio=batch_nesterov_ratio,
+        initial_states=initial_states,
+        keep_state=keep_state,
+        start=start,
+        features=None,
+        **solver_kwargs,
+    )
+
+
+def _solve_lanes(
+    f,
+    g,
+    jac_f,
+    prox_wsum_g,
+    x0s: torch.Tensor,
+    *,
+    batch_params,
+    batch_nesterov_ratio,
+    initial_states,
+    keep_state,
+    start,
+    features: NamedSharding | None,
+    lr,
+    tol,
+    tol_rel,
+    tol_internal,
+    tol_internal_rel,
+    max_iter,
+    max_iter_internal,
+    max_backtrack_iter,
+    warm_start,
+    decay_rate,
+    nesterov,
+    nesterov_ratio,
+    deprecated,
+    history,
+    history_chunk,
+    record_vecs,
+    check_every,
+    adaptive_restart,
+    project_momentum,
+    iter_chunk,
+    device,
+) -> BatchResult:
+    """The batch on this process: every lane of ``x0s`` (a rank's lanes
+    under ``in_sharding``) through the lane-masked step.  ``features``
+    (``P("model")`` on the mesh) means the lanes are this rank's feature
+    blocks: the step reduces over the ``"model"`` ranks, and the result
+    holds whole iterates."""
+    dev = device
     check_every = int(check_every)
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -623,10 +713,26 @@ def minimize_proximal_gradient_batch(
                 "check_every > 1 is ignored when iter_chunk is set (the "
                 "chunked driver runs plain masked steps and re-checks "
                 "between chunks).",
-                stacklevel=2,
+                stacklevel=3,
             )
-    # The host copy of x0s for the result, before the device does any work.
-    x0s_res = x0s.detach().cpu().numpy().copy()
+    to_numpy = state_to_numpy
+    feature_sum = feature_max = None
+    if features is not None:
+        group = features.group
+        feature_sum = lambda v: all_reduce_sum(v, group)
+        feature_max = lambda v: all_reduce_max(v, group)
+
+        def whole(t: torch.Tensor) -> torch.Tensor:
+            """The lanes' whole iterates from their feature blocks."""
+            return gather(t, features, axis=t.dim() - 1)
+
+        def to_numpy(s: State) -> State:
+            return state_to_numpy(s._replace(x=whole(s.x), y=whole(s.y)))
+
+        x0s_res = whole(x0s).cpu().numpy()
+    else:
+        # The host copy of x0s for the result, before the device does any work.
+        x0s_res = x0s.detach().cpu().numpy().copy()
     B = int(x0s.shape[0])
 
     params = None
@@ -683,11 +789,17 @@ def minimize_proximal_gradient_batch(
         project_momentum=bool(project_momentum),
         track_objective=not skip_F,
         max_iter=max_iter,
+        feature_sum=feature_sum,
+        feature_max=feature_max,
     )
     v_F = _over_lanes(lambda x, *p: f_v(x, *p) + g_v(x, *p), 1, params)
 
     if initial_states is not None:
         states = State(*(_to_device(v, dev) for v in initial_states))
+        if features is not None:
+            # Whole iterates, as a result's state holds them: this rank's block.
+            split = NamedSharding(features.mesh, P(None, "model"))
+            states = states._replace(x=block(states.x, split), y=block(states.y, split))
     else:
         states = _init_states(x0s, v_F(x0s), m, lr)
     any_active = lambda s: torch.any(_active(s, max_iter))
@@ -698,7 +810,7 @@ def minimize_proximal_gradient_batch(
             warnings.warn(
                 "check_every > 1 is ignored when history=True (the history "
                 "driver records every iteration).",
-                stacklevel=2,
+                stacklevel=3,
             )
         chunk = int(history_chunk)
         if chunk < 1:
@@ -709,10 +821,12 @@ def minimize_proximal_gradient_batch(
         # history; the resume iterate heads allvecs on a resumed run.
         F0 = states.F_x.cpu().numpy()
         if record_vecs and initial_states is not None:
-            vec_head = states.x.cpu().numpy()
+            vec_head = to_numpy(states).x
         states, allfuns, allerrs, hist_mask, allvecs = _run_history(
             step, states, max_iter, chunk, record_vecs
         )
+        if features is not None and allvecs is not None:
+            allvecs = gather_numpy(allvecs, features, dev, axis=2)
     else:
         states = run_masked(
             step, states, any_active, iter_chunk if iter_chunk is not None else check_every
@@ -720,7 +834,7 @@ def minimize_proximal_gradient_batch(
         if skip_F:
             states = states._replace(F_x=v_F(states.x))
 
-    host = state_to_numpy(states)
+    host = to_numpy(states)
     elapsed = _time.perf_counter() - start
     return _pack_result(
         host,

@@ -40,6 +40,7 @@ from zfista_tpu_torch.parallel.sharding import (
     NamedSharding,
     batch_sharding,
     distribute,
+    gather,
     gather_along,
     make_mesh,
     rank_device,
@@ -182,8 +183,9 @@ def all_processes_allclose(local_value: Any, **kw) -> bool:
 
 def _parity_worker(args: argparse.Namespace) -> None:
     """Solve a LASSO λ-sweep batch and an m=3 momentum-pair batch sharded
-    over every rank, and a LASSO feature-sharded over every rank, each
-    against the same solve unsharded on this rank's device."""
+    over every rank, a LASSO feature-sharded over every rank and, on an
+    even process count, lane batches on the two-axis mesh, each against
+    the same solve unsharded on this rank's device."""
     from zfista_tpu_torch.models import TRIDIA
     from zfista_tpu_torch.models.lasso import Lasso, make_lasso_lambda_sweep
     from zfista_tpu_torch.parallel.batch import minimize_proximal_gradient_batch
@@ -262,7 +264,63 @@ def _parity_worker(args: argparse.Namespace) -> None:
         np.savez(args.out, x=res_tp.x, nit=res_tp.nit, A=A, b=b, lr=1.0 / L)
     print(f"TP_PARITY_OK process={args.process_id}/{args.num_processes} "
           f"model={n_dev}", flush=True)
+    if n_dev % 2 == 0:
+        _two_axis_parity(args, dev, n_dev)
     shutdown()
+
+
+def _two_axis_parity(args: argparse.Namespace, dev: torch.device, n_dev: int) -> None:
+    """The ``("batch", "model")`` mesh of ``__graft_entry__.dryrun_multichip``
+    (``model = 2`` on an even process count): the vmapped dense step and a
+    λ sweep with lanes over ``"batch"`` and features over ``"model"``, each
+    against the same lanes unsharded on this rank's device (equal ``nit``,
+    x within 1e-10)."""
+    from zfista_tpu_torch.models.lasso import Lasso, fista_step_dense, make_lasso_lambda_sweep
+    from zfista_tpu_torch.parallel.batch import minimize_proximal_gradient_batch
+
+    model = 2
+    mesh = global_mesh(batch=n_dev // model, model=model)
+    B, m, n = 2 * (n_dev // model), 16, 8 * model
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    b = torch.as_tensor(rng.standard_normal(m), device=dev)
+    X0 = rng.uniform(-1.0, 1.0, (B, n))
+    A_g = distribute_global(A, mesh, P(None, "model"), dev)
+    A_t = torch.as_tensor(A, device=dev)
+
+    # The dp x tp step: vmap(fista_step_dense) on P("batch", "model") lanes.
+    lam, lr = (torch.tensor(v, dtype=torch.float64, device=dev) for v in (0.1, 1e-3))
+
+    def steps(A_, X, k=50):
+        step = torch.func.vmap(lambda x, y, t: fista_step_dense(A_, b, lam, lr, (x, y, t)))
+        c = (X, X, torch.ones(X.shape[0], dtype=X.dtype, device=dev))
+        for _ in range(k):
+            c = step(*c)
+        return c[0]
+
+    x_sh = steps(A_g, distribute_global(X0, mesh, P("batch", "model"), dev))
+    x_sh = gather(x_sh, NamedSharding(mesh, P("batch", "model"))).cpu().numpy()
+    np.testing.assert_allclose(x_sh, steps(A_t, torch.as_tensor(X0, device=dev)).cpu().numpy(),
+                               rtol=0, atol=1e-10)
+
+    # A λ sweep and Lasso.solve_batch from random starts, to convergence.
+    L = float(2 * np.linalg.norm(A, 2) ** 2)
+    lams = torch.as_tensor(np.linspace(0.05, 0.5, B), device=dev)
+    kw = dict(lr=1.0 / L, nesterov=True, max_iter=20000)
+    runs = (
+        lambda A_, x0: minimize_proximal_gradient_batch(
+            *make_lasso_lambda_sweep(A_, b), x0, batch_params=lams, **kw),
+        lambda A_, x0: Lasso(A_, b, l1_ratio=0.05).solve_batch(x0, decay_rate=1, **kw),
+    )
+    for run in runs:
+        sh = run(A_g, torch.as_tensor(X0, device=dev))
+        whole = run(A_t, torch.as_tensor(X0, device=dev))
+        assert bool(np.all(sh.success)), "two-axis batch: unconverged lanes"
+        np.testing.assert_array_equal(sh.nit, whole.nit)
+        np.testing.assert_allclose(sh.x, whole.x, rtol=0, atol=1e-10)
+        assert all_processes_allclose(sh.x, atol=0, rtol=0)
+    print(f"MESH2D_PARITY_OK process={args.process_id}/{args.num_processes} "
+          f"mesh=({n_dev // model}, {model}) batch={B}", flush=True)
 
 
 def main(argv=None) -> None:

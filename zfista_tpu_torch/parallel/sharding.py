@@ -41,10 +41,13 @@ import torch
 import torch.distributed as dist
 
 from zfista_tpu_torch.core.solver import data_device
+from zfista_tpu_torch.ops.precision import _over_lanes
 
 AXIS_NAMES = ("batch", "model")
 #: The attribute that tags a local block with its placement.
 _TAG = "_zfista_sharding"
+#: The attribute that marks a problem callable with its operator's placement.
+_OPERATOR = "_zfista_operator"
 
 
 def _world() -> tuple[int, int]:
@@ -122,30 +125,47 @@ P = PartitionSpec
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A placement: ``mesh``, and ``spec`` naming the one mesh axis
-    (``dim``) that splits one tensor axis (``axis``) into equal blocks; a
-    spec with no axis named is a replicated placement."""
+    """A placement: ``mesh``, and ``spec`` naming which mesh axis splits
+    which tensor axis into equal blocks, each mesh axis at most once.  A
+    spec with no axis named is a replicated placement; ``P("batch",
+    "model")`` lays a ``(B, n)`` lane batch out by lanes and by features,
+    as the JAX spec does.  :attr:`dim`, :attr:`axis` and :attr:`group`
+    describe a spec that names one axis (or none) and raise on one that
+    names two; :attr:`named` lists every split."""
 
     mesh: Mesh
     spec: PartitionSpec
 
     def __post_init__(self) -> None:
-        named = [(i, d) for i, d in enumerate(self.spec) if d is not None]
-        if len(named) > 1 or any(d not in AXIS_NAMES for _, d in named):
+        dims = [d for d in self.spec if d is not None]
+        if any(d not in AXIS_NAMES for d in dims) or len(set(dims)) != len(dims):
             raise ValueError(
-                f"a spec names at most one of the mesh axes {AXIS_NAMES}; got {self.spec!r}"
+                f"a spec names each of the mesh axes {AXIS_NAMES} at most once; got {self.spec!r}"
             )
         object.__setattr__(self, "spec", PartitionSpec(*self.spec))
 
     @property
+    def named(self) -> tuple[tuple[int, str], ...]:
+        """``(tensor axis, mesh axis)`` of every split, in tensor-axis order."""
+        return tuple((i, d) for i, d in enumerate(self.spec) if d is not None)
+
+    def _one(self) -> tuple[int, str] | None:
+        named = self.named
+        if len(named) > 1:
+            raise ValueError(f"{self.spec!r} splits {len(named)} tensor axes; read .named")
+        return named[0] if named else None
+
+    @property
     def dim(self) -> str | None:
         """The mesh axis that splits the tensor (None: replicated)."""
-        return next((d for d in self.spec if d is not None), None)
+        one = self._one()
+        return None if one is None else one[1]
 
     @property
     def axis(self) -> int | None:
         """The tensor axis it splits (None: replicated)."""
-        return next((i for i, d in enumerate(self.spec) if d is not None), None)
+        one = self._one()
+        return None if one is None else one[0]
 
     @property
     def group(self):
@@ -210,6 +230,41 @@ def tag(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return t
 
 
+def mark_operator(fn, A: Any):
+    """Mark the problem callable ``fn`` as built on ``A``: when ``A`` is a
+    feature-sharded operator's column block, the batch solver reads the
+    mark and lays the lanes out by features too (``P("batch",
+    "model")``).  Returns ``fn``."""
+    sh = sharding_of(A)
+    if sh is not None:
+        setattr(fn, _OPERATOR, sh)
+    return fn
+
+
+def operator_of(*fns) -> NamedSharding | None:
+    """The placement of the feature-sharded operator the callables were
+    built on (:func:`mark_operator`), or None."""
+    return next((getattr(f, _OPERATOR) for f in fns if hasattr(f, _OPERATOR)), None)
+
+
+def lanes_on_operator(op: NamedSharding, given: Any = None) -> Any:
+    """The placement of a lane batch whose callables close over the
+    feature-sharded operator placed by ``op``: ``P("batch", "model")`` on
+    its mesh.  ``given`` (the caller's ``in_sharding``) must lie on that
+    mesh; one that places the lanes alone (``P("batch")``) gains the
+    features, and any other is returned as it is, for the batch solver to
+    check."""
+    if given is None:
+        return NamedSharding(op.mesh, P("batch", "model"))
+    if not isinstance(given, NamedSharding):
+        return given
+    if not np.array_equal(given.mesh.devices, op.mesh.devices):
+        raise ValueError(f"in_sharding lies on {given.mesh!r}, the operator on {op.mesh!r}")
+    if given.named == ((0, "batch"),):
+        return NamedSharding(given.mesh, P("batch", "model"))
+    return given
+
+
 def rank_device(device: Any = None) -> torch.device:
     """The device this rank's blocks live on: ``device`` if given, else the
     rank's card (the current CUDA device, which
@@ -223,16 +278,18 @@ def rank_device(device: Any = None) -> torch.device:
 
 
 def block(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """This rank's block of ``full`` (a view) along the placement's axis."""
-    if sharding.dim is None:
-        return full
-    k, i, ax = sharding.mesh.size(sharding.dim), sharding.mesh.index(sharding.dim), sharding.axis
-    n = full.shape[ax]
-    if n % k:
-        raise ValueError(
-            f"axis {ax} of length {n} does not divide into {k} blocks along {sharding.dim!r}"
-        )
-    return full.narrow(ax, i * (n // k), n // k)
+    """This rank's block of ``full`` (a view) along every axis the
+    placement splits."""
+    out = full
+    for ax, dim in sharding.named:
+        k, i = sharding.mesh.size(dim), sharding.mesh.index(dim)
+        n = out.shape[ax]
+        if n % k:
+            raise ValueError(
+                f"axis {ax} of length {n} does not divide into {k} blocks along {dim!r}"
+            )
+        out = out.narrow(ax, i * (n // k), n // k)
+    return out
 
 
 def distribute(arr: Any, sharding: NamedSharding, device: Any = None) -> torch.Tensor:
@@ -255,14 +312,75 @@ def shard_batch(x0s: Any, mesh: Mesh | None = None, device: Any = None) -> torch
 # -- collectives ---------------------------------------------------------------
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of ``group`` (a fresh tensor); ``t``
-    itself with no group."""
-    if group is None:
-        return t
+#: All-reduces this process has issued, by kind ("sum", "max", "gather"):
+#: the tests and ``chip_smoke.py`` count collectives per step with it.
+collective_counts = {"sum": 0, "max": 0, "gather": 0}
+#: The process groups the collectives below were called on, by the key the
+#: custom operators take (an operator's arguments cannot be a group).
+_GROUPS: list = []
+
+
+def _group_key(group) -> int:
+    for i, g in enumerate(_GROUPS):
+        if g is group:
+            return i
+    _GROUPS.append(group)
+    return len(_GROUPS) - 1
+
+
+def _sum_now(t: torch.Tensor, group) -> torch.Tensor:
     out = t.reshape(-1).clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    collective_counts["sum"] += 1
     return out.reshape(t.shape)
+
+
+def _max_now(t: torch.Tensor, group) -> torch.Tensor:
+    flat = t.reshape(-1)
+    nan = torch.isnan(flat)
+    packed = torch.cat([torch.where(nan, -torch.inf, flat), nan.to(flat.dtype)])
+    dist.all_reduce(packed, op=dist.ReduceOp.MAX, group=group)
+    collective_counts["max"] += 1
+    k = flat.numel()
+    return torch.where(packed[k:] > 0, torch.nan, packed[:k]).reshape(t.shape)
+
+
+# The two reductions as operators with a batching rule, so that the
+# callables the batch solver runs under ``torch.func.vmap`` can reduce over
+# the ranks: ``dist.all_reduce`` writes in place and cannot run on a lane
+# of a vmapped tensor.  The rule reduces the whole tensor of every lane at
+# once, so a vmapped product costs one all-reduce for all of a rank's
+# lanes, never one per lane.  Each element is reduced alone, so every lane
+# gets the bits a call on that lane alone would give.
+@torch.library.custom_op("zfista_tpu_torch::all_reduce_sum", mutates_args=())
+def _sum_op(t: torch.Tensor, group: int) -> torch.Tensor:
+    return _sum_now(t, _GROUPS[group])
+
+
+@_sum_op.register_vmap
+def _sum_op_lanes(info, in_dims, t, group):
+    return _sum_now(t, _GROUPS[group]), in_dims[0]
+
+
+@torch.library.custom_op("zfista_tpu_torch::all_reduce_max", mutates_args=())
+def _max_op(t: torch.Tensor, group: int) -> torch.Tensor:
+    return _max_now(t, _GROUPS[group])
+
+
+@_max_op.register_vmap
+def _max_op_lanes(info, in_dims, t, group):
+    return _max_now(t, _GROUPS[group]), in_dims[0]
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (a fresh tensor); ``t``
+    itself with no group.  Under ``torch.func.vmap`` one all-reduce serves
+    every lane."""
+    if group is None:
+        return t
+    if _over_lanes(t):
+        return _sum_op(t, _group_key(group))
+    return _sum_now(t, group)
 
 
 def feature_sum(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -276,15 +394,13 @@ def feature_sum(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of ``t`` over the ranks of ``group``, NaN where
     any rank's is NaN (as ``torch.amax`` carries NaN: the backends' MAX
-    need not).  One all-reduce of the values beside their NaN flags."""
+    need not).  One all-reduce of the values beside their NaN flags; under
+    ``torch.func.vmap`` one for every lane."""
     if group is None:
         return t
-    flat = t.reshape(-1)
-    nan = torch.isnan(flat)
-    packed = torch.cat([torch.where(nan, -torch.inf, flat), nan.to(flat.dtype)])
-    dist.all_reduce(packed, op=dist.ReduceOp.MAX, group=group)
-    k = flat.numel()
-    return torch.where(packed[k:] > 0, torch.nan, packed[:k]).reshape(t.shape)
+    if _over_lanes(t):
+        return _max_op(t, _group_key(group))
+    return _max_now(t, group)
 
 
 def gather_along(local: torch.Tensor, axis: int, group, size: int, index: int) -> torch.Tensor:
@@ -302,18 +418,23 @@ def gather_along(local: torch.Tensor, axis: int, group, size: int, index: int) -
     full = torch.full(shape, fill, dtype=buf_dtype, device=local.device)
     full.narrow(axis, index * n, n).copy_(local)
     dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+    collective_counts["gather"] += 1
     return full.to(dtype)
 
 
 def gather(local: torch.Tensor, sharding: NamedSharding, axis: int | None = None) -> torch.Tensor:
     """The global array from every rank's block of ``sharding`` (on every
-    rank).  ``axis`` overrides the placement's tensor axis (a stack of
-    blocks, such as recorded iterates)."""
-    if sharding.dim is None:
-        return local
-    mesh, dim = sharding.mesh, sharding.dim
-    ax = sharding.axis if axis is None else axis
-    return gather_along(local, ax, mesh.group(dim), mesh.size(dim), mesh.index(dim))
+    rank), gathered along each axis the placement splits.  ``axis``
+    overrides a one-axis placement's tensor axis (a stack of blocks, such
+    as recorded iterates)."""
+    named = sharding.named
+    if axis is not None:
+        one = sharding._one()
+        named = () if one is None else ((axis, one[1]),)
+    out, mesh = local, sharding.mesh
+    for ax, dim in named:
+        out = gather_along(out, ax, mesh.group(dim), mesh.size(dim), mesh.index(dim))
+    return out
 
 
 def gather_numpy(a: np.ndarray, sharding: NamedSharding, device: torch.device, axis: int = 0) -> np.ndarray:
