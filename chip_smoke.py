@@ -1,6 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --phases 1-5,14a   # some phases (names, numbers, ranges)
+
+A subset runs what its phases need of the others (the build, the LASSO
+problem and its ``lr``, the pool's tasks), checks what those phases check,
+and prints the same lines at the end; its ``kernels`` line lists the
+kernels its phases ran, with null for what they did not measure.
+
+The fixed-step solves of phases 4, 5, 13d, 14a and 14c run their chunks as
+replayed CUDA graphs (``zfista_tpu_torch.core.solver.run_graphed``): each
+is held bitwise against its ``check_every=1`` solve, its graph replays are
+counted, and phase 4's launch count is held against the profiler's count
+of the step-tail kernel.
 
 Drives the port's three slices on the card and checks every CUDA kernel
 of them against its plain PyTorch version:
@@ -51,16 +63,18 @@ Phases:
    states;
 3. one dense FISTA step, fused against plain, at the full problem size;
 4. the LASSO slice through the public entry point: launch counts (the
-   step tail once per step), agreement with a float64 numpy FISTA loop,
-   the routed ``tol_rel`` solve bitwise equal to the fused tail's,
-   convergence, and ``check_every`` chunking bitwise equal to per-step
-   checking;
+   step tail once per step run, replays counted; after phase 9, against
+   torch.profiler's count of the kernel over ten replays), agreement with
+   a float64 numpy FISTA loop, the routed ``tol_rel`` solve bitwise equal
+   to the fused tail's, convergence, and the graphed chunks
+   (``check_every`` 64 and auto) bitwise equal to per-step checking;
 5. the card's own times of the LASSO slice and of its kernel's entries at
    n = 10^4, 65,536, 10^6 and 10^7 in float32 and 5,000 in float64
    (``bench._card.held_ms``: the calls queued
    behind a stream hold long enough for the host to queue them all), and
    (run after phase 9) device events and busy time per iteration of
-   the public path and the raw loops, by torch.profiler;
+   the public path with eager chunks and with graphs, and of the raw
+   loops, by torch.profiler, with the capture's cost;
 6. the three FGP kernels against the plain loop, bitwise, from 1x105 to
    2048x2048 (the tile windows' edges in float32 and float64; float64 at
    256x256 through the whole-image kernel and at 600x520), both
@@ -117,10 +131,12 @@ Phases:
 14. the models left: (a) the cameraman (examples/cameraman_deblur.py's
     recipe, 256x256 float32) by ``WaveletDeblur.solve()``: one
     ``lasso_step_tail`` launch per step run, ``check_every`` 8 and 64
+    (replayed graphs), a repeat on the cached graph and eager chunks
     bitwise equal to 1, against the float64 CPU solve (F within 1e-4,
     PSNR within 0.05 dB, the first 200 iterations within 1e-4, nit within
     25% of it and of examples/data/cameraman_ab.csv: the count is set at
-    the rounding floor), launches per step by torch.profiler; (b) the
+    the rounding floor), launches per step by torch.profiler (eager and
+    graphed); (b) the
     15-pair sweep by ``python -m zfista_tpu_torch.examples.cameraman_deblur``
     (every pair converged, each lane's F within 1e-4 of (a)'s float64 CPU
     solve, each nit within 25% of the CSV and their mean within 6%,
@@ -130,7 +146,8 @@ Phases:
     default within KKT 2e-4 (its float32 line search shrinks lr), with
     the float32 accept slack and the fixed step within KKT 1e-4, each F
     within 1e-4 of the float64 CPU solve's, the fixed step one
-    ``lasso_step_tail`` launch per step, 50-iteration windows float32
+    ``lasso_step_tail`` launch per step (replayed graphs, bitwise its
+    ``check_every=1`` solve), 50-iteration windows float32
     against float64 (1e-4) and float64 card against CPU (equal counts,
     1e-9); (d) ``GroupLasso`` on the LASSO problem above, groups of 10:
     float32 converges to 1e-6 with and without the accept slack, each F
@@ -891,13 +908,13 @@ def count_host_reads(fn) -> tuple:
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_events(fn, by_name: bool = False) -> tuple:
+def device_events(fn, by_name: bool = False, times: bool = False) -> tuple:
     """``fn()``'s device events by torch.profiler: how many there were
     (kernel launches and copies) and the sum of their own time in µs (one
     stream, no overlap), as the profiler table's "Self CUDA time total"
-    sums them; with ``by_name`` also the count of each event's name.  The
-    host is traced too: tracing the device alone lost events of a long run
-    on the H100."""
+    sums them; with ``by_name`` also the count of each event's name (with
+    ``times``, the count and the µs).  The host is traced too: tracing the
+    device alone lost events of a long run on the H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -911,17 +928,46 @@ def device_events(fn, by_name: bool = False) -> tuple:
         sum(e.count for e in on_device),
         float(sum(e.self_device_time_total for e in on_device)),
     )
-    return out + ({e.key: e.count for e in on_device},) if by_name else out
+    if by_name:
+        out += ({
+            e.key: (e.count, float(e.self_device_time_total)) if times else e.count
+            for e in on_device
+        },)
+    return out
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Chunks launched eagerly on the card, as before the graphed driver
+    (for the times beside the graphs; a tree without the graphed driver
+    runs so anyway)."""
+    from zfista_tpu_torch.core import solver
+
+    real = getattr(solver, "_graphs_run_on", None)
+    if real is not None:
+        solver._graphs_run_on = lambda device: False
+    try:
+        yield
+    finally:
+        if real is not None:
+            solver._graphs_run_on = real
 
 
 def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]:
     """Per iteration of the fixed-step LASSO slice (the module's problem at
     full width): wall µs without the profiler (three runs in turns, the
     least), then device events and their busy µs with it, for the public
-    path (``Lasso.solve_fixed_step``, tol 0, ``iters`` iterations) and the
-    raw loops over the fused and the plain dense step.  It drives only the
-    port's public functions, so run from the root of another tree of the
-    repository with this file copied there, it measures that tree."""
+    path (``Lasso.solve_fixed_step``, tol 0, ``iters`` iterations) with its
+    chunks launched eagerly ("public") and replayed as CUDA graphs
+    ("public (graph)", a repeat solve on the cached graph), and the raw
+    loops over the fused and the plain dense step; then the capture's ms
+    and a first solve (a fresh ``Lasso``: one eager chunk, the capture,
+    the replays) against a repeat solve, in turns.  It drives the port's
+    public functions (and the solver's switch between graphed and eager
+    chunks, where the tree has one), so run from the root of another tree
+    of the repository with this file copied there, it measures that
+    tree."""
+    from zfista_tpu_torch.core import solver
     from zfista_tpu_torch.models import Lasso
     from zfista_tpu_torch.models.lasso import fista_step_dense
     from zfista_tpu_torch.ops import fused
@@ -941,11 +987,18 @@ def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]
                 c = step(A, b, lam, lr, c)
         return run
 
-    runs = {
-        "public": lambda: quiet(prob.solve_fixed_step, x0, lr=lr_f, tol=0, max_iter=iters),
-        "raw_fused": raw(fused.fista_step_dense_fused),
-        "raw_plain": raw(fista_step_dense),
-    }
+    def public():
+        return quiet(prob.solve_fixed_step, x0, lr=lr_f, tol=0, max_iter=iters)
+
+    def public_eager():
+        with eager_chunks():
+            return public()
+
+    graphs = hasattr(solver, "run_graphed")
+    runs = {"public": public_eager if graphs else public}
+    if graphs:
+        runs["public (graph)"] = public
+    runs.update(raw_fused=raw(fused.fista_step_dense_fused), raw_plain=raw(fista_step_dense))
     for fn in runs.values():
         fn()
     walls: dict[str, list[float]] = {k: [] for k in runs}
@@ -965,6 +1018,27 @@ def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]
             f"(least of {[round(w, 1) for w in walls[k]]}, no profiler); torch.profiler: "
             f"{n_events / iters:.2f} device events/iteration, busy {busy / iters:.1f} us/iteration "
             f"(share of that wall {busy / iters / min(walls[k]):.3f})"
+        )
+    if graphs:
+        # A cache miss: a fresh Lasso (new params) runs one chunk eagerly,
+        # captures it and replays the rest; a repeat solve only replays.
+        first: list[float] = []
+        repeat: list[float] = []
+        capture: list[float] = []
+        for k in ("first", "repeat", "repeat", "first"):
+            if k == "first":
+                fresh = Lasso(A, b, LAM)
+                first.append(1e3 * sync_time(
+                    lambda: quiet(fresh.solve_fixed_step, x0, lr=lr_f, tol=0, max_iter=iters)))
+                capture.append(next(reversed(solver._GRAPHS.values())).capture_ms)
+            else:
+                repeat.append(1e3 * sync_time(public))
+        out["capture"] = {"capture_ms": min(capture), "first_ms": min(first), "repeat_ms": min(repeat)}
+        log(
+            f"lasso loops [{card}]: public (graph), {iters} iterations: a first solve (fresh "
+            f"Lasso: one eager chunk, the capture, the replays) {[round(v, 3) for v in first]} ms, "
+            f"a repeat solve {[round(v, 3) for v in repeat]} ms, in turns; the capture alone "
+            f"{[round(v, 3) for v in capture]} ms of host time"
         )
     return out
 
@@ -1414,7 +1488,7 @@ def phase12a(card: str, dev, results: dict, singles: dict) -> None:
                 or (full and not np.array_equal(fc["status"], fp["status"]))
                 or abs(inner_c - inner_p) > 0.25 * inner_p
             )
-            one = singles[(p.name, v)]
+            one = singles.get((p.name, v))
             msg = (
                 f"phase 12a [{card}]: {p.name} / {v} (m={m}), {BATCH_STARTS} starts: window "
                 f"({WINDOW} iterations) card {wc['wall']:.3f} s, CPU {wp['wall']:.3f} s; inner "
@@ -1427,11 +1501,14 @@ def phase12a(card: str, dev, results: dict, singles: dict) -> None:
                     f"; to the end: card {fc['wall']:.3f} s, CPU {fp['wall']:.3f} s (statuses "
                     f"{np.bincount(fc['status'], minlength=3).tolist()}, equal card and CPU: "
                     f"{np.array_equal(fc['status'], fp['status'])}, nit mean "
-                    f"{float(np.mean(fc['nit'])):.1f} max {int(np.max(fc['nit']))}); one start "
-                    f"alone (phase 10): card {one['cuda'][0]:.3f} s, CPU {one['cpu'][0]:.3f} s, "
-                    f"{BATCH_STARTS} of them one by one on one CPU core ~"
-                    f"{BATCH_STARTS * one['cpu'][0]:.1f} s"
+                    f"{float(np.mean(fc['nit'])):.1f} max {int(np.max(fc['nit']))})"
                 )
+                if one is not None:  # phase 10 ran
+                    msg += (
+                        f"; one start alone (phase 10): card {one['cuda'][0]:.3f} s, CPU "
+                        f"{one['cpu'][0]:.3f} s, {BATCH_STARTS} of them one by one on one CPU "
+                        f"core ~{BATCH_STARTS * one['cpu'][0]:.1f} s"
+                    )
             log(msg)
             for j in outside:
                 log(
@@ -1812,21 +1889,26 @@ def phase13c(card: str, dev, results: dict) -> None:
 def phase13d(card: str) -> None:
     """``gap_bench.run()`` at its defaults on the card: both targets
     reached, the tighter not sooner, both walls positive; the raw loop
-    launches ``fista_tail``, the public pass ``lasso_step_tail``."""
+    launches ``fista_tail``, the public pass ``lasso_step_tail`` from
+    replayed chunk graphs."""
     from zfista_tpu_torch.bench import gap_bench
     from zfista_tpu_torch.ops import fused
 
     zero(fused.launch_counts)
+    replays = graph_replays()
     rec = gap_bench.run()
     torch.cuda.synchronize()
     launched = dict(fused.launch_counts)
-    log(f"phase 13d [{card}]: gap_bench.run(): {json.dumps(rec)}; kernel launches {launched}")
+    replays = graph_replays() - replays
+    log(f"phase 13d [{card}]: gap_bench.run(): {json.dumps(rec)}; kernel launches {launched}; "
+        f"the public pass's chunks: {replays} graph replays")
     rows = {r["target"]: r for r in rec["rows"]}
     ok = (
         all(r["iterations"] is not None and r["raw_s"] > 0 and r["public_s"] > 0 for r in rows.values())
         and rows[1e-8]["iterations"] >= rows[1e-6]["iterations"]
         and launched["fista_tail"] > 0
         and launched["lasso_step_tail"] > 0
+        and replays > 0
     )
     if not ok:
         raise AssertionError("phase 13d: a gap target was not reached")
@@ -2201,7 +2283,7 @@ def phase14_tasks(dev, card14: dict) -> list:
         ("wavelet_windows",),
         ("model_cpu", "logistic"),
         ("model_cpu", "group_lasso"),
-        ("windows", "logistic", card14["logistic_lr"]),
+        ("windows", "logistic", card14.get("logistic_lr")),
         ("windows", "group_lasso", None),
     ]
 
@@ -2215,20 +2297,33 @@ def phase14a(card: str, dev) -> dict:
     as one batch over the first ``AGREE_ITERS`` iterations, through the
     example's ``momentum_sweep`` (held against the CPU later)."""
     from zfista_tpu_torch.bench.momentum_sweep import momentum_sweep
+    from zfista_tpu_torch.core import solver
     from zfista_tpu_torch.models import WaveletDeblur
     from zfista_tpu_torch.ops import fused
 
     truth, kernel, observed = cameraman_scene(torch.float32, dev)
     prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
-    runs, walls, launches = {}, {}, {}
+    runs, walls, launches, replays = {}, {}, {}, {}
     for ce in (None, 8, 1):
+        before = graph_replays()
         zero(fused.launch_counts)  # a main-path solve starts here
         t0 = time.perf_counter()
         runs[ce] = prob.solve(tol=WL_TOL, max_iter=WL_MAX_ITER, check_every=ce)
         torch.cuda.synchronize()
         walls[ce] = time.perf_counter() - t0
         launches[ce] = fused.launch_counts["lasso_step_tail"]  # ... and ends here
+        replays[ce] = graph_replays() - before
+    # The solve again, on the cached graph, and with its chunks launched
+    # eagerly (the driver before the graphs): wall per step of each.
+    for ce, label in ((None, "graph, repeat"), ("eager", "eager chunks of 64")):
+        t0 = time.perf_counter()
+        with eager_chunks() if ce == "eager" else contextlib.nullcontext():
+            again = prob.solve(tol=WL_TOL, max_iter=WL_MAX_ITER)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        same_state(again.state, runs[1].state, f"phase 14a: the {label} solve against check_every=1")
     res = runs[None]
+    capture_ms = {k[1]: e.capture_ms for k, e in solver._GRAPHS.items() if k[3][0][1] == (WL_SIDE**2,)}
     steps = {ce: -(-runs[ce].nit // chunk_of(ce, dev)) * chunk_of(ce, dev) for ce in runs}
     log(
         f"phase 14a [{card}]: WaveletDeblur(cameraman {WL_SIDE}x{WL_SIDE} f32, l1_ratio {WL_L1}, "
@@ -2236,17 +2331,25 @@ def phase14a(card: str, dev) -> dict:
         f"nit={res.nit} fun={float(res.fun[0])!r} lr={res.lr!r} wall {walls[None]:.3f} s "
         f"({1e3 * walls[None] / steps[None]:.3f} ms per step run); lasso_step_tail launches "
         f"by check_every {launches} against steps run {steps}; walls "
-        f"{ {k: round(v, 3) for k, v in walls.items()} } s"
+        f"{ {str(k): round(v, 3) for k, v in walls.items()} } s"
     )
     if res.status != 1 or not np.all(np.isfinite(res.x)) or res.x.shape != (WL_SIDE**2,):
         raise AssertionError("phase 14a: the cameraman solve did not converge")
     if launches != steps:
         raise AssertionError(f"phase 14a: lasso_step_tail launches {launches} != steps {steps}")
+    chunks = {ce: steps[ce] // chunk_of(ce, dev) for ce in runs}
+    log(f"phase 14a: chunk-graph replays by check_every {replays} (chunks {chunks}: the first "
+        f"ran eagerly and was captured); the captures by chunk length {capture_ms} ms of host time")
+    if replays != {None: chunks[None] - 1, 8: chunks[8] - 1, 1: 0}:
+        raise AssertionError(f"phase 14a: graph replays {replays} for chunks {chunks}")
     for ce in (8, None):
-        for name, a, c in zip(runs[1].state._fields, runs[1].state, runs[ce].state):
-            if not np.array_equal(a, c):
-                raise AssertionError(f"phase 14a: check_every={ce} differs from 1 in State.{name}")
-    log("phase 14a: check_every=8 and 64 are bitwise equal to check_every=1 (x, nit, State)")
+        same_state(runs[ce].state, runs[1].state, f"phase 14a: check_every={ce} against 1")
+    log("phase 14a: check_every=8 and 64 (replayed graphs), the repeat on the cached graph and "
+        "eager chunks of 64 are bitwise equal to check_every=1 (x, nit, State); wall per step "
+        f"run: graph {1e3 * walls[None] / steps[None]:.3f} ms (with the capture), graph repeat "
+        f"{1e3 * walls['graph, repeat'] / steps[None]:.3f} ms, eager chunks "
+        f"{1e3 * walls['eager chunks of 64'] / steps[None]:.3f} ms, check_every=1 "
+        f"{1e3 * walls[1] / steps[1]:.3f} ms")
     window = quiet(prob.solve, tol=0, max_iter=AGREE_ITERS)
     rng = np.random.default_rng(5)
     spread = [
@@ -2264,6 +2367,7 @@ def phase14a(card: str, dev) -> dict:
         wl_nit=res.nit, wl_fun=float(res.fun[0]), wl_levels=prob.levels,
         wl_psnr=wavelet_psnr(res.x, prob.levels, truth.double().cpu().numpy()),
         wl_window=window.x, wl_launches=launches[None], wl_wall_per_step=walls[None] / steps[None],
+        wl_walls_per_step={k: v / steps[None] for k, v in walls.items() if k not in (8, 1)},
     )
 
 
@@ -2298,6 +2402,26 @@ def phase14c(card: str, dev) -> dict:
     fixed = runs["fixed"]
     steps = -(-fixed.nit // chunk_of(None, dev)) * chunk_of(None, dev)
     launched = fused.launch_counts["lasso_step_tail"]
+    replays = graph_replays()
+    t0 = time.perf_counter()
+    per_step = prob.solve(decay_rate=1, lr=lr, check_every=1)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = prob.solve(decay_rate=1, lr=lr)
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t0
+    replays = graph_replays() - replays
+    same_state(fixed.state, per_step.state, "phase 14c: the graphed fixed step against check_every=1")
+    same_state(again.state, per_step.state, "phase 14c: the repeat on the cached graph against check_every=1")
+    log(
+        f"phase 14c [{card}]: the fixed-step solve (check_every 64, replayed graphs) and its repeat "
+        f"on the cached graph ({replays} replays) are bitwise check_every=1 in every State field; "
+        f"wall per step run: graph {1e3 * walls['fixed'] / steps:.3f} ms (with the capture), repeat "
+        f"{1e3 * wall_again / steps:.3f} ms, check_every=1 {1e3 * wall1 / fixed.nit:.3f} ms"
+    )
+    if replays != steps // chunk_of(None, dev):
+        raise AssertionError(f"phase 14c: {replays} graph replays for {steps} steps")
     for name, r in runs.items():
         bound = KKT_TOL_F32_DEFAULT if name == "default" else KKT_TOL
         if r.status != 1 or not prob.kkt_residual(r.x) <= bound:
@@ -2358,15 +2482,26 @@ def phase14e(card: str) -> None:
             "kernel against plain bitwise: held")
 
 
-def phase14(card: str, dev, card14: dict, results: dict) -> None:
-    """Phase 14's comparisons, after the pool: (a) the card's cameraman
-    solve against the float64 CPU solve and the CSV, and its launches per
-    step by torch.profiler; (b) the 15-pair sweep against the CSV; (c) and
-    (d) the card's windows against the CPU's."""
+def phase14(card: str, dev, card14: dict, results: dict, parts=("14a", "14b", "14c", "14d")) -> None:
+    """Phase 14's comparisons, after the pool, for ``parts``: (a) the card's
+    cameraman solve against the float64 CPU solve and the CSV, and its
+    launches per step by torch.profiler; (b) the 15-pair sweep against the
+    CSV; (c) and (d) the card's windows against the CPU's."""
+    csv = _ab_csv("cameraman")
+    if "14a" in parts:
+        phase14a_cpu(card, dev, card14, results, csv)
+    if "14b" in parts:
+        phase14b(card, dev, card14, results, csv)
+    models = [m for m, part in (("logistic", "14c"), ("group_lasso", "14d")) if part in parts]
+    phase14cd(card14, results, models)
+
+
+def phase14a_cpu(card: str, dev, card14: dict, results: dict, csv: dict) -> None:
+    """(a) after the pool: the card's solve against the float64 CPU solve
+    and the CSV; device events per step, eager and graphed."""
     from zfista_tpu_torch.models import WaveletDeblur
 
     ref = results[("wavelet_cpu",)]
-    csv = _ab_csv("cameraman")
     d_nit = abs(card14["wl_nit"] - ref["nit"]) / ref["nit"]
     d_csv = abs(card14["wl_nit"] - csv[WL_PAIR][1]) / csv[WL_PAIR][1]
     d_f = _rel(card14["wl_fun"], ref["fun"])
@@ -2387,11 +2522,24 @@ def phase14(card: str, dev, card14: dict, results: dict) -> None:
     prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
     n_events, busy = device_events(lambda: quiet(prob.solve, tol=0, max_iter=64))
     log(
-        f"phase 14a [{card}]: torch.profiler over a 64-step solve: {n_events / 64:.2f} device "
-        f"events per step ({n_events} with the set-up), busy {busy / 64:.1f} us per step; wall "
-        f"per step run without the profiler {1e3 * card14['wl_wall_per_step']:.3f} ms"
+        f"phase 14a [{card}]: torch.profiler over a 64-step solve (one chunk: eager): "
+        f"{n_events / 64:.2f} device events per step ({n_events} with the set-up), busy "
+        f"{busy / 64:.1f} us per step; wall per step run without the profiler "
+        f"{ {str(k): round(1e3 * v, 3) for k, v in card14['wl_walls_per_step'].items()} } ms"
+    )
+    quiet(prob.solve, tol=0, max_iter=256)  # the capture, outside the profile
+    n_events, busy = device_events(lambda: quiet(prob.solve, tol=0, max_iter=256))
+    log(
+        f"phase 14a [{card}]: torch.profiler over a 256-step solve on its cached graph (three "
+        f"replays): {n_events / 256:.2f} device events per step ({n_events} with the set-up), "
+        f"busy {busy / 256:.1f} us per step"
     )
 
+
+def phase14b(card: str, dev, card14: dict, results: dict, csv: dict) -> None:
+    """(b) after the pool: the 15-pair sweep against the CSV and (a)'s CPU
+    solve, and its 15 lanes' first iterations against the CPU's."""
+    ref = results[("wavelet_cpu",)]
     sweep = results[("cameraman_sweep", str(dev))]
     nits, fails = [], []
     if len(sweep["fun"]) != len(sweep["rows"]):
@@ -2433,8 +2581,14 @@ def phase14(card: str, dev, card14: dict, results: dict) -> None:
     if fails or not d_mean <= WL_MEAN_RTOL or "cameraman_ab.csv" not in sweep["written"]:
         raise AssertionError(f"phase 14b: the sweep does not hold: {fails}, mean {d_mean!r}")
 
-    for name, key, lr in (("logistic", "logistic", card14["logistic_lr"]),
-                          ("group_lasso", "group", None)):
+
+def phase14cd(card14: dict, results: dict, models) -> None:
+    """(c) and (d) after the pool, for ``models``: the card's windows and
+    F against the CPU's."""
+    for name, key in (("logistic", "logistic"), ("group_lasso", "group")):
+        if name not in models:
+            continue
+        lr = card14["logistic_lr"] if name == "logistic" else None
         for run, c in results[("windows", name, lr)].items():
             f64 = card14[f"{key}_f64"][run]
             rel = float(np.linalg.norm(f64["x"] - c["x"]) / np.linalg.norm(c["x"]))
@@ -3005,49 +3159,27 @@ def checks16(card: str, dev, ranks: dict, A64, b64, lr64: float, lr32: float) ->
     return rates
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit(
-            "chip_smoke: no CUDA device (torch.cuda.is_available() is False)"
-        )
-
+def lasso_setup(dev) -> dict:
+    """The LASSO problem of phases 3-5, 9, 13f and 15b on the card: the
+    numpy data, the tensors, ``L`` and the fixed step ``lr = 1/L`` as the
+    float32 solve stores it (phase 4's ``res.lr``)."""
     from zfista_tpu_torch.models import Lasso
-    from zfista_tpu_torch.models.lasso import fista_step_dense
-    from zfista_tpu_torch.ops import _build, fused
 
-    dev = torch.device("cuda", 0)
-    # The precision policy (zfista_tpu_torch/ops/precision.py), stated and
-    # set: full-fp32 cuBLAS products and cuDNN convolutions, no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-    # -- phase 1: the card and the build ------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(f"phase 1: card {smi!r}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        paths = list(pool.map(_build.build, SOURCES))
-    for name in SOURCES:
-        _build.load(name)
-    log(
-        f"phase 1 [{smi}]: built {[p.name for p in paths]} in "
-        f"{time.perf_counter() - t0:.3f} s (in parallel)"
-    )
-
-    # -- phase 2: the fused LASSO kernel vs its plain versions on the card -----
-    lasso_err = phase2(dev)
-
-    # -- phase 3: the dense step at the full problem size --------------------
     A_np, b_np = make_problem()
     A = torch.as_tensor(A_np, device=dev)
     b = torch.as_tensor(b_np, device=dev)
-    prob = Lasso(A, b, LAM)
-    L = prob.lipschitz()
-    lr = torch.tensor(1.0 / L, dtype=torch.float32, device=dev)
+    L = Lasso(A, b, LAM).lipschitz()
+    return dict(A_np=A_np, b_np=b_np, A=A, b=b, L=L, lr=float(np.float32(1.0 / L)))
+
+
+def phase3(dev, lz: dict) -> float:
+    """One dense FISTA step, fused against plain, at the full problem size
+    (tolerance 0).  Returns the largest difference."""
+    from zfista_tpu_torch.models.lasso import fista_step_dense
+    from zfista_tpu_torch.ops import fused
+
+    A, b = lz["A"], lz["b"]
+    lr = torch.tensor(lz["lr"], dtype=torch.float32, device=dev)
     lam = torch.tensor(LAM, dtype=torch.float32, device=dev)
     zeros_n = torch.zeros(N, dtype=torch.float32, device=dev)
     carry = (zeros_n, zeros_n, torch.tensor(1.0, device=dev))
@@ -3058,33 +3190,78 @@ def main() -> None:
     step_err = max(float(torch.max(torch.abs(r - g_))) for r, g_ in zip(ref, got))
     log(
         f"phase 3: fista_step_dense_fused vs fista_step_dense at m={M} n={N} "
-        f"f32 (L={L!r}): max_abs_err={step_err!r} (tolerance 0, bitwise)"
+        f"f32 (L={lz['L']!r}): max_abs_err={step_err!r} (tolerance 0, bitwise)"
     )
     if step_err != 0.0:
         raise AssertionError(f"dense step: fused differs from plain by {step_err!r}")
+    return step_err
 
-    # -- phase 4: the slice through the public entry point --------------------
+
+def graph_replays() -> int:
+    """Chunk-graph replays the solver has launched since import."""
+    from zfista_tpu_torch.core import solver
+
+    return solver.graph_counts["replays"]
+
+
+def same_state(got, ref, what: str) -> None:
+    """Raise unless every State field of ``got`` is bitwise ``ref``'s."""
+    for name, a, c in zip(got._fields, got, ref):
+        if not (a.dtype == c.dtype and np.array_equal(a, c, equal_nan=True)):
+            raise AssertionError(f"{what}: differs in State.{name}")
+
+
+def phase4(card: str, dev, lz: dict) -> dict[str, int]:
+    """The LASSO slice through the public entry point: the main-path solve
+    (4,000 steps, its chunks replayed CUDA graphs) with its launch count,
+    bitwise ``check_every=1`` and 64; the first ``AGREE_ITERS`` against
+    float64 numpy; the routed ``tol_rel`` solve; the default-tol solves at
+    ``check_every`` auto, 1 and 64, bitwise.  Returns the launches of the
+    main-path solves."""
+    from zfista_tpu_torch.core import solver
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.ops import fused
+
+    A, b = lz["A"], lz["b"]
     x0 = torch.zeros(N, dtype=torch.float32, device=dev)
     lasso_launches = {}
+    prob = Lasso(A, b, LAM)
+    replays = graph_replays()
     zero(fused.launch_counts)  # the main-path solve starts here
-    res = Lasso(A, b, LAM).solve_fixed_step(x0, tol=0, max_iter=4000)
+    t0 = time.perf_counter()
+    res = prob.solve_fixed_step(x0, tol=0, max_iter=4000)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launched = dict(fused.launch_counts)  # ... and ends here
+    replays = graph_replays() - replays
+    entry = next(reversed(solver._GRAPHS.values()))
     lasso_launches["lasso_step_tail"] = launched["lasso_step_tail"]
     log(
-        f"phase 4: Lasso.solve_fixed_step(tol=0, max_iter=4000): nit={res.nit} "
-        f"status={res.status} fun={float(res.fun[0])!r} lr={res.lr!r} "
-        f"kernel launches={launched}"
+        f"phase 4 [{card}]: Lasso.solve_fixed_step(tol=0, max_iter=4000): nit={res.nit} "
+        f"status={res.status} fun={float(res.fun[0])!r} lr={res.lr!r} kernel launches={launched}; "
+        f"chunks: 1 eager then captured ({entry.capture_ms:.3f} ms), {replays} graph replays "
+        f"of {entry.launches} launches each; wall {wall:.3f} s (with the capture)"
     )
     if res.nit != 4000 or not np.all(np.isfinite(res.x)) or res.x.shape != (N,):
         raise AssertionError("slice run: wrong nit or non-finite x")
     if launched["lasso_step_tail"] < 4000:
         raise AssertionError(f"slice run launched the kernels {launched}")
+    if replays != -(-4000 // 64) - 1 or entry.launches["lasso_step_tail"] != 64:
+        raise AssertionError(f"slice run: {replays} replays of {entry.launches}")
+    lz["lr"] = res.lr
+    runs = {}
+    for ce in (1, 64):
+        t0 = time.perf_counter()
+        runs[ce] = prob.solve_fixed_step(x0, lr=res.lr, tol=0, max_iter=4000, check_every=ce)
+        torch.cuda.synchronize()
+        log(f"phase 4 [{card}]: the same solve at check_every={ce}: wall {time.perf_counter() - t0:.3f} s")
+    same_state(res.state, runs[1].state, "graphed solve (check_every auto) against 1")
+    same_state(runs[64].state, runs[1].state, "graphed solve (check_every 64) against 1")
+    log("phase 4: the graphed 4,000-step solves (check_every auto and 64) are bitwise "
+        "check_every=1 in every State field")
 
-    short = Lasso(A, b, LAM).solve_fixed_step(
-        x0, lr=res.lr, tol=0, max_iter=AGREE_ITERS
-    )
-    x_np = numpy_fista(A_np, b_np, LAM, res.lr, AGREE_ITERS)
+    short = Lasso(A, b, LAM).solve_fixed_step(x0, lr=res.lr, tol=0, max_iter=AGREE_ITERS)
+    x_np = numpy_fista(lz["A_np"], lz["b_np"], LAM, res.lr, AGREE_ITERS)
     rel = float(np.linalg.norm(short.x - x_np) / np.linalg.norm(x_np))
     log(
         f"phase 4: first {AGREE_ITERS} iterations vs float64 numpy FISTA: "
@@ -3116,30 +3293,77 @@ def main() -> None:
     conv = {}
     for ce in (None, 1, 64):
         t0 = time.perf_counter()
+        replays = graph_replays()
         conv[ce] = Lasso(A, b, LAM).solve_fixed_step(x0, lr=res.lr, check_every=ce)
         log(
-            f"phase 4 [{smi}]: default-tol solve, check_every={ce}: status={conv[ce].status} "
+            f"phase 4 [{card}]: default-tol solve, check_every={ce}: status={conv[ce].status} "
             f"nit={conv[ce].nit} err={conv[ce].error_criterion!r} "
-            f"wall {time.perf_counter() - t0:.3f} s"
+            f"wall {time.perf_counter() - t0:.3f} s (with the capture); graph replays "
+            f"{graph_replays() - replays}"
         )
         if conv[ce].status != 1:
             raise AssertionError(
                 f"default-tol solve did not converge (check_every={ce})"
             )
+        if (graph_replays() > replays) != (ce != 1):
+            raise AssertionError(f"default-tol solve, check_every={ce}: graphed {ce != 1} expected")
     for ce in (None, 64):
-        for name, a, c in zip(conv[1].state._fields, conv[1].state, conv[ce].state):
-            if not np.array_equal(a, c):
-                raise AssertionError(f"check_every={ce} differs from 1 in State.{name}")
+        same_state(conv[ce].state, conv[1].state, f"check_every={ce} against 1")
     log(
-        "phase 4: check_every=64 and auto are bitwise equal to check_every=1 "
-        "(x, nit, State)"
+        "phase 4: check_every=64 and auto (replayed graphs) are bitwise equal to "
+        "check_every=1 (x, nit, State)"
     )
+    return lasso_launches
 
-    # -- phase 5: the card's own times ----------------------------------------
+
+def phase4_profile(card: str, dev, lz: dict) -> None:
+    """Phase 4's launch counts against the profiler's: a 640-step solve on a
+    cached graph (ten replays) counts ``lasso_step_tail`` 640 times, and
+    torch.profiler sees as many launches of the step-tail kernel.  Run
+    after phase 9 (timings taken after a profiled region come out
+    slower)."""
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.ops import fused
+
+    x0 = torch.zeros(N, dtype=torch.float32, device=dev)
+    prob = Lasso(lz["A"], lz["b"], LAM)
+    kw = dict(lr=lz["lr"], tol=0, max_iter=640)
+    quiet(prob.solve_fixed_step, x0, **kw)  # the capture, outside the profile
+    replays = graph_replays()
+    zero(fused.launch_counts)
+    n_events, busy, names = device_events(
+        lambda: quiet(prob.solve_fixed_step, x0, **kw), by_name=True, times=True
+    )
+    counted = fused.launch_counts["lasso_step_tail"]
+    seen = sum(c for k, (c, _) in names.items() if "lasso_step_tail_kernel" in k)
+    tail_us = sum(t for k, (_, t) in names.items() if "lasso_step_tail_kernel" in k) / max(seen, 1)
+    log(
+        f"phase 4 [{card}]: a 640-step solve on a cached graph ({graph_replays() - replays} "
+        f"replays): lasso_step_tail counted {counted}, torch.profiler's step-tail kernels "
+        f"{seen}, {tail_us:.2f} us each inside the graph; {n_events / 640:.2f} device events, "
+        f"busy {busy / 640:.1f} us per step"
+    )
+    if not counted == seen == 640 or graph_replays() - replays != 10:
+        raise AssertionError(f"phase 4: launch count {counted} against the profiler's {seen}")
+
+
+def phase5(card: str, dev, lz: dict) -> tuple[int, dict]:
+    """The card's own times of the LASSO slice (iter/s of the public solve
+    and the two raw loops, in turns) and of the kernel's three entries at
+    every main path's n.  Returns the raw fused loop's ``fista_tail``
+    launches and the times."""
+    from zfista_tpu_torch.models import Lasso
+    from zfista_tpu_torch.models.lasso import fista_step_dense
+    from zfista_tpu_torch.ops import fused
+
+    A, b = lz["A"], lz["b"]
+    lr = torch.tensor(lz["lr"], dtype=torch.float32, device=dev)
+    lam = torch.tensor(LAM, dtype=torch.float32, device=dev)
+    x0 = torch.zeros(N, dtype=torch.float32, device=dev)
     iters = 2000
 
     def public():
-        Lasso(A, b, LAM).solve_fixed_step(x0, lr=res.lr, tol=0, max_iter=iters)
+        Lasso(A, b, LAM).solve_fixed_step(x0, lr=lz["lr"], tol=0, max_iter=iters)
 
     def raw(step):
         def run():
@@ -3157,8 +3381,8 @@ def main() -> None:
     for fn in runs.values():  # warm-up: cuBLAS handles, allocator pools
         fn()
     torch.cuda.synchronize()
-    lasso_launches["fista_tail"] = fused.launch_counts["fista_tail"]
-    if lasso_launches["fista_tail"] != iters:
+    fista_launches = fused.launch_counts["fista_tail"]
+    if fista_launches != iters:
         raise AssertionError(f"the raw fused loop launched {dict(fused.launch_counts)}")
     rates: dict[str, list[float]] = {k: [] for k in runs}
     for order in (list(runs), list(reversed(runs)), list(runs)):
@@ -3167,9 +3391,10 @@ def main() -> None:
     for k, v in rates.items():
         med = statistics.median(v)
         log(
-            f"phase 5 [{smi}]: {k}: {med:.1f} iter/s median of {[round(r, 1) for r in v]}; "
+            f"phase 5 [{card}]: {k}: {med:.1f} iter/s median of {[round(r, 1) for r in v]}; "
             f"{med * BYTES_PER_ITER / 1e9:.1f} GB/s against "
             f"{BYTES_PER_ITER / 1e6:.0f} MB/iter"
+            + (" (a fresh Lasso per run: its capture included)" if k == "public" else "")
         )
 
     kern_ms: dict[str, dict[tuple, tuple[float, float]]] = {k: {} for k in LASSO_KERNELS}
@@ -3201,156 +3426,287 @@ def main() -> None:
             p_ms = event_ms(plain, reps, device_bound=False)
             kern_ms[name][n, dtype] = (k_ms, p_ms)
             log(
-                f"phase 5 [{smi}]: {name} {str(dtype)[6:]} n={n}: kernel {k_ms * 1e3:.2f} us per "
+                f"phase 5 [{card}]: {name} {str(dtype)[6:]} n={n}: kernel {k_ms * 1e3:.2f} us per "
                 f"call back to back ({5 * width * n / (k_ms * 1e-3) / 1e9:.1f} GB/s at "
                 f"{5 * width} B/elem), plain {p_ms * 1e3:.2f} us (host-bound)"
             )
+    return fista_launches, kern_ms
 
-    t0 = time.perf_counter()
-    tv_err = phase6(dev)
-    log(f"phase 6 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tv_launches, tv_runs = phase7(dev, smi)
-    log(f"phase 7 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tv_ms = phase8(dev, smi)
-    log(f"phase 8 [{smi}]: done in {time.perf_counter() - t0:.1f} s")
 
-    # -- phases 9-12: the multiobjective solve with backtracking, the batch ----
-    # Phase 10's solves and phase 12's harness batches share one pool of
-    # worker processes; the batches timed in this process (12b, 12c) run
-    # before the first profiled region (timings after one come out slower).
-    pooled: dict = {}
-    walls: dict = {}
-    card14: dict = {}
-    card15: dict = {}
-    for n_phase, run in (
-        ("14a", lambda: card14.update(phase14a(smi, dev))),
-        ("14c", lambda: card14.update(phase14c(smi, dev))),
-        ("14d", lambda: card14.update(phase14d(smi, dev))),
-        ("14e", lambda: phase14e(smi)),
-        ("12b", lambda: phase12b(smi, dev)),
-        ("12c", lambda: phase12c(smi, dev)),
-        ("13d", lambda: phase13d(smi)),
-        ("13e", lambda: phase13e(smi)),
-        (9, lambda: phase9(dev, smi, A, b, A_np, b_np, res.lr)),
-        # Phase 5's profile, here because timings taken after a profiled
-        # region in the same process come out slower, and phase 9 profiles.
-        (5, lambda: lasso_loops(dev, smi)),
-        ("10, 12, 13 and 14's pool", lambda: pooled.update(
-            run_pool(
-                smi, dev,
-                phase10_tasks(dev) + phase12_tasks(dev) + phase13_tasks(dev)
-                + phase14_tasks(dev, card14),
-            )
-        )),
-        (10, lambda: walls.update(phase10(smi, dev, pooled))),
-        ("12a", lambda: phase12a(smi, dev, pooled, walls)),
-        ("13a", lambda: phase13a(smi, dev, pooled)),
-        ("13b", lambda: phase13b(smi, pooled[("cli", str(dev))])),
-        ("13c", lambda: phase13c(smi, dev, pooled)),
-        ("14a-d", lambda: phase14(smi, dev, card14, pooled)),
-        (11, lambda: phase11(smi, dev)),
-        ("12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
-        ("12e", lambda: phase12e(smi, dev)),
-        ("13f", lambda: phase13f(smi, dev, A, b, res.lr)),
-        ("13g", lambda: phase13g(smi)),
-        ("15a", lambda: card15.update(a=phase15a(smi, dev))),
-        ("15b", lambda: card15.update(b=phase15b(smi, dev, A_np, b_np, res.lr))),
-        ("15c", lambda: card15.update(c=phase15c(smi, dev))),
-        ("15d", lambda: card15.update(d=phase15d(smi))),
-        (16, lambda: phase16(smi, dev)),
-    ):
-        t0 = time.perf_counter()
-        run()
-        log(f"phase {n_phase} [{smi}]: done in {time.perf_counter() - t0:.1f} s")
+#: Every phase, in the order of the full run (``--phases`` selects some).
+PHASES = (
+    "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
+    "12a", "12b", "12c", "12d", "12e",
+    "13a", "13b", "13c", "13d", "13e", "13f", "13g",
+    "14a", "14b", "14c", "14d", "14e",
+    "15a", "15b", "15c", "15d", "16",
+)
+
+
+def select_phases(spec: str | None) -> set[str]:
+    """The phases a ``--phases`` list names: comma-separated phase names
+    (``14a``) or numbers (``12``: 12a-e), and ranges of either (``1-5``,
+    ``12b-13c``).  None: every phase."""
+    if spec is None:
+        return set(PHASES)
+
+    def span(tok: str) -> list[int]:
+        idx = [i for i, p in enumerate(PHASES) if tok in (p, p.rstrip("abcdefg"))]
+        if not idx:
+            raise SystemExit(f"chip_smoke: unknown phase {tok!r} (phases: {', '.join(PHASES)})")
+        return idx
+
+    out: set[str] = set()
+    for part in filter(None, (t.strip() for t in spec.split(","))):
+        lo, sep, hi = part.partition("-")
+        first, last = span(lo.strip())[0], span((hi if sep else lo).strip())[-1]
+        if last < first:
+            raise SystemExit(f"chip_smoke: empty range {part!r}")
+        out.update(PHASES[first : last + 1])
+    if not out:
+        raise SystemExit("chip_smoke: --phases selects no phase")
+    return out
+
+
+def pool_tasks(want: set[str], dev, card14: dict) -> list:
+    """The pool's tasks that the selected phases need."""
+    tasks = []
+    if "10" in want:
+        tasks += phase10_tasks(dev)
+    batches = [t for t in phase12_tasks(dev) if t[0] != "fds_wide"]
+    if want & {"12a", "13a"}:
+        tasks += batches
+    if "12d" in want:
+        tasks.append(("fds_wide", str(dev)))
+    if "13b" in want:
+        tasks.append(("cli", str(dev)))
+    if "13c" in want:
+        tasks += [t for t in phase13_tasks(dev) if t[0] == "sweep"]
+    parts = {"cameraman_sweep": {"14b"}, "wavelet_cpu": {"14a", "14b"}, "wavelet_windows": {"14b"},
+             "logistic": {"14c"}, "group_lasso": {"14d"}}
+    tasks += [t for t in phase14_tasks(dev, card14) if want & (parts.get(t[0]) or parts[t[1]])]
+    return tasks
+
+
+def kernels_line(runs: dict) -> list[dict]:
+    """The ``kernels`` line from what the phases that ran measured: every
+    kernel that one of them checked, timed or launched, each number that
+    no selected phase measured null (the full run measures them all)."""
 
     def bound_ms(n: int, dtype: torch.dtype) -> float:
         # y, g, x read and x, y written once (the 0-d scalars and flags add
         # under 100 bytes).
         return 1e3 * 5 * n * (torch.finfo(dtype).bits // 8) / PEAK_BYTES_PER_S
 
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": replaces,
-            "launches": lasso_launches[name],
-            "max_abs_err": max(
-                lasso_err[name],
-                max(step_err, card15["a"]["step_err"]) if name == "fista_tail" else 0.0,
-            ),
-            "ms": kern_ms[name][N, torch.float32][0],
-            "plain_ms": kern_ms[name][N, torch.float32][1],
-            "bound_ms": bound_ms(N, torch.float32),
-            "bound_by": "bytes",
-            # No single PyTorch call computes the soft-threshold and the
-            # momentum step together, let alone the step's tail.
-            "library_ms": None,
-        }
-        for name, replaces in LASSO_KERNELS.items()
-    ]
+    lasso_err, kern_ms = runs.get("lasso_err"), runs.get("kern_ms")
+    launches, card14, card15 = runs["lasso_launches"], runs["card14"], runs["card15"]
     # An entry that runs on several main paths: its launches are their
     # sum, and each path's time and bound stand at that path's n and dtype.
     by_path = {
         "lasso_step_tail": (
-            ("Lasso.solve_fixed_step (phase 4)", N, torch.float32, lasso_launches["lasso_step_tail"]),
-            ("WaveletDeblur.solve (phase 14a)", WL_SIDE**2, torch.float32, card14["wl_launches"]),
+            ("Lasso.solve_fixed_step (phase 4)", N, torch.float32, launches.get("lasso_step_tail")),
+            ("WaveletDeblur.solve (phase 14a)", WL_SIDE**2, torch.float32, card14.get("wl_launches")),
             ("SparseLogistic.solve fixed step (phase 14c)", N, torch.float32,
-             card14["logistic_launches"]),
+             card14.get("logistic_launches")),
         ),
         "fused_prox_momentum": (
             ("Lasso.solve_fixed_step with tol_rel (phase 4)", N, torch.float32,
-             lasso_launches["fused_prox_momentum"]),
+             launches.get("fused_prox_momentum")),
             ("feature-sharded Lasso.solve_fixed_step, NCCL world of 1 (phase 15b)", N,
-             torch.float32, card15["b"]["launches"]),
+             torch.float32, card15.get("b", {}).get("launches")),
             (f"feature-sharded Lasso.solve_fixed_step, {GLOO_RANKS} Gloo ranks on one card, "
-             "a rank's block, both ranks' launches (phase 15c)", card15["c"]["block"],
-             torch.float64, card15["c"]["launches"]),
+             "a rank's block, both ranks' launches (phase 15c)", card15.get("c", {}).get("block"),
+             torch.float64, card15.get("c", {}).get("launches")),
         ),
         "fista_tail": (
-            ("raw fista_step_dense_fused loop (phase 5)", N, torch.float32, lasso_launches["fista_tail"]),
+            ("raw fista_step_dense_fused loop (phase 5)", N, torch.float32, launches.get("fista_tail")),
             ("examples.large_lasso, warm-up and timed run (phase 15a)", LARGE_N, torch.float32,
-             card15["a"]["launches"]),
+             card15.get("a", {}).get("launches")),
         ),
     }
-    for k in kernels:
-        k["by_path"] = [
+    kernels = []
+    for name, replaces in LASSO_KERNELS.items():
+        paths = [
             {
                 "path": path,
                 "n": n,
                 "dtype": str(dtype)[6:],
                 "launches": launched,
-                "ms": kern_ms[k["name"]][n, dtype][0],
-                "plain_ms": kern_ms[k["name"]][n, dtype][1],
+                "ms": kern_ms[name][n, dtype][0] if kern_ms else None,
+                "plain_ms": kern_ms[name][n, dtype][1] if kern_ms else None,
                 "bound_ms": bound_ms(n, dtype),
             }
-            for path, n, dtype, launched in by_path[k["name"]]
+            for path, n, dtype, launched in by_path[name]
+            if launched is not None
         ]
-        k["launches"] = sum(p["launches"] for p in k["by_path"])
+        errs = [lasso_err[name]] if lasso_err else []
+        if name == "fista_tail":
+            errs += [e for e in (runs.get("step_err"), card15.get("a", {}).get("step_err")) if e is not None]
+        if not (paths or errs or kern_ms):
+            continue
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": replaces,
+                "launches": sum(p["launches"] for p in paths) if paths else None,
+                "max_abs_err": max(errs) if errs else None,
+                "ms": kern_ms[name][N, torch.float32][0] if kern_ms else None,
+                "plain_ms": kern_ms[name][N, torch.float32][1] if kern_ms else None,
+                "bound_ms": bound_ms(N, torch.float32),
+                "bound_by": "bytes",
+                # No single PyTorch call computes the soft-threshold and the
+                # momentum step together, let alone the step's tail.
+                "library_ms": None,
+                "by_path": paths,
+            }
+        )
+    tv_err, tv_launches, tv_runs, tv_ms = (runs.get(k) for k in ("tv_err", "tv_launches", "tv_runs", "tv_ms"))
     for name, (source, replaces) in TV_KERNELS.items():
+        if not (tv_err or tv_launches):
+            continue
         # Each kernel's time at the size and n_iter its main-path run used.
-        n, n_iter = tv_runs[name]
-        b_ms, b_by = fgp_bound((n, n), torch.float32, n_iter)
+        n, n_iter = tv_runs[name] if tv_runs else (None, None)
+        b_ms, b_by = fgp_bound((n, n), torch.float32, n_iter) if tv_runs else (None, None)
         kernels.append(
             {
                 "name": name,
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "launches": tv_launches[name],
-                "max_abs_err": tv_err[name],
+                "launches": tv_launches[name] if tv_launches else None,
+                "max_abs_err": tv_err[name] if tv_err else None,
                 "n_iter": n_iter,
-                "ms": tv_ms[n, n_iter][name],
-                "plain_ms": tv_ms[n, n_iter]["fgp_plain"],
+                "ms": tv_ms[n, n_iter][name] if tv_ms and tv_runs else None,
+                "plain_ms": tv_ms[n, n_iter]["fgp_plain"] if tv_ms and tv_runs else None,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 # No PyTorch call computes an FGP iteration.
                 "library_ms": None,
             }
         )
-    print(json.dumps({"kernels": kernels}))
+    return kernels
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one H100.")
+    parser.add_argument(
+        "--phases",
+        help="comma list of phases and ranges to run, e.g. '1-5,14a' (default: every phase); "
+        "each computes what it needs of the others",
+    )
+    want = select_phases(parser.parse_args(argv).phases)
+    if not torch.cuda.is_available():
+        raise SystemExit(
+            "chip_smoke: no CUDA device (torch.cuda.is_available() is False)"
+        )
+
+    from zfista_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    # The precision policy (zfista_tpu_torch/ops/precision.py), stated and
+    # set: full-fp32 cuBLAS products and cuDNN convolutions, no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    # -- phase 1: the card and the build (every run) ---------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"phase 1: card {smi!r}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"phases {[p for p in PHASES if p in want]}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    log(
+        f"phase 1 [{smi}]: built {[p.name for p in paths]} in "
+        f"{time.perf_counter() - t0:.3f} s (in parallel)"
+    )
+
+    lasso_ctx: dict = {}
+
+    def lz() -> dict:  # the LASSO problem, made once by the first phase that needs it
+        if not lasso_ctx:
+            lasso_ctx.update(lasso_setup(dev))
+        return lasso_ctx
+
+    runs: dict = {"lasso_launches": {}, "card14": {}, "card15": {}}
+    card14, card15 = runs["card14"], runs["card15"]
+    pooled: dict = {}
+    walls: dict = {}
+    parts14 = {p for p in ("14a", "14b", "14c", "14d") if p in want}
+
+    def pool_run() -> None:
+        tasks = pool_tasks(want, dev, card14)
+        if tasks:
+            pooled.update(run_pool(smi, dev, tasks))
+
+    # The order of the full run: phases 2-8, then those timed in this
+    # process before the first profiled region (timings taken after one
+    # come out slower; phase 9 profiles), then the profiles, the pool of
+    # worker processes (phases 10, 12, 13 and 14's CPU work) and what reads
+    # it, and scale-out last.
+    steps = (
+        ("2", "2", lambda: runs.update(lasso_err=phase2(dev))),
+        ("3", "3", lambda: runs.update(step_err=phase3(dev, lz()))),
+        ("4", "4", lambda: runs["lasso_launches"].update(phase4(smi, dev, lz()))),
+        ("5", "5", lambda: runs.update(zip(("fista", "kern_ms"), phase5(smi, dev, lz())))),
+        ("6", "6", lambda: runs.update(tv_err=phase6(dev))),
+        ("7", "7", lambda: runs.update(zip(("tv_launches", "tv_runs"), phase7(dev, smi)))),
+        ("8", "8", lambda: runs.update(tv_ms=phase8(dev, smi))),
+        ("14a", "14a", lambda: card14.update(phase14a(smi, dev))),
+        ("14c", "14c", lambda: card14.update(phase14c(smi, dev))),
+        ("14d", "14d", lambda: card14.update(phase14d(smi, dev))),
+        ("14e", "14e", lambda: phase14e(smi)),
+        ("12b", "12b", lambda: phase12b(smi, dev)),
+        ("12c", "12c", lambda: phase12c(smi, dev)),
+        ("13d", "13d", lambda: phase13d(smi)),
+        ("13e", "13e", lambda: phase13e(smi)),
+        ("9", "9", lambda: phase9(dev, smi, lz()["A"], lz()["b"], lz()["A_np"], lz()["b_np"], lz()["lr"])),
+        ("4", "4 (profile)", lambda: phase4_profile(smi, dev, lz())),
+        # Phase 5's profile, here because timings taken after a profiled
+        # region in the same process come out slower, and phase 9 profiles.
+        ("5", "5 (loops)", lambda: lasso_loops(dev, smi)),
+        ("pool", "10, 12, 13 and 14's pool", pool_run),
+        ("10", "10", lambda: walls.update(phase10(smi, dev, pooled))),
+        ("12a", "12a", lambda: phase12a(smi, dev, pooled, walls)),
+        ("13a", "13a", lambda: phase13a(smi, dev, pooled)),
+        ("13b", "13b", lambda: phase13b(smi, pooled[("cli", str(dev))])),
+        ("13c", "13c", lambda: phase13c(smi, dev, pooled)),
+        ("14", "14a-d", lambda: phase14(smi, dev, card14, pooled, parts14)),
+        ("11", "11", lambda: phase11(smi, dev)),
+        ("12d", "12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
+        ("12e", "12e", lambda: phase12e(smi, dev)),
+        ("13f", "13f", lambda: phase13f(smi, dev, lz()["A"], lz()["b"], lz()["lr"])),
+        ("13g", "13g", lambda: phase13g(smi)),
+        ("15a", "15a", lambda: card15.update(a=phase15a(smi, dev))),
+        ("15b", "15b", lambda: card15.update(b=phase15b(smi, dev, lz()["A_np"], lz()["b_np"], lz()["lr"]))),
+        ("15c", "15c", lambda: card15.update(c=phase15c(smi, dev))),
+        ("15d", "15d", lambda: card15.update(d=phase15d(smi))),
+        ("16", "16", lambda: phase16(smi, dev)),
+    )
+    # Steps that more than their own name selects: 14a's card run serves
+    # 14b too, the pool runs what the selected phases need of it.
+    needs = {"14a": bool(want & {"14a", "14b"}), "pool": bool(pool_tasks(want, dev, {})),
+             "14": bool(parts14)}
+    for key, label, run in steps:
+        if not needs.get(key, key in want):
+            continue
+        t0 = time.perf_counter()
+        run()
+        log(f"phase {label} [{smi}]: done in {time.perf_counter() - t0:.1f} s")
+
+    runs["lasso_launches"]["fista_tail"] = runs.get("fista")
+    if runs["lasso_launches"]["fista_tail"] is None:
+        del runs["lasso_launches"]["fista_tail"]
+    print(json.dumps({"kernels": kernels_line(runs)}))
     print(smi)
     print(
         json.dumps(

@@ -122,6 +122,27 @@ def test_operator_norm_sq_matches_numpy(seed):
     assert float(tl.operator_norm_sq(At, 500, g)) == pytest.approx(ref, rel=1e-12)
 
 
+def test_operator_norm_sq_takes_the_jax_seed():
+    """The JAX signature ``operator_norm_sq(A, n_iter=50, seed=0)``: both
+    call forms run, seeds 0 and 1 draw different start vectors (0 steps:
+    the start's Rayleigh quotient), and from either 500 steps reach
+    ``‖A‖₂²`` at 1e-12; a generator by keyword wins over the seed."""
+    A, _, _ = _problem(3)
+    At = torch.from_numpy(A)
+    ref = np.linalg.norm(A, 2) ** 2
+    jax_ref = float(jl.operator_norm_sq(jnp.asarray(A), 500, 0))
+    positional = float(tl.operator_norm_sq(At, 50, 0))
+    assert positional == float(tl.operator_norm_sq(At, seed=0)) == float(tl.operator_norm_sq(At))
+    assert ref * (1 - 2e-2) <= positional <= ref * (1 + 1e-12)
+    starts = {s: float(tl.operator_norm_sq(At, 0, s)) for s in (0, 1)}
+    assert starts[0] != starts[1]
+    for s in (0, 1):
+        np.testing.assert_allclose(float(tl.operator_norm_sq(At, 500, seed=s)), ref, rtol=1e-12)
+    np.testing.assert_allclose(jax_ref, ref, rtol=1e-12)
+    g = torch.Generator().manual_seed(1)
+    assert float(tl.operator_norm_sq(At, 0, 0, generator=g)) == starts[1]
+
+
 def test_lipschitz_and_integer_operator():
     A, b, _ = _problem(0)
     prob = Lasso(A, b, 0.05, 0.3, device="cpu")

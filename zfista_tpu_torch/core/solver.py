@@ -27,7 +27,10 @@ host decision here:
 The fixed-step, single-objective step reads nothing at all.  Every step a
 run takes is computed from the same inputs in the same order, so any
 ``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
-bitwise equal to the uninterrupted ``check_every=1`` solve.
+bitwise equal to the uninterrupted ``check_every=1`` solve.  On a card the
+chunks of the one-launch LASSO-family step below run as replayed CUDA
+graphs (:func:`run_graphed`), the counterpart of the JAX package's one
+device program per chunk.
 
 On dense LASSO (:meth:`zfista_tpu_torch.models.Lasso.solve_fixed_step`)
 the fixed-step step is its gradient and one launch of the fused CUDA
@@ -51,8 +54,11 @@ the kernel from a block's max, and ranks would stop on different steps.
 
 from __future__ import annotations
 
+import contextlib
 import time as _time
 import warnings
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -65,6 +71,7 @@ from zfista_tpu_torch.core.subproblem import (
     make_batch_subproblem_solver,
     make_subproblem_solver,
 )
+from zfista_tpu_torch.ops import fused
 from zfista_tpu_torch.ops.fused import fused_prox_momentum, lasso_step_tail
 from zfista_tpu_torch.ops.precision import dot_hp
 
@@ -158,7 +165,10 @@ def _make_step(
 
     A returned step whose attribute ``masks_itself`` is true leaves a state
     that is not active (:func:`_active` at ``max_iter``) as it is, so a
-    chunk loop runs it without :func:`_masked`.
+    chunk loop runs it without :func:`_masked`.  One whose attribute
+    ``capturable`` is true (the fused LASSO tail's) also takes the step
+    tail's ``scratch`` words as a keyword and carries the options it bakes
+    in as ``options``: :func:`run_graphed` captures its chunks.
     """
     m = n_objectives
     sharded = feature_sum is not None
@@ -236,15 +246,21 @@ def _make_step(
 
     if fused_tail:
 
-        def tail_step(state: State) -> State:
+        def tail_step(state: State, scratch: Array | None = None) -> State:
             tail = lasso_step_tail(
                 state.y, jac_f(state.y)[0], state.x, state.t, state.lr, lam,
                 state.err, state.nit, state.nit_internal, state.converged,
                 state.failed, a=a, b=b, tol=tol, max_iter=max_iter,
+                scratch=scratch,
             )
             return state._replace(**tail._asdict())
 
         tail_step.masks_itself = True
+        # Launches only (the gradient and the tail), no host read, its
+        # scalars already 0-d device tensors: a chunk of it can be captured
+        # as one CUDA graph (run_graphed), which bakes in these options.
+        tail_step.capturable = True
+        tail_step.options = (float(a), float(b), float(tol), max_iter)
         return tail_step
 
     def step(state: State) -> State:
@@ -617,16 +633,256 @@ def run_masked(
 
 
 def make_while_driver(
-    step: Callable[[State], State], max_iter: int, check_every: int = 1
+    step: Callable[[State], State],
+    max_iter: int,
+    check_every: int = 1,
+    owners: tuple[Any, ...] | None = None,
 ) -> Callable[[State], State]:
     """Run ``step`` until the state is inactive (converged, failed or at
     ``max_iter``), reading the convergence flag on the host once every
-    ``check_every`` steps (:func:`run_masked`)."""
+    ``check_every`` steps: each chunk a replayed CUDA graph where
+    :func:`_graphed` says so (:func:`run_graphed`; ``owners`` are the
+    callables and params the step reads, which key the graph), else
+    eager launches (:func:`run_masked`).  Both are bitwise the
+    ``check_every=1`` solve."""
 
     def run(state: State) -> State:
+        if _graphed(step, state, max_iter, check_every, owners):
+            return run_graphed(step, state, max_iter, check_every, owners)
         return run_masked(step, state, lambda s: _active(s, max_iter), check_every)
 
     return run
+
+
+# -- the chunk as a CUDA graph ----------------------------------------------
+#
+# The JAX package runs a whole solve as one device program: a while loop
+# whose body is a chunk of check_every masked steps.  On a card the port's
+# counterpart of "a chunk is one device program" is a CUDA graph of the
+# chunk, captured once and replayed once per host read of the active flag.
+# The graph reads everything by pointer: the chunk's carry from static
+# State buffers (copied in before the first replay, cloned out after the
+# last read), the operator and the other params from the tensors the
+# caller passed, so an in-place change to A is seen, as in the eager step.
+# What the capture baked in (a, b, tol, max_iter, check_every, the shapes
+# and dtypes) keys the cache, with the identity of the callables and of
+# the params tensors, held by weak reference: an entry whose graph reads
+# a tensor that has died is dropped.
+
+
+def _graphs_run_on(device: torch.device) -> bool:
+    """Whether chunks on ``device`` run as CUDA graphs: on a card.  The CPU
+    runs every chunk eagerly."""
+    return device.type == "cuda"
+
+
+def _graphed(step, state: State, max_iter: int, check_every: int, owners) -> bool:
+    """The graphed driver's rule: a capturable step (the fused LASSO tail),
+    ``owners`` given, a chunk of more than one step, on a card, and more
+    than one chunk to run.  A solve whose ``max_iter`` is at most one chunk
+    has nothing to replay, so it stays eager, as ``check_every=1`` does."""
+    return (
+        getattr(step, "capturable", False)
+        and owners is not None
+        and check_every > 1
+        and max_iter > check_every
+        and _graphs_run_on(state.x.device)
+    )
+
+
+def graph_chunk(step: Callable[..., State], check_every: int, scratch: Array):
+    """The chunk that a graph captures, as a plain function of the static
+    carry: ``check_every`` steps of the self-masking ``step`` from
+    ``static``, each with the entry's own step-tail ``scratch``, and the
+    last step's fields copied back into ``static`` (the copies are nodes
+    of the graph; only the static buffers outlive a replay)."""
+
+    def chunk(static: State) -> None:
+        carry = static
+        for _ in range(check_every):
+            carry = step(carry, scratch=scratch)
+        for s, c in zip(static, carry):
+            if c is not s:
+                s.copy_(c)
+
+    return chunk
+
+
+class CudaChunkGraph:
+    """``chunk(static)`` captured as one CUDA graph on ``stream``, with a
+    private memory pool; :meth:`replay` launches it on the current stream.
+    A capture that fails raises: nothing falls back to eager launches."""
+
+    def __init__(self, chunk: Callable[[State], None], static: State, stream) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin()
+            try:
+                chunk(static)
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+#: The graph factory ``(chunk, static, stream) -> object with replay()``:
+#: a test on the CPU puts a stand-in here.
+CHUNK_GRAPH: Callable[..., Any] = CudaChunkGraph
+#: Chunk graphs kept, least recently used out first.
+GRAPH_CACHE_SIZE = 8
+#: Chunk graphs captured and replays launched since import (or since a
+#: caller reset an entry to 0).
+graph_counts: dict[str, int] = {"captures": 0, "replays": 0}
+
+
+class _GraphEntry:
+    """A cached chunk graph and what it owns: the static ``State`` buffers,
+    the step tail's scratch words, the graph (with its private memory
+    pool), the kernel launches one replay makes, and weak references to
+    the tensors and callables it reads."""
+
+    def __init__(self, state: State, refs: list) -> None:
+        dev = state.x.device
+        self.static = State(
+            *(torch.empty_like(v, memory_format=torch.contiguous_format) for v in state)
+        )
+        self.scratch = fused.step_tail_scratch(dev)
+        self.stream = _capture_stream(dev)
+        self.refs = refs
+        self.graph = None
+        self.launches: dict[str, int] = {}
+        self.capture_ms: float | None = None
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.refs)
+
+    def capture(self, step, check_every: int) -> None:
+        """Run one chunk eagerly on the capture stream (the solve's first
+        chunk; it also warms cuBLAS's workspace for that stream), then
+        capture the same chunk.  The launches the capture recorded are what
+        each replay adds to ``ops.fused.launch_counts``: the wrappers ran
+        once at capture, and those were not launches."""
+        chunk = graph_chunk(step, check_every, self.scratch)
+        stream = self.stream
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+        counts = fused.launch_counts
+        with _on_stream(stream):
+            chunk(self.static)
+            before = dict(counts)
+            t0 = _time.perf_counter()
+            try:
+                self.graph = CHUNK_GRAPH(chunk, self.static, stream)
+                self.capture_ms = 1e3 * (_time.perf_counter() - t0)
+                graph_counts["captures"] += 1
+                self.launches = {k: counts[k] - before[k] for k in before}
+            finally:
+                counts.update(before)
+        if stream is not None:
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        graph_counts["replays"] += 1
+        for k, v in self.launches.items():
+            fused.launch_counts[k] += v
+
+
+_GRAPHS: OrderedDict[tuple, _GraphEntry] = OrderedDict()
+_CAPTURE_STREAMS: dict[torch.device, Any] = {}
+
+
+def _capture_stream(device: torch.device):
+    """The side stream that chunks are captured on, one per card (so cuBLAS
+    keeps one workspace for captures); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _on_stream(stream):
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+def _weak(obj: Any):
+    """A weak reference to ``obj``, or, for an object that takes none (a
+    builtin function), a strong one: it then lives as long as the entry."""
+    try:
+        return weakref.ref(obj)
+    except TypeError:
+        return lambda: obj
+
+
+def _graph_key(step, state: State, check_every: int, owners) -> tuple[tuple, list]:
+    """The cache key of a chunk graph, and the references its entry keeps
+    to check that what it reads is alive.  Tensors and callables count by
+    identity (and tensors by dtype and shape); other params by value, or
+    by identity, kept alive, where they do not hash."""
+    ids, refs = [], []
+    for o in owners:
+        if isinstance(o, torch.Tensor):
+            ids.append((id(o), o.dtype, tuple(o.shape), o.device))
+            refs.append(_weak(o))
+        elif callable(o):
+            ids.append(id(o))
+            refs.append(_weak(o))
+        else:
+            try:
+                hash(o)
+                ids.append(("value", o))
+            except TypeError:
+                ids.append(("object", id(o)))
+                refs.append(lambda o=o: o)
+    fields = tuple((v.dtype, tuple(v.shape)) for v in state)
+    key = (step.options, int(check_every), state.x.device, fields, tuple(ids))
+    return key, refs
+
+
+def _graph_entry(step, state: State, check_every: int, owners) -> _GraphEntry:
+    """The cached entry for this solve, made (without its graph) on a miss.
+    Entries whose tensors or callables died go first; past
+    ``GRAPH_CACHE_SIZE`` the least recently used goes."""
+    for k in [k for k, e in _GRAPHS.items() if not e.alive()]:
+        del _GRAPHS[k]
+    key, refs = _graph_key(step, state, check_every, owners)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        entry = _GRAPHS[key] = _GraphEntry(state, refs)
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+    else:
+        _GRAPHS.move_to_end(key)
+    return entry
+
+
+def run_graphed(
+    step: Callable[..., State], state: State, max_iter: int, check_every: int, owners
+) -> State:
+    """:func:`run_masked` for a capturable step, each chunk one replay of a
+    cached CUDA graph (:func:`graph_chunk` captured by ``CHUNK_GRAPH``):
+    the state is copied into the entry's static buffers, the host reads
+    the active flag once per chunk, as the eager loop does, and the result
+    is a copy taken after the last read.  On a cache miss the first chunk
+    runs eagerly and is then captured.  Bitwise the ``check_every=1``
+    solve, ``nit`` included: frozen steps in the last chunk run and are
+    discarded by the step's own mask."""
+    entry = _graph_entry(step, state, check_every, owners)
+    static = entry.static
+    for s, v in zip(static, state):
+        s.copy_(v)
+    while bool(_active(static, max_iter)):  # the one host read per chunk
+        if entry.graph is None:
+            entry.capture(step, check_every)
+        else:
+            entry.replay()
+    return State(*(s.clone() for s in static))
 
 
 def _run_history(step, state: State, max_iter: int, chunk: int):
@@ -1021,7 +1277,10 @@ def minimize_proximal_gradient(
                 device_faulted = True
                 break
     else:
-        state = make_while_driver(step, max_iter, check_every)(state)
+        # What the step reads by pointer: a chunk graph's cache key.
+        leaves = params if isinstance(params, (tuple, list)) else (params,)
+        owners = (f, g, jac_f, prox_wsum_g, *leaves)
+        state = make_while_driver(step, max_iter, check_every, owners)(state)
 
     if not device_faulted:
         if skip_F:

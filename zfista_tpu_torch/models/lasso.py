@@ -68,19 +68,28 @@ def _operator(A: Array) -> Array:
 
 
 def operator_norm_sq(
-    A: Array, n_iter: int = 50, generator: torch.Generator | None = None
+    A: Array,
+    n_iter: int = 50,
+    seed: int | torch.Generator = 0,
+    *,
+    generator: torch.Generator | None = None,
 ) -> Array:
     """λ_max(AᵀA) by power iteration on v ↦ Aᵀ(A v) (matvec-only).
 
-    The start vector is drawn from ``generator`` (default: a fresh one on
-    ``A``'s device seeded with 0).  It cannot reproduce the JAX package's
+    The JAX package's signature: the start vector is drawn from a fresh
+    generator on ``A``'s device seeded with ``seed``, or from
+    ``generator`` when one is given (a ``torch.Generator`` in ``seed``'s
+    place counts as one).  It cannot reproduce the JAX package's
     ``PRNGKey`` bits, so the two packages' estimates agree only to the
     power iteration's accuracy.  A column block of a feature-sharded ``A``
     draws the whole start vector and keeps its block, so the estimate is
     the unsharded one to rounding.
     """
     if generator is None:
-        generator = torch.Generator(device=A.device).manual_seed(0)
+        if isinstance(seed, torch.Generator):
+            generator = seed
+        else:
+            generator = torch.Generator(device=A.device).manual_seed(int(seed))
     sh = sharding_of(A)
     k = 1 if sh is None else sh.mesh.size("model")
     v = torch.randn(
@@ -208,7 +217,9 @@ class Lasso(_OnOperator):
     ) -> float:
         """``L = 2 λ_max(AᵀA) (+ μ)`` — use ``lr = 1/L`` with
         ``decay_rate=1`` for the fixed-step fast path."""
-        return float(2 * operator_norm_sq(self.A, n_iter, generator) + self.l2_ratio)
+        return float(
+            2 * operator_norm_sq(self.A, n_iter, generator=generator) + self.l2_ratio
+        )
 
     def solve_fixed_step(self, x0, **kwargs):
         """Fixed-step FISTA at ``lr = 1/L`` (no backtracking) — the
@@ -282,7 +293,7 @@ class GroupLasso(_OnOperator):
         return self._groups.prox(x, weight * self.l1_ratio)
 
     def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
-        return float(2 * operator_norm_sq(self.A, n_iter, generator))
+        return float(2 * operator_norm_sq(self.A, n_iter, generator=generator))
 
 
 class _Groups:

@@ -92,7 +92,7 @@ class SparseLogistic:
     def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
         """Global bound ``L = lambda_max(AᵀA) / (4 m)`` (the logistic loss's
         second derivative is at most 1/4)."""
-        return float(operator_norm_sq(self.A, n_iter, generator) / (4 * self.n_samples))
+        return float(operator_norm_sq(self.A, n_iter, generator=generator) / (4 * self.n_samples))
 
     def solve(self, x0=None, **kwargs):
         """Backtracking FISTA by default (the global ``1/L`` step is

@@ -48,7 +48,9 @@ from zfista_tpu_torch.ops.prox import soft_threshold
 #: Kernel launches made by each wrapper since import (or since a caller
 #: reset the entry to 0).  Incremented only where the CUDA kernel is
 #: launched, never on the plain CPU path, so a run can show that its main
-#: path went through the kernel.
+#: path went through the kernel.  A replayed CUDA graph runs no wrapper:
+#: the solver adds the launches its capture recorded at each replay
+#: (``core.solver.run_graphed``), and takes back the capture's own.
 launch_counts: dict[str, int] = {
     "fused_prox_momentum": 0,
     "fista_tail": 0,
@@ -97,6 +99,17 @@ def _scalar(name: str, v: Scalar, like: Array, dtype: torch.dtype | None = None)
             return v
         if v.numel() != 1:
             raise ValueError(f"{name} must hold one value, got {tuple(v.shape)}")
+        if v.device == like.device:
+            return v.to(dtype=dtype).reshape(())
+    if torch.cuda.is_current_stream_capturing():
+        # A host value inside a CUDA graph capture would be copied once,
+        # at capture, and replayed as a constant: refuse it.
+        raise RuntimeError(
+            f"{name}: a host value ({type(v).__name__}) inside a CUDA graph "
+            "capture; a captured step passes its scalars as 0-d tensors on "
+            "the step's device"
+        )
+    if isinstance(v, torch.Tensor):
         return v.to(device=like.device, dtype=dtype).reshape(())
     return torch.tensor(v, dtype=dtype, device=like.device)
 
@@ -244,10 +257,19 @@ def lasso_step_tail_plain(
 _SCRATCH: dict[tuple[int, int], Array] = {}
 
 
+def step_tail_scratch(device: torch.device) -> Array:
+    """A fresh pair of the step tail's scratch words on ``device`` (zero,
+    as every launch leaves them), for a caller that owns its own: a
+    captured CUDA graph, which must neither allocate one nor share the
+    stream's."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
 def lasso_step_tail(
     y: Array, grad: Array, x: Array, t: Array, lr: Array, lam: Scalar,
     err: Array, nit: Array, nit_internal: Array, converged: Array, failed: Array,
     *, a: float, b: float, tol: float, max_iter: int | None,
+    scratch: Array | None = None,
 ) -> StepTail:
     r"""The tail of the solver's fixed-step LASSO iteration, one launch.
 
@@ -264,7 +286,8 @@ def lasso_step_tail(
     the kernel or raise.  The scalars and flags are 0-d tensors on ``y``'s
     device (the solver's ``State`` fields); ``a, b, tol`` are Python
     numbers, rounded to ``y``'s dtype as PyTorch rounds them beside a
-    tensor.
+    tensor.  ``scratch`` (from :func:`step_tail_scratch`) is the kernel's
+    two scratch words; by default the launch uses its stream's.
     """
     if y.device.type == "cpu":
         return lasso_step_tail_plain(
@@ -285,10 +308,11 @@ def lasso_step_tail(
         for nm, v in (("converged", converged), ("failed", failed))
     ]
     stream = _stream(y)
-    key = (y.device.index, stream)
-    scratch = _SCRATCH.get(key)
     if scratch is None:
-        scratch = _SCRATCH[key] = torch.zeros(2, dtype=torch.int64, device=y.device)
+        key = (y.device.index, stream)
+        scratch = _SCRATCH.get(key)
+        if scratch is None:
+            scratch = _SCRATCH[key] = step_tail_scratch(y.device)
     out = StepTail(
         torch.empty_like(y),
         torch.empty_like(y),
