@@ -8,11 +8,12 @@ problem and its ``lr``, the pool's tasks), checks what those phases check,
 and prints the same lines at the end; its ``kernels`` line lists the
 kernels its phases ran, with null for what they did not measure.
 
-The fixed-step solves of phases 4, 5, 13d, 14a and 14c run their chunks as
-replayed CUDA graphs (``zfista_tpu_torch.core.solver.run_graphed``): each
-is held bitwise against its ``check_every=1`` solve, its graph replays are
-counted, and phase 4's launch count is held against the profiler's count
-of the step-tail kernel.
+The fixed-step solves of phases 4, 5, 7, 11b, 13d, 14a and 14c and
+``solve_warm`` in phase 7 run their chunks as replayed CUDA graphs
+(``zfista_tpu_torch.core.solver.run_graphed``): each is held bitwise
+against its ``check_every=1`` run, its captures and replays are counted,
+and phase 4's launch count is held against the profiler's count of the
+step-tail kernel.  ``--phases 7,11`` runs the graphed TV and m = 2 checks.
 
 Drives the port's three slices on the card and checks every CUDA kernel
 of them against its plain PyTorch version:
@@ -81,9 +82,18 @@ Phases:
    discretizations, cold and warm duals; serial and pipelined tiles
    bitwise equal; the dual-gap certificate;
 7. the TV slice through the public entry points: a 500-iteration
-   ``TVDeblur.solve`` (launch counts), agreement with a float64 plain-loop
-   solve, PSNR, ``check_every`` bitwise, and ``solve_warm`` at 256x256, at
-   2048x2048 and (pipelined tiles pinned) at 768x768 on tv_bench's scene;
+   ``TVDeblur.solve`` (launch counts, its chunks replayed graphs),
+   agreement with a float64 plain-loop solve, PSNR, ``check_every`` 64
+   (one capture, the replays) and the main-path run bitwise
+   ``check_every=1``, ms a step on the cached graph, with eager chunks and
+   on a first solve, in turns, with the capture's ms; and ``solve_warm``
+   at 256x256, at 2048x2048 and (pipelined tiles pinned) at 768x768 on
+   tv_bench's scene, graphed, bitwise its ``check_every=1`` and its
+   plain-prox runs, ms a step graphed against eager chunks, the card's
+   SM clock and power draw beside them; (after phase 9) device events,
+   busy µs and busy share a step of each graphed solve by torch.profiler,
+   its replays alone by CUDA events, and each FGP kernel's µs a call
+   inside the graph;
 8. the card's own times: each FGP kernel, the plain loop and the bound per
    prox call from 256x256 to 2048x2048 at 30 and 8 dual iterations, one
    tile sweep per round of tiles, and the TV solves' wall time, kernel
@@ -102,7 +112,9 @@ Phases:
     within 1e-6 relative); run in worker processes, one CPU thread each;
 11. ``check_every=8``, ``iter_chunk=5`` and ``return_all`` solves on the
     card, bitwise equal to the ``check_every=1`` solve, for JOS1 with L1
-    and for FDS;
+    and for FDS; (b) JOS1 n=50 at m = 2 by the fixed step in float64, at
+    ``check_every`` 8 and 64 on replayed graphs, bitwise ``check_every=1``,
+    ms a step graphed against eager chunks;
 12. the batch solver: (a) every phase-10 case as one batch of
     ``benchmark()``'s 100 starts (``history=True``), card against CPU lane
     by lane in phase 10's classes (all statuses equal, at most 10% of the
@@ -693,25 +705,121 @@ def zero(counts: dict[str, int]) -> None:
         counts[name] = 0
 
 
-def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
+def graph_counts() -> dict[str, int]:
+    """Chunk graphs the solver has captured and replayed since import."""
+    from zfista_tpu_torch.core import solver
+
+    return dict(solver.graph_counts)
+
+
+def graph_replays() -> int:
+    """Chunk-graph replays the solver has launched since import."""
+    return graph_counts()["replays"]
+
+
+def graphs_since(before: dict[str, int]) -> dict[str, int]:
+    """Captures and replays since ``before`` (a :func:`graph_counts`)."""
+    return {k: v - before[k] for k, v in graph_counts().items()}
+
+
+def last_capture_ms() -> float:
+    """The host ms of the most recent chunk graph's capture."""
+    from zfista_tpu_torch.core import solver
+
+    return next(reversed(solver._GRAPHS.values())).capture_ms
+
+
+@contextlib.contextmanager
+def warm_check_every(n: int):
+    """``solve_warm``'s driver at ``check_every=n`` (on a card it takes 64
+    and replays its chunks as graphs; 1 is one host read per step)."""
+    from zfista_tpu_torch.models import deblur as td
+
+    real = td._tv_warm_driver
+    td._tv_warm_driver = partial(real, check_every=n)
+    try:
+        yield
+    finally:
+        td._tv_warm_driver = real
+
+
+def same_warm(a: dict, b: dict) -> bool:
+    """Two ``solve_warm`` results equal bit for bit (x, F, nit, err)."""
+    return (
+        np.array_equal(a["x"], b["x"])
+        and (a["fun"], a["nit"], a["error_criterion"]) == (b["fun"], b["nit"], b["error_criterion"])
+    )
+
+
+def in_turns(runs: dict, order: tuple[str, ...]) -> dict[str, list[float]]:
+    """Seconds of each of ``runs`` (name -> callable, a synchronized wall
+    each), called in ``order``."""
+    walls: dict[str, list[float]] = {k: [] for k in runs}
+    for k in order:
+        walls[k].append(sync_time(runs[k]))
+    return walls
+
+
+def card_state() -> str:
+    """The card's SM clock and power draw now, as ``nvidia-smi`` reads
+    them, to stand beside a timing (a card below its maximum clock runs a
+    device-bound step slower)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+
+
+def steps_run(nit: int, chunk: int = 64) -> int:
+    """Steps a run of ``nit`` iterations takes in chunks of ``chunk``: the
+    frozen steps of the last chunk run too."""
+    return -(-nit // chunk) * chunk
+
+
+def per_step(walls: list[float], steps: int) -> list[float]:
+    return [round(1e3 * w / steps, 4) for w in walls]
+
+
+def cameraman_observed(dev) -> tuple[np.ndarray, np.ndarray]:
+    """``examples/tv_deblur.py``'s cameraman at ``CAMERAMAN``: the truth and
+    the blurred image with numpy-seeded noise 1e-3."""
+    from zfista_tpu_torch.models import deblur as td
+
+    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64, device=dev)
+    observed = td.make_blur(td.gaussian_kernel())(truth_t).cpu().numpy()
+    observed = observed + 1e-3 * np.random.default_rng(0).standard_normal(observed.shape)
+    return truth_t.cpu().numpy(), observed
+
+
+def warm_scenes(dev) -> list[tuple]:
+    """Phase 7's ``solve_warm`` runs: (side, kernel, observed, tv_ratio,
+    prox_method), the cameraman and tv_bench's scenes."""
+    from zfista_tpu_torch.bench import tv_bench
+    from zfista_tpu_torch.models import deblur as td
+
+    _, observed = cameraman_observed(dev)
+    scenes = [(CAMERAMAN, td.gaussian_kernel(), observed, 2e-4, "auto")]
+    return scenes + [(n, *tv_bench.scene(n, dev), 1e-3, m) for n, m in TV_BENCH_RUNS]
+
+
+def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]], dict]:
     """The TV slice through the public entry points.  Each FGP kernel's
     main-path run is the first run below that goes through it: the
     500-iteration ``solve`` (the whole-image kernel at 256x256) and the
     ``solve_warm`` runs on tv_bench's scene (the serial tiles by ``auto``
     at 2048x2048, the pipelined tiles pinned at 768x768).  Every
-    count is set to 0 just before each run and read just after.  Returns
-    each kernel's launches in its main-path run, and that run's image
-    side and dual iterations per prox call."""
-    from zfista_tpu_torch.bench import tv_bench
+    count is set to 0 just before each run and read just after.  The
+    fixed-step chunks of both solves are replayed CUDA graphs: each is
+    held bitwise against its ``check_every=1`` run, its captures and
+    replays counted, and timed per step against eager chunks and a first
+    solve, in turns.  Returns each kernel's launches in its main-path run,
+    that run's image side and dual iterations per prox call, and the walls
+    per step of the graphed runs (for phase 7's profile)."""
     from zfista_tpu_torch.models import TVDeblur
-    from zfista_tpu_torch.models import deblur as td
     from zfista_tpu_torch.ops import tv_cuda
 
     counts = tv_cuda.launch_counts
-    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64, device=dev)
-    truth = truth_t.cpu().numpy()
-    observed = td.make_blur(td.gaussian_kernel())(truth_t).cpu().numpy()
-    observed = observed + 1e-3 * np.random.default_rng(0).standard_normal(observed.shape)
+    truth, observed = cameraman_observed(dev)
     b32 = torch.tensor(observed, dtype=torch.float32, device=dev)
     b64 = torch.tensor(observed, dtype=torch.float64, device=dev)
     kw = dict(tv_ratio=2e-4, prox_iter=30)
@@ -723,24 +831,29 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
 
     prob = TVDeblur(b32, **kw)
     meta = prob.checkpoint_meta()
+    before = graph_counts()
     zero(counts)  # the main-path solve starts here
     t0 = time.perf_counter()
     res = quiet(prob.solve, max_iter=500, tol=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = dict(counts)  # ... and ends here
+    graphs = graphs_since(before)
     log(
         f"phase 7 [{card}]: TVDeblur(cameraman {CAMERAMAN}x{CAMERAMAN} f32, tv_ratio 2e-4, "
         "prox_iter 30)"
         f".solve(max_iter=500, tol=0): nit={res.nit} status={res.status} "
-        f"fun={float(np.ravel(res.fun)[0])!r} lr={res.lr!r} wall {wall:.3f} s; "
-        f"prox_kernel {meta['prox_kernel']}; kernel launches {launched}"
+        f"fun={float(np.ravel(res.fun)[0])!r} lr={res.lr!r} wall {wall:.3f} s (with the "
+        f"capture, {last_capture_ms():.1f} ms); prox_kernel {meta['prox_kernel']}; kernel "
+        f"launches {launched}; chunk graphs {graphs}"
     )
     if res.nit != 500 or res.x.shape != (CAMERAMAN**2,) or not np.all(np.isfinite(res.x)):
         raise AssertionError("TV slice run: wrong nit or non-finite x")
     kern = kinds[meta["prox_kernel"]]
     if launched[kern] < 500:
         raise AssertionError(f"TV slice run launched the kernels {launched}")
+    if graphs != {"captures": 1, "replays": -(-500 // 64) - 1}:
+        raise AssertionError(f"TV slice run: chunk graphs {graphs}")
     main_launches, runs = {kern: launched[kern]}, {kern: (CAMERAMAN, kw["prox_iter"])}
     lr = res.lr
 
@@ -771,53 +884,187 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]]]:
 
     conv = {}
     for ce in (1, 64):
+        before = graph_counts()
         t0 = time.perf_counter()
         conv[ce] = quiet(TVDeblur(b32, **kw).solve, lr=lr, check_every=ce, max_iter=3000)
+        graphs = graphs_since(before)
         log(
             f"phase 7 [{card}]: default-tol solve, check_every={ce}: status={conv[ce].status} "
             f"nit={conv[ce].nit} err={conv[ce].error_criterion!r} "
-            f"wall {time.perf_counter() - t0:.3f} s"
+            f"wall {time.perf_counter() - t0:.3f} s; chunk graphs {graphs}"
         )
-    for name, a, c in zip(conv[1].state._fields, conv[1].state, conv[64].state):
-        if not np.array_equal(a, c):
-            raise AssertionError(f"check_every=64 differs from 1 in State.{name}")
-    log("phase 7: check_every=64 is bitwise equal to check_every=1 (x, nit, State)")
+        want = {"captures": 0, "replays": 0} if ce == 1 else {
+            "captures": 1, "replays": -(-conv[ce].nit // ce) - 1}
+        if graphs != want:
+            raise AssertionError(f"default-tol solve, check_every={ce}: chunk graphs {graphs}")
+    same_state(conv[64].state, conv[1].state, "TV check_every=64 (replayed graphs) against 1")
+    same_state(res.state, quiet(TVDeblur(b32, **kw).solve, lr=lr, max_iter=500, tol=0,
+                                check_every=1).state,
+               "TV main-path run (replayed graphs) against check_every=1")
+    log("phase 7: check_every=64 (one capture, replays) and the graphed main-path run are "
+        "bitwise equal to check_every=1 in every State field")
 
-    scenes = [(CAMERAMAN, td.gaussian_kernel(), observed, 2e-4, "auto")]
-    scenes += [(n, *tv_bench.scene(n, dev), 1e-3, m) for n, m in TV_BENCH_RUNS]
-    for size, kernel, obs, tv_ratio, method in scenes:
+    # Per step: the cached graph (a repeat solve), eager chunks (the driver
+    # before the graphs) and a first solve (a fresh instance: one eager
+    # chunk, the capture, the replays), in turns.
+    steps, capture = 500, []
+
+    def first():
+        quiet(TVDeblur(b32, **kw).solve, lr=lr, max_iter=steps, tol=0)
+        capture.append(last_capture_ms())
+
+    def eager():
+        with eager_chunks():
+            quiet(prob.solve, lr=lr, max_iter=steps, tol=0)
+
+    clocks = card_state()
+    walls = in_turns(
+        {"graph": lambda: quiet(prob.solve, lr=lr, max_iter=steps, tol=0), "eager": eager,
+         "first": first},
+        ("graph", "eager", "first", "first", "eager", "graph"),
+    )
+    run = steps_run(steps)
+    step_ms = {"solve": min(walls["graph"]) * 1e3 / run}
+    log(
+        f"phase 7 [{card}]: TVDeblur.solve {CAMERAMAN}x{CAMERAMAN} f32, {steps} iterations "
+        f"({run} steps run), ms a step in turns: cached graph {per_step(walls['graph'], run)}, "
+        f"eager chunks {per_step(walls['eager'], run)}, first solve (eager chunk, capture, "
+        f"replays) {per_step(walls['first'], run)}; the capture alone {[round(c, 1) for c in capture]} "
+        f"ms of host time; SM clock, power draw before and after: {clocks!r}, {card_state()!r}"
+    )
+
+    for size, kernel, obs, tv_ratio, method in warm_scenes(dev):
         b = torch.tensor(obs, dtype=torch.float32, device=dev)
         prob = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method)
         kind = prob.checkpoint_meta()["prox_kernel"]
+        warm = dict(max_iter=200, tol=0, prox_iter=8)
+        before = graph_counts()
         zero(counts)
         t0 = time.perf_counter()
-        w = prob.solve_warm(max_iter=200, tol=0, prox_iter=8)
+        w = prob.solve_warm(**warm)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         used = dict(counts)
-        wp = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method="xla").solve_warm(
-            max_iter=200, tol=0, prox_iter=8
-        )
-        same = np.array_equal(w["x"], wp["x"])
+        graphs = graphs_since(before)
+        with warm_check_every(1):
+            w1 = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method).solve_warm(**warm)
+        wp = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method="xla").solve_warm(**warm)
+        same, same1 = np.array_equal(w["x"], wp["x"]), same_warm(w, w1)
         log(
             f"phase 7 [{card}]: solve_warm(max_iter=200, prox_iter=8) at {size}x{size} f32: "
             f"prox_method {method!r} runs {kind}; nit={w['nit']} fun={w['fun']!r} "
-            f"wall {wall:.3f} s; "
-            f"launches {used}; == plain-prox solve_warm bitwise: {same}"
+            f"wall {wall:.3f} s (with the capture, {last_capture_ms():.1f} ms); "
+            f"launches {used}; chunk graphs {graphs}; == check_every=1 bitwise (x, F, nit, "
+            f"err): {same1}; == plain-prox solve_warm bitwise: {same}"
         )
-        if w["nit"] != 200 or not np.all(np.isfinite(w["x"])) or not same:
-            raise AssertionError(f"solve_warm at {size}: wrong nit, non-finite or != plain")
+        if w["nit"] != 200 or not np.all(np.isfinite(w["x"])) or not same or not same1:
+            raise AssertionError(
+                f"solve_warm at {size}: wrong nit, non-finite or != check_every=1 or plain")
         if used[kinds[kind]] < 200:
             raise AssertionError(f"solve_warm at {size} launched {used}")
+        if graphs != {"captures": 1, "replays": -(-200 // 64) - 1}:
+            raise AssertionError(f"solve_warm at {size}: chunk graphs {graphs}")
         if kinds[kind] not in runs:
             main_launches[kinds[kind]] = used[kinds[kind]]
             runs[kinds[kind]] = (size, 8)
+
+        def eager_warm(prob=prob, warm=warm):
+            with eager_chunks():
+                return prob.solve_warm(**warm)
+
+        before = graph_counts()
+        repeats = {"graph": lambda prob=prob, warm=warm: prob.solve_warm(**warm), "eager": eager_warm}
+        clocks = card_state()
+        walls = in_turns(repeats, ("graph", "eager", "eager", "graph"))
+        again = graphs_since(before)
+        run = steps_run(200)
+        step_ms[f"warm {size}"] = min(walls["graph"]) * 1e3 / run
+        log(
+            f"phase 7 [{card}]: solve_warm at {size}x{size}, 200 iterations ({run} steps run), "
+            f"ms a step in turns: cached graph {per_step(walls['graph'], run)}, eager chunks "
+            f"{per_step(walls['eager'], run)}; "
+            f"the repeats' chunk graphs {again}; SM clock, power draw before and after: "
+            f"{clocks!r}, {card_state()!r}"
+        )
+        if again["captures"]:
+            raise AssertionError(f"solve_warm at {size}: a repeat solve captured again")
 
     for name in TV_KERNELS:
         if not main_launches.get(name):
             raise AssertionError(f"the TV slice never launched {name}")
     log(f"phase 7: main-path launches {main_launches} at (image side, n_iter) {runs}")
-    return main_launches, runs
+    return main_launches, runs, step_ms
+
+
+def replay_step_ms(chunk: int = 64, replays: int = 5) -> float:
+    """Device ms a step of the most recent chunk graph (of ``chunk`` steps),
+    by CUDA events around ``replays`` replays back to back, with no host
+    read between them (they rerun the chunk on its static buffers, which
+    the next solve overwrites)."""
+    from zfista_tpu_torch.core import solver
+
+    graph = next(reversed(solver._GRAPHS.values())).graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * chunk)
+
+
+def phase7_profile(card: str, dev, step_ms: dict) -> dict[str, float]:
+    """The graphed TV solves under torch.profiler, each on its cached graph
+    (captured outside the profile), 640 steps (ten replays): device events
+    and busy µs a step, the share of phase 7's wall a step that is busy,
+    the device ms a step of the graph's replays alone (CUDA events), and
+    each FGP kernel's µs a call inside the graph.  Run after phase 9
+    (timings taken after a profiled region come out slower).  Returns the
+    kernels' µs a call inside the graphs."""
+    from zfista_tpu_torch.models import TVDeblur
+
+    _, observed = cameraman_observed(dev)
+    b32 = torch.tensor(observed, dtype=torch.float32, device=dev)
+    steps = 640
+    solves = {"solve": (TVDeblur(b32, tv_ratio=2e-4, prox_iter=30), None)}
+    for size, kernel, obs, tv_ratio, method in warm_scenes(dev):
+        b = torch.tensor(obs, dtype=torch.float32, device=dev)
+        solves[f"warm {size}"] = (
+            TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method), 8)
+    names = {"fgp_bands_kernel": "fgp_resident", "fgp_tiles_serial_kernel": "fgp_tiles",
+             "fgp_tiles_pipelined_kernel": "fgp_tiles_pipelined"}
+    kernel_us: dict[str, float] = {}
+    for what, (prob, prox_iter) in solves.items():
+        if prox_iter is None:
+            run = lambda prob=prob: quiet(prob.solve, max_iter=steps, tol=0)  # noqa: E731
+        else:
+            run = lambda prob=prob: prob.solve_warm(max_iter=steps, tol=0, prox_iter=8)  # noqa: E731
+        run()  # the capture, outside the profile
+        replay_ms, clocks = replay_step_ms(), card_state()
+        before = graph_counts()
+        n_events, busy, by_name = device_events(run, by_name=True, times=True)
+        graphs = graphs_since(before)
+        calls = {}
+        for key, (count, us) in by_name.items():
+            for kname, name in names.items():
+                if kname in key:
+                    c, t = calls.get(name, (0, 0.0))
+                    calls[name] = (c + count, t + us)
+        share = busy / steps / (1e3 * step_ms[what])
+        log(
+            f"phase 7 [{card}]: {what} on its cached graph, {steps} steps ({graphs}): "
+            f"{n_events / steps:.2f} device events and {busy / steps:.1f} us busy a step; busy "
+            f"share of phase 7's {step_ms[what]:.4f} ms a step: {share:.3f}; the cached graph's "
+            f"replays alone {replay_ms:.4f} ms a step by CUDA events; FGP kernels inside "
+            f"the graph: " + ", ".join(f"{k} {c} calls, {t / c:.2f} us each" for k, (c, t) in calls.items())
+            + f"; SM clock, power draw {clocks!r}"
+        )
+        if graphs != {"captures": 0, "replays": steps // 64} or not calls:
+            raise AssertionError(f"phase 7 profile, {what}: graphs {graphs}, kernels {calls}")
+        for name, (c, t) in calls.items():
+            kernel_us.setdefault(name, t / c)
+    return kernel_us
 
 
 def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
@@ -826,7 +1073,6 @@ def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
     whole-image kernel where its bands fit), the plain loop, and the
     bound."""
     from zfista_tpu_torch.models import TVDeblur
-    from zfista_tpu_torch.models import deblur as td
     from zfista_tpu_torch.ops import tv_cuda
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -869,9 +1115,7 @@ def phase8(dev, card: str) -> dict[tuple[int, int], dict[str, float]]:
                 f"device ms (50 launches, CUDA events): " + "; ".join(parts)
             )
 
-    truth_t = td.synthetic_cameraman(CAMERAMAN, dtype=torch.float64, device=dev)
-    observed = td.make_blur(td.gaussian_kernel())(truth_t).cpu().numpy()
-    observed = observed + 1e-3 * np.random.default_rng(0).standard_normal(observed.shape)
+    _, observed = cameraman_observed(dev)
     b32 = torch.tensor(observed, dtype=torch.float32, device=dev)
     solves = {
         "solve 500 it": lambda m: quiet(
@@ -1395,6 +1639,63 @@ def phase11(card: str, dev) -> None:
             )
             if not same or r.status != 1:
                 raise AssertionError(f"phase 11: {p.name} {name} differs from check_every=1")
+
+
+#: Phase 11b: JOS1 at m = 2 by the fixed step in float64, phase 11's L1
+#: terms: n, and the runs as (lr over 1/L, tol, max_iter).  At lr = 1/L the
+#: solve converges in two steps, so that run goes to max_iter (tol 0); at
+#: a tenth of it the solve stops by tol.  An eager step costs the host
+#: ~25 ms on the card (~600 launches), so the fixed run is 200 steps.
+JOS1_FIXED_N = 50
+JOS1_FIXED_RUNS = ((1.0, 0.0, 200), (0.1, 1e-5, 1000))
+
+
+def phase11b(card: str, dev) -> None:
+    """JOS1 n=50 at m = 2 by the fixed step (``decay_rate=1``, Nesterov,
+    float64): at ``check_every`` 8 and 64 the chunks are replayed CUDA
+    graphs, every State field bitwise the ``check_every=1`` solve, one
+    capture a first solve; then the wall a step on the cached graph
+    against eager chunks, in turns."""
+    from zfista_tpu_torch.models import JOS1
+
+    n = JOS1_FIXED_N
+    p = JOS1(n_features=n, l1_ratios=[1.0 / n, 2.0 / n], l1_shifts=[0.0, -1.0])
+    x0 = torch.tensor(np.random.default_rng(42).uniform(-2.0, 4.0, size=n), device=dev)
+    lip = 2.0 / n  # both objectives' Hessians are 2/n I
+    for frac, tol, max_iter in JOS1_FIXED_RUNS:
+        kw = dict(decay_rate=1, lr=frac / lip, nesterov=True, tol=tol, max_iter=max_iter,
+                  tol_internal=HARNESS_TOL_INTERNAL)
+        what = f"JOS1 n={n} m=2 fixed step lr={frac}/L tol={tol} max_iter={max_iter}"
+        t0 = time.perf_counter()
+        ref = quiet(p.solve, x0, check_every=1, **kw)
+        torch.cuda.synchronize()
+        log(f"phase 11b [{card}]: {what}, check_every=1: status {ref.status} nit {ref.nit} "
+            f"nit_internal {ref.nit_internal} wall {time.perf_counter() - t0:.3f} s")
+        for ce in (8, 64):
+            before = graph_counts()
+            t0 = time.perf_counter()
+            got = quiet(p.solve, x0, check_every=ce, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            graphs = graphs_since(before)
+            same_state(got.state, ref.state, f"phase 11b: {what}, check_every={ce} against 1")
+            if graphs != {"captures": 1, "replays": -(-got.nit // ce) - 1}:
+                raise AssertionError(f"phase 11b: {what}, check_every={ce}: graphs {graphs}")
+
+            def eager(ce=ce, kw=kw):
+                with eager_chunks():
+                    quiet(p.solve, x0, check_every=ce, **kw)
+
+            walls = in_turns({"graph": lambda ce=ce, kw=kw: quiet(p.solve, x0, check_every=ce, **kw),
+                              "eager": eager}, ("graph", "eager", "eager", "graph"))
+            steps = steps_run(got.nit, ce)
+            log(
+                f"phase 11b [{card}]: {what}, check_every={ce}: bitwise check_every=1 in every "
+                f"State field; first solve {wall:.3f} s (the capture {last_capture_ms():.1f} ms "
+                f"of host time; chunk graphs {graphs}); ms a step over the {steps} steps run, in "
+                f"turns: cached graph {per_step(walls['graph'], steps)}, eager chunks "
+                f"{per_step(walls['eager'], steps)}"
+            )
 
 
 #: Phase 12: the batch solver (zfista_tpu_torch.parallel).  (a) the
@@ -3197,13 +3498,6 @@ def phase3(dev, lz: dict) -> float:
     return step_err
 
 
-def graph_replays() -> int:
-    """Chunk-graph replays the solver has launched since import."""
-    from zfista_tpu_torch.core import solver
-
-    return solver.graph_counts["replays"]
-
-
 def same_state(got, ref, what: str) -> None:
     """Raise unless every State field of ``got`` is bitwise ``ref``'s."""
     for name, a, c in zip(got._fields, got, ref):
@@ -3435,7 +3729,7 @@ def phase5(card: str, dev, lz: dict) -> tuple[int, dict]:
 
 #: Every phase, in the order of the full run (``--phases`` selects some).
 PHASES = (
-    "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
+    "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "11b",
     "12a", "12b", "12c", "12d", "12e",
     "13a", "13b", "13c", "13d", "13e", "13f", "13g",
     "14a", "14b", "14c", "14d", "14e",
@@ -3562,7 +3856,8 @@ def kernels_line(runs: dict) -> list[dict]:
                 "by_path": paths,
             }
         )
-    tv_err, tv_launches, tv_runs, tv_ms = (runs.get(k) for k in ("tv_err", "tv_launches", "tv_runs", "tv_ms"))
+    tv_err, tv_launches, tv_runs, tv_ms, tv_graph_us = (
+        runs.get(k) for k in ("tv_err", "tv_launches", "tv_runs", "tv_ms", "tv_graph_us"))
     for name, (source, replaces) in TV_KERNELS.items():
         if not (tv_err or tv_launches):
             continue
@@ -3580,6 +3875,9 @@ def kernels_line(runs: dict) -> list[dict]:
                 "n_iter": n_iter,
                 "ms": tv_ms[n, n_iter][name] if tv_ms and tv_runs else None,
                 "plain_ms": tv_ms[n, n_iter]["fgp_plain"] if tv_ms and tv_runs else None,
+                # Its main-path launches are nodes of replayed chunk graphs;
+                # the µs a call there, by torch.profiler (phase 7's profile).
+                "graph_us": tv_graph_us.get(name) if tv_graph_us else None,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 # No PyTorch call computes an FGP iteration.
@@ -3659,7 +3957,7 @@ def main(argv: list[str] | None = None) -> None:
         ("4", "4", lambda: runs["lasso_launches"].update(phase4(smi, dev, lz()))),
         ("5", "5", lambda: runs.update(zip(("fista", "kern_ms"), phase5(smi, dev, lz())))),
         ("6", "6", lambda: runs.update(tv_err=phase6(dev))),
-        ("7", "7", lambda: runs.update(zip(("tv_launches", "tv_runs"), phase7(dev, smi)))),
+        ("7", "7", lambda: runs.update(zip(("tv_launches", "tv_runs", "tv_step_ms"), phase7(dev, smi)))),
         ("8", "8", lambda: runs.update(tv_ms=phase8(dev, smi))),
         ("14a", "14a", lambda: card14.update(phase14a(smi, dev))),
         ("14c", "14c", lambda: card14.update(phase14c(smi, dev))),
@@ -3671,6 +3969,7 @@ def main(argv: list[str] | None = None) -> None:
         ("13e", "13e", lambda: phase13e(smi)),
         ("9", "9", lambda: phase9(dev, smi, lz()["A"], lz()["b"], lz()["A_np"], lz()["b_np"], lz()["lr"])),
         ("4", "4 (profile)", lambda: phase4_profile(smi, dev, lz())),
+        ("7", "7 (profile)", lambda: runs.update(tv_graph_us=phase7_profile(smi, dev, runs["tv_step_ms"]))),
         # Phase 5's profile, here because timings taken after a profiled
         # region in the same process come out slower, and phase 9 profiles.
         ("5", "5 (loops)", lambda: lasso_loops(dev, smi)),
@@ -3682,6 +3981,7 @@ def main(argv: list[str] | None = None) -> None:
         ("13c", "13c", lambda: phase13c(smi, dev, pooled)),
         ("14", "14a-d", lambda: phase14(smi, dev, card14, pooled, parts14)),
         ("11", "11", lambda: phase11(smi, dev)),
+        ("11b", "11b", lambda: phase11b(smi, dev)),
         ("12d", "12d", lambda: phase12d(smi, dev, pooled[("fds_wide", str(dev))])),
         ("12e", "12e", lambda: phase12e(smi, dev)),
         ("13f", "13f", lambda: phase13f(smi, dev, lz()["A"], lz()["b"], lz()["lr"])),

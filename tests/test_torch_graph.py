@@ -17,9 +17,14 @@ cache, the launch counts.
   ``make_while_driver``): equal ``nit``, x at 1e-10;
 * the cache: its key, its hits, its bound of 8, the dropping of an entry
   whose params tensor died, and an in-place change of ``A`` seen;
-* the steps that are not capturable never reach the graph path;
+* the generic fixed step (``tol_rel``, ``warm_start``, restart, ISTA, ...)
+  graphed and bitwise its ``check_every=1`` solve; the steps and routes
+  that are not capturable never reach the graph path;
 * the launch counters count replayed launches;
 * a host scalar inside a capture raises.
+
+tests/test_torch_graph_tv.py does the same for the TV solves and the
+m = 2 fixed step, with this file's stand-in.
 """
 
 import gc
@@ -33,10 +38,10 @@ import torch
 from zfista_tpu.models import deblur as jd
 from zfista_tpu.models import lasso as jl
 from zfista_tpu_torch.core import solver
-from zfista_tpu_torch.models import Lasso, SparseLogistic, WaveletDeblur
+from zfista_tpu_torch.models import FDS, Lasso, SparseLogistic, WaveletDeblur
 from zfista_tpu_torch.models import deblur as td
 from zfista_tpu_torch.models import lasso as tl
-from zfista_tpu_torch.ops import fused
+from zfista_tpu_torch.ops import fused, tv_cuda
 
 F64 = torch.float64
 
@@ -57,9 +62,11 @@ class _Replay:
         self.replays = 0
 
     def replay(self):
-        held = dict(fused.launch_counts)
+        counters = (fused.launch_counts, tv_cuda.launch_counts)
+        held = [dict(c) for c in counters]
         self.chunk(self.static)
-        fused.launch_counts.update(held)  # a replay runs no wrapper
+        for c, h in zip(counters, held):
+            c.update(h)  # a replay runs no wrapper
         self.replays += 1
 
 
@@ -120,9 +127,10 @@ def _bitwise(got, ref):
         assert a.dtype == c.dtype and np.array_equal(a, c, equal_nan=True), name
 
 
-def _step_and_state(problem, max_iter, tol):
+def _step_and_state(problem, max_iter, tol, **step_kw):
     """The facade's fixed-step step for ``problem`` ("lasso" or "wavelet"),
-    its start state, and the owners the facade keys a graph by."""
+    its start state, and the owners the facade keys a graph by; ``step_kw``
+    go to ``_make_step``."""
     if problem == "lasso":
         A, b, lr = _lasso(3)
         p = (torch.tensor(A), torch.tensor(b), torch.tensor(0.05, dtype=F64))
@@ -140,7 +148,7 @@ def _step_and_state(problem, max_iter, tol):
         fv, gv, jv, pv, m, tol=tol, tol_internal=1e-12, max_iter_internal=100000,
         max_backtrack_iter=100, warm_start=False, decay_rate=1, nesterov=True,
         nesterov_ratio=(0, 0.25), deprecated=False, track_objective=False,
-        max_iter=max_iter,
+        max_iter=max_iter, **step_kw,
     )
     state = solver.init_state(x0, fv(x0) + gv(x0), m, torch.tensor(lr, dtype=F64))
     return step, state, (*fns, *p)
@@ -162,7 +170,7 @@ def test_graphed_driver_is_bitwise_run_masked(graphed, problem, stop):
         assert int(ref.nit) == 101 and not bool(ref.converged)
     for ce in (1, 7, 64):
         made = _Replay.made
-        got = solver.run_graphed(step, state, max_iter, ce, owners)
+        got = solver.run_graphed(step, state, active, ce, owners)
         _bitwise(got, ref)
         assert _Replay.made == made + 1  # a new chunk length, a new graph
         entry = next(reversed(graphed.values()))
@@ -283,11 +291,45 @@ def test_in_place_change_of_the_operator_is_seen(graphed):
 
 @pytest.mark.parametrize(
     "how",
-    ["backtracking", "tol_rel", "warm_start", "check_every=1", "one chunk", "verbose",
+    ["tol_rel", "warm_start", "adaptive_restart", "project_momentum", "ista", "ista+tol_rel"],
+)
+def test_generic_fixed_steps_are_graphed_and_bitwise(graphed, how):
+    """The generic fixed step (the LASSO with ``tol_rel`` or ``warm_start``,
+    which compose the tail around ``fused_prox_momentum``, and the step's
+    other options, which take the generic prox branch) is capturable: its
+    chunks are replayed graphs, and every State field is bitwise its
+    ``check_every=1`` solve.  A repeat solve replays."""
+    A, b, lr = _lasso(22)
+    x0 = np.zeros(A.shape[1])
+    prob = Lasso(A, b, 0.05, device="cpu")
+    opts = {
+        "tol_rel": dict(tol_rel=1e-6),
+        "warm_start": dict(warm_start=True),
+        "adaptive_restart": dict(adaptive_restart=True),
+        "project_momentum": dict(project_momentum=True),
+        "ista": dict(nesterov=False),
+        "ista+tol_rel": dict(nesterov=False, tol_rel=1e-6),
+    }[how]
+    kw = dict(lr=lr, tol=1e-8, **opts)
+    eager = prob.solve_fixed_step(x0, check_every=1, **kw)
+    assert _Replay.made == 0 and eager.status == 1 and eager.nit > 16
+    got = prob.solve_fixed_step(x0, check_every=8, **kw)
+    again = prob.solve_fixed_step(x0, check_every=8, **kw)
+    assert _Replay.made == 1 and len(graphed) == 1
+    (entry,) = graphed.values()
+    assert entry.scratch is None and entry.graph.replays >= 1
+    _bitwise(got.state, eager.state)
+    _bitwise(again.state, eager.state)
+
+
+@pytest.mark.parametrize(
+    "how",
+    ["backtracking", "m>=3", "feature-sharded", "check_every=1", "one chunk", "verbose",
      "return_all", "iter_chunk", "batch"],
 )
 def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
-    """Backtracking, ``tol_rel``, ``warm_start`` and the batch step are not
+    """Backtracking, an m >= 3 step (its Newton loop reads the host), a
+    feature-sharded step (its all-reduces) and the batch step are not
     capturable; ``check_every=1``, a solve of one chunk, ``verbose``,
     ``return_all`` and ``iter_chunk`` keep the eager loop: none reaches
     the graph factory."""
@@ -295,10 +337,21 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
     fixed = dict(lr=lr, tol=1e-8, check_every=8)
+
+    def sharded():
+        # One rank's view: the reductions over features are the identity.
+        step, state, owners = _step_and_state("lasso", 1000, 1e-8, feature_sum=lambda v: v,
+                                              feature_max=lambda v: v)
+        assert not getattr(step, "capturable", False)
+        out = solver.make_while_driver(step, 1000, 8, owners)(state)
+        return type("R", (), {"status": int(out.converged)})
+
     runs = {
         "backtracking": lambda: prob.solve(x0, nesterov=True, check_every=8),
-        "tol_rel": lambda: prob.solve_fixed_step(x0, tol_rel=1e-6, **fixed),
-        "warm_start": lambda: prob.solve_fixed_step(x0, warm_start=True, **fixed),
+        "m>=3": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
+                               decay_rate=1, lr=0.05, nesterov=True, check_every=8,
+                               max_iter=40, tol=0),
+        "feature-sharded": sharded,
         "check_every=1": lambda: prob.solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=1),
         "one chunk": lambda: _quiet(prob.solve_fixed_step, x0, lr=lr, tol=0, max_iter=8,
                                     check_every=8),
@@ -310,7 +363,7 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
     }
     res = runs[how]()
     assert _Replay.made == 0 and len(graphed) == 0
-    assert np.all(np.asarray(res.status) == (0 if how == "one chunk" else 1))
+    assert np.all(np.asarray(res.status) == (0 if how in ("one chunk", "m>=3") else 1))
 
 
 def test_launch_counts_count_replayed_launches(graphed, counted):
@@ -327,7 +380,10 @@ def test_launch_counts_count_replayed_launches(graphed, counted):
         assert counted["lasso_step_tail"] == -(-res.nit // 7) * 7
         assert counted["fused_prox_momentum"] == counted["fista_tail"] == 0
     (entry,) = graphed.values()
-    assert entry.launches == {"fused_prox_momentum": 0, "fista_tail": 0, "lasso_step_tail": 7}
+    assert entry.launches == {
+        "fused_prox_momentum": 0, "fista_tail": 0, "lasso_step_tail": 7,
+        "fgp_resident": 0, "fgp_tiles": 0, "fgp_tiles_pipelined": 0,
+    }
     assert entry.capture_ms is not None and entry.capture_ms >= 0
 
 
@@ -347,19 +403,37 @@ def test_host_scalar_inside_a_capture_raises(monkeypatch):
 
 
 def test_only_the_fused_tail_is_marked_capturable():
-    """The batch step masks itself but reads the host in its line search:
-    it carries no ``capturable`` mark; nor does a backtracking step."""
+    """Which steps carry the ``capturable`` mark: the fused tail (which alone
+    takes the scratch words) and the generic fixed step at m <= 2, each
+    with every option it bakes in; not a backtracking step, an m >= 3
+    step, a verbose one, nor the batch step, which masks itself but reads
+    the host in its line search."""
     step, _, _ = _step_and_state("lasso", 10, 1e-8)
-    assert step.capturable and step.options == (0.0, 0.25, 1e-8, 10)
+    assert step.capturable and step.takes_scratch and step.options == (0.0, 0.25, 1e-8, 10)
     f = lambda x: torch.sum(x * x)  # noqa: E731
     prox = lambda w, x: x  # noqa: E731
-    back = solver._make_step(
-        lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
-        lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, tol=1e-8, tol_internal=1e-12,
-        max_iter_internal=10, max_backtrack_iter=10, warm_start=False, decay_rate=0.5,
-        nesterov=True, nesterov_ratio=(0, 0.25), deprecated=False, max_iter=10,
-    )
-    assert not getattr(back, "capturable", False)
+
+    def make(m=1, **kw):
+        args = dict(
+            tol=1e-8, tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
+            warm_start=False, decay_rate=0.5, nesterov=True, nesterov_ratio=(0, 0.25),
+            deprecated=False, max_iter=10,
+        )
+        args.update(kw)
+        return solver._make_step(
+            lambda x: torch.stack([f(x)] * m), lambda x: torch.zeros(m, dtype=x.dtype),
+            lambda x: torch.stack([2 * x] * m), prox, m, **args,
+        )
+
+    for m in (1, 2):
+        generic = make(m, decay_rate=1)
+        assert generic.capturable and not getattr(generic, "takes_scratch", False)
+        assert generic.options == (
+            "step", 0.0, 0.25, 1e-8, 0.0, m, False, True, False, False, False, 1e-12, 0.0,
+            10, True, 10,
+        )
+    for step in (make(1), make(3, decay_rate=1), make(1, decay_rate=1, verbose=True)):
+        assert not getattr(step, "capturable", False)
     batch = solver._make_batch_step(
         lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
         lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, tol=1e-8,

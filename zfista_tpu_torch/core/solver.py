@@ -28,7 +28,8 @@ The fixed-step, single-objective step reads nothing at all.  Every step a
 run takes is computed from the same inputs in the same order, so any
 ``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
 bitwise equal to the uninterrupted ``check_every=1`` solve.  On a card the
-chunks of the one-launch LASSO-family step below run as replayed CUDA
+chunks of every step that reads nothing (the one-launch LASSO-family
+step below, and the generic fixed step at m <= 2) run as replayed CUDA
 graphs (:func:`run_graphed`), the counterpart of the JAX package's one
 device program per chunk.
 
@@ -39,7 +40,7 @@ soft-threshold prox, the momentum extrapolation and recursion, the
 convergence test, the counters and the chunk loop's mask.  With
 ``tol_rel`` or ``warm_start`` the kernel computes the prox and the
 extrapolation (:func:`zfista_tpu_torch.ops.fused.fused_prox_momentum`) and
-the rest of the tail runs as eager launches.
+the rest of the tail runs as launches of their own.
 
 A start ``x0`` that is this rank's block of a feature-sharded iterate
 (tagged by :mod:`zfista_tpu_torch.parallel.sharding`, as
@@ -55,6 +56,8 @@ the kernel from a block's max, and ranks would stop on different steps.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 import time as _time
 import warnings
 import weakref
@@ -71,7 +74,7 @@ from zfista_tpu_torch.core.subproblem import (
     make_batch_subproblem_solver,
     make_subproblem_solver,
 )
-from zfista_tpu_torch.ops import fused
+from zfista_tpu_torch.ops import fused, tv_cuda
 from zfista_tpu_torch.ops.fused import fused_prox_momentum, lasso_step_tail
 from zfista_tpu_torch.ops.precision import dot_hp
 
@@ -166,9 +169,14 @@ def _make_step(
     A returned step whose attribute ``masks_itself`` is true leaves a state
     that is not active (:func:`_active` at ``max_iter``) as it is, so a
     chunk loop runs it without :func:`_masked`.  One whose attribute
-    ``capturable`` is true (the fused LASSO tail's) also takes the step
-    tail's ``scratch`` words as a keyword and carries the options it bakes
-    in as ``options``: :func:`run_graphed` captures its chunks.
+    ``capturable`` is true reads nothing on the host and carries every
+    option it bakes in as ``options``: :func:`run_graphed` captures its
+    chunks.  That is the fused LASSO tail, which also takes the step
+    tail's ``scratch`` words as a keyword (``takes_scratch``), and the
+    generic step at a fixed ``lr`` with at most two objectives, neither
+    ``verbose`` nor feature-sharded: its line search returns at once, the
+    m = 1 subproblem is one prox and the m = 2 bisection runs a count of
+    halvings fixed on the host.
     """
     m = n_objectives
     sharded = feature_sum is not None
@@ -260,6 +268,7 @@ def _make_step(
         # scalars already 0-d device tensors: a chunk of it can be captured
         # as one CUDA graph (run_graphed), which bakes in these options.
         tail_step.capturable = True
+        tail_step.takes_scratch = True
         tail_step.options = (float(a), float(b), float(tol), max_iter)
         return tail_step
 
@@ -350,6 +359,17 @@ def _make_step(
             failed=state.failed,
         )
 
+    if fixed_lr and m <= 2 and not verbose and not sharded:
+        # No host read (see the docstring): a chunk of it can be captured,
+        # with every option the step bakes in as the graph's key.
+        step.capturable = True
+        step.options = (
+            "step", float(a), float(b), float(tol), float(tol_rel), m,
+            bool(warm_start), bool(nesterov), bool(adaptive_restart),
+            bool(project_momentum), bool(deprecated), float(tol_internal),
+            float(tol_internal_rel), int(max_iter_internal),
+            bool(track_objective), max_iter,
+        )
     return step
 
 
@@ -640,18 +660,37 @@ def make_while_driver(
 ) -> Callable[[State], State]:
     """Run ``step`` until the state is inactive (converged, failed or at
     ``max_iter``), reading the convergence flag on the host once every
-    ``check_every`` steps: each chunk a replayed CUDA graph where
-    :func:`_graphed` says so (:func:`run_graphed`; ``owners`` are the
-    callables and params the step reads, which key the graph), else
-    eager launches (:func:`run_masked`).  Both are bitwise the
-    ``check_every=1`` solve."""
+    ``check_every`` steps (:func:`run_chunks`; ``owners`` are the
+    callables and params the step reads, which key a chunk graph).  Every
+    ``check_every`` is bitwise the ``check_every=1`` solve."""
 
     def run(state: State) -> State:
-        if _graphed(step, state, max_iter, check_every, owners):
-            return run_graphed(step, state, max_iter, check_every, owners)
-        return run_masked(step, state, lambda s: _active(s, max_iter), check_every)
+        return run_chunks(
+            step, state, lambda s: _active(s, max_iter), check_every, max_iter, owners
+        )
 
     return run
+
+
+def run_chunks(
+    step: Callable[[Any], Any],
+    carry: Any,
+    active: Callable[[Any], Array],
+    check_every: int,
+    max_iter: int,
+    owners: tuple[Any, ...] | None = None,
+) -> Any:
+    """Advance the NamedTuple ``carry`` by ``step`` while ``active`` (which
+    is false from step ``max_iter`` on), in chunks of ``check_every``
+    steps: each chunk a replayed CUDA graph where :func:`_graphed` says so
+    (:func:`run_graphed`), else eager launches (:func:`run_masked`).  Both
+    are bitwise the ``check_every=1`` run.  A graph's masked steps replay
+    the ``active`` of its capture, so ``step.options`` holds what
+    ``active`` bakes in (``max_iter``), and ``owners`` the tensors it
+    reads."""
+    if _graphed(step, carry, max_iter, check_every, owners):
+        return run_graphed(step, carry, active, check_every, owners)
+    return run_masked(step, carry, active, check_every)
 
 
 # -- the chunk as a CUDA graph ----------------------------------------------
@@ -661,13 +700,13 @@ def make_while_driver(
 # counterpart of "a chunk is one device program" is a CUDA graph of the
 # chunk, captured once and replayed once per host read of the active flag.
 # The graph reads everything by pointer: the chunk's carry from static
-# State buffers (copied in before the first replay, cloned out after the
-# last read), the operator and the other params from the tensors the
-# caller passed, so an in-place change to A is seen, as in the eager step.
-# What the capture baked in (a, b, tol, max_iter, check_every, the shapes
-# and dtypes) keys the cache, with the identity of the callables and of
-# the params tensors, held by weak reference: an entry whose graph reads
-# a tensor that has died is dropped.
+# buffers of the carry's type (copied in before the first replay, cloned
+# out after the last read), the operator and the other params from the
+# tensors the caller passed, so an in-place change to A is seen, as in the
+# eager step.  What the capture baked in (the step's options, check_every,
+# the carry's type, shapes and dtypes) keys the cache, with the identity
+# of the callables and of the params tensors, held by weak reference: an
+# entry whose graph reads a tensor that has died is dropped.
 
 
 def _graphs_run_on(device: torch.device) -> bool:
@@ -676,31 +715,40 @@ def _graphs_run_on(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def _graphed(step, state: State, max_iter: int, check_every: int, owners) -> bool:
-    """The graphed driver's rule: a capturable step (the fused LASSO tail),
-    ``owners`` given, a chunk of more than one step, on a card, and more
-    than one chunk to run.  A solve whose ``max_iter`` is at most one chunk
-    has nothing to replay, so it stays eager, as ``check_every=1`` does."""
+def _graphed(step, carry, max_iter: int, check_every: int, owners) -> bool:
+    """The graphed driver's rule: a capturable step, ``owners`` given, a
+    chunk of more than one step, on a card, and more than one chunk to
+    run.  A run whose ``max_iter`` is at most one chunk has nothing to
+    replay, so it stays eager, as ``check_every=1`` does."""
     return (
         getattr(step, "capturable", False)
         and owners is not None
         and check_every > 1
         and max_iter > check_every
-        and _graphs_run_on(state.x.device)
+        and _graphs_run_on(carry[0].device)
     )
 
 
-def graph_chunk(step: Callable[..., State], check_every: int, scratch: Array):
+def graph_chunk(
+    step: Callable[..., Any],
+    active: Callable[[Any], Array],
+    check_every: int,
+    scratch: Array | None = None,
+):
     """The chunk that a graph captures, as a plain function of the static
-    carry: ``check_every`` steps of the self-masking ``step`` from
-    ``static``, each with the entry's own step-tail ``scratch``, and the
-    last step's fields copied back into ``static`` (the copies are nodes
-    of the graph; only the static buffers outlive a replay)."""
+    carry: ``check_every`` steps from ``static`` as a chunk loop runs them
+    (:func:`_chunk_body`: masked by ``active`` unless the step masks
+    itself), the step tail's ``scratch`` passed to a step that takes it,
+    and the last step's fields copied back into ``static`` (the copies
+    are nodes of the graph; only the static buffers outlive a replay)."""
+    body = _chunk_body(step, active)
+    if scratch is not None:
+        body = functools.partial(body, scratch=scratch)
 
-    def chunk(static: State) -> None:
+    def chunk(static: Any) -> None:
         carry = static
         for _ in range(check_every):
-            carry = step(carry, scratch=scratch)
+            carry = body(carry)
         for s, c in zip(static, carry):
             if c is not s:
                 s.copy_(c)
@@ -713,7 +761,7 @@ class CudaChunkGraph:
     private memory pool; :meth:`replay` launches it on the current stream.
     A capture that fails raises: nothing falls back to eager launches."""
 
-    def __init__(self, chunk: Callable[[State], None], static: State, stream) -> None:
+    def __init__(self, chunk: Callable[[Any], None], static: Any, stream) -> None:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
             self.graph.capture_begin()
@@ -739,18 +787,24 @@ GRAPH_CACHE_SIZE = 8
 graph_counts: dict[str, int] = {"captures": 0, "replays": 0}
 
 
-class _GraphEntry:
-    """A cached chunk graph and what it owns: the static ``State`` buffers,
-    the step tail's scratch words, the graph (with its private memory
-    pool), the kernel launches one replay makes, and weak references to
-    the tensors and callables it reads."""
+def _launch_counters() -> tuple[dict[str, int], ...]:
+    """The kernel wrappers' launch counters (their names are distinct), as
+    the modules hold them now."""
+    return fused.launch_counts, tv_cuda.launch_counts
 
-    def __init__(self, state: State, refs: list) -> None:
-        dev = state.x.device
-        self.static = State(
-            *(torch.empty_like(v, memory_format=torch.contiguous_format) for v in state)
+
+class _GraphEntry:
+    """A cached chunk graph and what it owns: the static carry buffers,
+    the step tail's scratch words (for a step that takes them), the graph
+    (with its private memory pool), the kernel launches one replay makes,
+    and weak references to the tensors and callables it reads."""
+
+    def __init__(self, carry: Any, refs: list, scratch: bool) -> None:
+        dev = carry[0].device
+        self.static = type(carry)(
+            *(torch.empty_like(v, memory_format=torch.contiguous_format) for v in carry)
         )
-        self.scratch = fused.step_tail_scratch(dev)
+        self.scratch = fused.step_tail_scratch(dev) if scratch else None
         self.stream = _capture_stream(dev)
         self.refs = refs
         self.graph = None
@@ -760,36 +814,41 @@ class _GraphEntry:
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
 
-    def capture(self, step, check_every: int) -> None:
-        """Run one chunk eagerly on the capture stream (the solve's first
-        chunk; it also warms cuBLAS's workspace for that stream), then
-        capture the same chunk.  The launches the capture recorded are what
-        each replay adds to ``ops.fused.launch_counts``: the wrappers ran
-        once at capture, and those were not launches."""
-        chunk = graph_chunk(step, check_every, self.scratch)
+    def capture(self, step, active, check_every: int) -> None:
+        """Run one chunk eagerly on the capture stream (the run's first
+        chunk; it also warms cuBLAS's workspace for that stream and the
+        wrappers' host caches), then capture the same chunk.  The launches
+        the capture recorded are what each replay adds to the wrappers'
+        ``launch_counts``: the wrappers ran once at capture, and those were
+        not launches."""
+        chunk = graph_chunk(step, active, check_every, self.scratch)
         stream = self.stream
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(stream.device))
-        counts = fused.launch_counts
+        counters = _launch_counters()
         with _on_stream(stream):
             chunk(self.static)
-            before = dict(counts)
+            before = [dict(c) for c in counters]
             t0 = _time.perf_counter()
             try:
                 self.graph = CHUNK_GRAPH(chunk, self.static, stream)
                 self.capture_ms = 1e3 * (_time.perf_counter() - t0)
                 graph_counts["captures"] += 1
-                self.launches = {k: counts[k] - before[k] for k in before}
+                self.launches = {
+                    k: c[k] - b[k] for c, b in zip(counters, before) for k in b
+                }
             finally:
-                counts.update(before)
+                for c, b in zip(counters, before):
+                    c.update(b)
         if stream is not None:
             torch.cuda.current_stream(stream.device).wait_stream(stream)
 
     def replay(self) -> None:
         self.graph.replay()
         graph_counts["replays"] += 1
-        for k, v in self.launches.items():
-            fused.launch_counts[k] += v
+        for counts in _launch_counters():
+            for k in counts.keys() & self.launches.keys():
+                counts[k] += self.launches[k]
 
 
 _GRAPHS: OrderedDict[tuple, _GraphEntry] = OrderedDict()
@@ -812,23 +871,31 @@ def _on_stream(stream):
 
 
 def _weak(obj: Any):
-    """A weak reference to ``obj``, or, for an object that takes none (a
-    builtin function), a strong one: it then lives as long as the entry."""
+    """A weak reference to ``obj`` (to a bound method: to its object and
+    function, as a new bound method object is made at every attribute
+    access), or, for an object that takes none (a builtin function), a
+    strong one: it then lives as long as the entry."""
     try:
+        if inspect.ismethod(obj):
+            return weakref.WeakMethod(obj)
         return weakref.ref(obj)
     except TypeError:
         return lambda: obj
 
 
-def _graph_key(step, state: State, check_every: int, owners) -> tuple[tuple, list]:
+def _graph_key(step, carry, check_every: int, owners) -> tuple[tuple, list]:
     """The cache key of a chunk graph, and the references its entry keeps
     to check that what it reads is alive.  Tensors and callables count by
-    identity (and tensors by dtype and shape); other params by value, or
-    by identity, kept alive, where they do not hash."""
+    identity (tensors also by dtype and shape; a bound method by its
+    object's and its function's); other params by value, or by identity,
+    kept alive, where they do not hash."""
     ids, refs = [], []
     for o in owners:
         if isinstance(o, torch.Tensor):
             ids.append((id(o), o.dtype, tuple(o.shape), o.device))
+            refs.append(_weak(o))
+        elif inspect.ismethod(o):
+            ids.append(("method", id(o.__self__), id(o.__func__)))
             refs.append(_weak(o))
         elif callable(o):
             ids.append(id(o))
@@ -840,21 +907,22 @@ def _graph_key(step, state: State, check_every: int, owners) -> tuple[tuple, lis
             except TypeError:
                 ids.append(("object", id(o)))
                 refs.append(lambda o=o: o)
-    fields = tuple((v.dtype, tuple(v.shape)) for v in state)
-    key = (step.options, int(check_every), state.x.device, fields, tuple(ids))
+    fields = tuple((v.dtype, tuple(v.shape)) for v in carry)
+    key = (step.options, int(check_every), carry[0].device, fields, tuple(ids), type(carry))
     return key, refs
 
 
-def _graph_entry(step, state: State, check_every: int, owners) -> _GraphEntry:
-    """The cached entry for this solve, made (without its graph) on a miss.
+def _graph_entry(step, carry, check_every: int, owners) -> _GraphEntry:
+    """The cached entry for this run, made (without its graph) on a miss.
     Entries whose tensors or callables died go first; past
     ``GRAPH_CACHE_SIZE`` the least recently used goes."""
     for k in [k for k, e in _GRAPHS.items() if not e.alive()]:
         del _GRAPHS[k]
-    key, refs = _graph_key(step, state, check_every, owners)
+    key, refs = _graph_key(step, carry, check_every, owners)
     entry = _GRAPHS.get(key)
     if entry is None:
-        entry = _GRAPHS[key] = _GraphEntry(state, refs)
+        scratch = getattr(step, "takes_scratch", False)
+        entry = _GRAPHS[key] = _GraphEntry(carry, refs, scratch)
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
     else:
@@ -863,26 +931,30 @@ def _graph_entry(step, state: State, check_every: int, owners) -> _GraphEntry:
 
 
 def run_graphed(
-    step: Callable[..., State], state: State, max_iter: int, check_every: int, owners
-) -> State:
+    step: Callable[..., Any],
+    carry: Any,
+    active: Callable[[Any], Array],
+    check_every: int,
+    owners: tuple[Any, ...],
+) -> Any:
     """:func:`run_masked` for a capturable step, each chunk one replay of a
     cached CUDA graph (:func:`graph_chunk` captured by ``CHUNK_GRAPH``):
-    the state is copied into the entry's static buffers, the host reads
-    the active flag once per chunk, as the eager loop does, and the result
-    is a copy taken after the last read.  On a cache miss the first chunk
-    runs eagerly and is then captured.  Bitwise the ``check_every=1``
-    solve, ``nit`` included: frozen steps in the last chunk run and are
-    discarded by the step's own mask."""
-    entry = _graph_entry(step, state, check_every, owners)
+    the carry is copied into the entry's static buffers, the host reads
+    ``active`` once per chunk, as the eager loop does, and the result is a
+    copy taken after the last read.  On a cache miss the first chunk runs
+    eagerly and is then captured.  Bitwise the ``check_every=1`` run,
+    step count included: frozen steps in the last chunk run and are
+    discarded by the mask."""
+    entry = _graph_entry(step, carry, check_every, owners)
     static = entry.static
-    for s, v in zip(static, state):
+    for s, v in zip(static, carry):
         s.copy_(v)
-    while bool(_active(static, max_iter)):  # the one host read per chunk
+    while bool(active(static)):  # the one host read per chunk
         if entry.graph is None:
-            entry.capture(step, check_every)
+            entry.capture(step, active, check_every)
         else:
             entry.replay()
-    return State(*(s.clone() for s in static))
+    return type(carry)(*(s.clone() for s in static))
 
 
 def _run_history(step, state: State, max_iter: int, chunk: int):
@@ -1086,7 +1158,9 @@ def minimize_proximal_gradient(
 
     ``check_every=None`` picks 64 for a single-objective fixed-step solve
     on a CUDA device (one host read of the convergence flag per 64 steps)
-    and 1 elsewhere.  ``iter_chunk`` runs at most that many steps between
+    and 1 elsewhere.  On a card the chunks of a fixed-step solve with at
+    most two objectives (not ``verbose``, not feature-sharded) run as
+    replayed CUDA graphs (:func:`run_graphed`).  ``iter_chunk`` runs at most that many steps between
     host copies of the state; when the device faults inside a chunk, the
     solve returns the last chunk's host copy with ``success=False``,
     status 2 and a "device fault" message, without touching the device

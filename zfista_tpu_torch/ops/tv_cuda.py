@@ -39,7 +39,6 @@ the plain loop's operations in its order, so on the card all of them equal
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -51,7 +50,10 @@ from zfista_tpu_torch.ops.tv import _div2d, _grad2d
 #: Kernel launches made by each wrapper since import (or since a caller
 #: reset the entry to 0).  Incremented only where a CUDA kernel is
 #: launched, never on the plain CPU path.  ``fgp_tiles*`` count every
-#: launch of a call: one per sweep, plus the pass that recovers ``u``.
+#: launch of a call: one per sweep, plus the pass that recovers ``u``.  A
+#: replayed CUDA graph runs no wrapper: the solver adds the launches its
+#: capture recorded at each replay (``core.solver.run_graphed``), and
+#: takes back the capture's own.
 launch_counts: dict[str, int] = {
     "fgp_resident": 0,
     "fgp_tiles": 0,
@@ -272,7 +274,16 @@ def fgp_plain(
     return v - lam * _div2d(p, q), p, q
 
 
-@functools.cache
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never without
+    a card)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+#: :func:`_sweeps`'s values, by ``(n_iter, dtype, device, halo)``.
+_SWEEPS: dict[tuple, tuple[tuple[float, int], ...]] = {}
+
+
 def _sweeps(
     n_iter: int, dtype: torch.dtype, device: torch.device, halo: int = HALO
 ) -> tuple[tuple[float, int], ...]:
@@ -287,17 +298,33 @@ def _sweeps(
     ``torch.sqrt`` is not correctly rounded (it differs from the card's by
     an ulp from t's 12th step), the card's is.  Each start value is exact
     as a Python float.
+
+    Reading them is a host sync, so a first call inside a CUDA graph
+    capture raises: a chunk graph runs its chunk eagerly before it
+    captures it, which fills this cache, and a start value read at capture
+    would be baked into the graph unchecked.
     """
+    key = (int(n_iter), dtype, torch.device(device), int(halo))
+    out = _SWEEPS.get(key)
+    if out is not None:
+        return out
+    if _capturing():
+        raise RuntimeError(
+            f"fgp_tiles: the sweeps' start values of n_iter={n_iter} {dtype} on "
+            f"{device} are not cached, and reading them inside a CUDA graph "
+            "capture would sync the stream; run the call once before capturing it"
+        )
     t = torch.ones((), dtype=dtype, device=device)
-    out = []
+    starts = []
     done = 0
     while done < n_iter:
         k = min(halo, n_iter - done)
-        out.append((float(t), k))
+        starts.append((float(t), k))
         for _ in range(k):
             t = _t_next(t)
         done += k
-    return tuple(out)
+    out = _SWEEPS[key] = tuple(starts)
+    return out
 
 
 def _window(f: Array, r0: int, c0: int, wh: int, ww: int) -> Array:
