@@ -8,12 +8,15 @@ problem and its ``lr``, the pool's tasks), checks what those phases check,
 and prints the same lines at the end; its ``kernels`` line lists the
 kernels its phases ran, with null for what they did not measure.
 
-The fixed-step solves of phases 4, 5, 7, 11b, 13d, 14a and 14c and
-``solve_warm`` in phase 7 run their chunks as replayed CUDA graphs
+The fixed-step solves of phases 4, 5, 7, 11b, 13d, 14a and 14c,
+``solve_warm`` in phase 7, the backtracking solves of phases 9, 11 (m = 2),
+14c and 14d (their line search as carried trials, one a step) and the
+fixed-lr batch of phase 12b run their chunks as replayed CUDA graphs
 (``zfista_tpu_torch.core.solver.run_graphed``): each is held bitwise
 against its ``check_every=1`` run, its captures and replays are counted,
 and phase 4's launch count is held against the profiler's count of the
-step-tail kernel.  ``--phases 7,11`` runs the graphed TV and m = 2 checks.
+step-tail kernel.  ``--phases 7,11`` runs the graphed TV and m = 2 checks,
+``--phases 9,11,12b,14c,14d`` the graphed backtracking and batch ones.
 
 Drives the port's three slices on the card and checks every CUDA kernel
 of them against its plain PyTorch version:
@@ -98,11 +101,16 @@ Phases:
    prox call from 256x256 to 2048x2048 at 30 and 8 dual iterations, one
    tile sweep per round of tiles, and the TV solves' wall time, kernel
    against plain;
-9. backtracking LASSO at full width (``decay_rate=0.5``, ``lr=1``): nit,
-   trials per iteration, iter/s against the fixed-step solve, host reads
-   per iteration, device busy share; float64 on the card against float64
-   on the CPU (50 iterations: same inner count, 1e-9 relative), float32
-   against float64 (200 iterations, 1e-4);
+9. backtracking LASSO at full width (``decay_rate=0.5``, ``lr=1``), its
+   line search as carried trials on replayed graphs at ``check_every`` 64
+   and 16, bitwise the default ``check_every=1`` solve (captures and
+   replays counted), first solves at 64 and 16 against the default in
+   turns with the captures' ms; nit, trials per iteration, iter/s on the
+   cached graph, with eager chunks, at ``check_every=1`` and by the fixed
+   step, host reads per iteration (below 0.1 graphed), device busy share;
+   float64 on the card against float64 on the CPU (50 iterations: same
+   inner count, 1e-9 relative), float32 against float64 (200 iterations,
+   1e-4);
 10. the harness's 15 problems under every variant (plus the projected one
     for bounded problems), the first start of ``benchmark()``'s draw
     (one start per case, to leave phase 12 the time), float64, each solve
@@ -112,7 +120,8 @@ Phases:
     within 1e-6 relative); run in worker processes, one CPU thread each;
 11. ``check_every=8``, ``iter_chunk=5`` and ``return_all`` solves on the
     card, bitwise equal to the ``check_every=1`` solve, for JOS1 with L1
-    and for FDS; (b) JOS1 n=50 at m = 2 by the fixed step in float64, at
+    (``check_every=8`` on replayed graphs, counted) and for FDS (eager);
+    (b) JOS1 n=50 at m = 2 by the fixed step in float64, at
     ``check_every`` 8 and 64 on replayed graphs, bitwise ``check_every=1``,
     ms a step graphed against eager chunks;
 12. the batch solver: (a) every phase-10 case as one batch of
@@ -122,8 +131,9 @@ Phases:
     batch), over the window and, for m<=2, to the end, with walls beside
     phase 10's single solves; (b) the 1k-lambda
     elastic-net sweep (A 500 x 2000, float32, fixed step), converged share,
-    mean nit and solves/s, 8 lanes against single ``Lasso`` solves within
-    1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front;
+    mean nit and solves/s, at ``check_every=8`` on replayed graphs bitwise
+    the ``check_every=1`` sweep (a first and a repeat sweep, walls beside),
+    8 lanes against single ``Lasso`` solves within 1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front;
     (d) FDS n=10 from 1,024 starts in float64, and ``lane_chunk=256``
     bitwise equal to the unchunked batch; (e) host reads and device events
     per outer iteration at 16 and 1,024 lanes, within 1%.  Phases 10, 12
@@ -156,13 +166,16 @@ Phases:
     iterations, each within 1e-4 of its pair's float64 CPU solve;
     (c) ``SparseLogistic`` (2,000 x 10,000, float32): the backtracking
     default within KKT 2e-4 (its float32 line search shrinks lr), with
-    the float32 accept slack and the fixed step within KKT 1e-4, each F
+    the float32 accept slack and the fixed step within KKT 1e-4, both
+    backtracking solves at ``check_every=64`` on replayed graphs bitwise
+    ``check_every=1``, each F
     within 1e-4 of the float64 CPU solve's, the fixed step one
     ``lasso_step_tail`` launch per step (replayed graphs, bitwise its
     ``check_every=1`` solve), 50-iteration windows float32
     against float64 (1e-4) and float64 card against CPU (equal counts,
     1e-9); (d) ``GroupLasso`` on the LASSO problem above, groups of 10:
-    float32 converges to 1e-6 with and without the accept slack, each F
+    float32 converges to 1e-6 with and without the accept slack (each at
+    ``check_every=64`` on replayed graphs bitwise ``check_every=1``), each F
     within 1e-4 of the float64 CPU solve's, float64 card against CPU as
     (c); (e)
     ``bench.kernels`` and ``bench.tv_bench`` (256²-2048²), their kernel
@@ -1287,53 +1300,159 @@ def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]
     return out
 
 
+def same_result(got, ref, what: str) -> None:
+    """Raise unless ``got`` is ``ref`` bit for bit: every State field, nit,
+    nit_internal and status."""
+    same_state(got.state, ref.state, what)
+    if (got.nit, got.nit_internal, got.status) != (ref.nit, ref.nit_internal, ref.status):
+        raise AssertionError(f"{what}: nit, nit_internal or status differ")
+
+
+def trial_graphs_ok(graphs: dict[str, int], res, chunk: int) -> bool:
+    """Whether an m = 1 backtracking solve ran all its trials (one inner
+    iteration each, so ``nit_internal`` of them) as chunk graphs: one eager
+    chunk and a capture then replays, or replays alone on a cached graph."""
+    chunks = -(-res.nit_internal // chunk)
+    return graphs["captures"] <= 1 and graphs["captures"] + graphs["replays"] == chunks
+
+
+def held_at_64(card: str, what: str, solve, **kw):
+    """``solve(check_every=64, **kw)`` (an m = 1 backtracking solve: its
+    carried trials on replayed graphs) bitwise ``solve(check_every=1,
+    **kw)``, its chunk graphs counted and both walls logged.  Returns the
+    ``check_every=1`` result."""
+    before = graph_counts()
+    t0 = time.perf_counter()
+    got = solve(check_every=64, **kw)
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    graphs = graphs_since(before)
+    t0 = time.perf_counter()
+    ref = solve(check_every=1, **kw)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    same_result(got, ref, f"{what} at check_every=64 against check_every=1")
+    if not trial_graphs_ok(graphs, got, 64):
+        raise AssertionError(f"{what}: {got.nit_internal} trials ran chunk graphs {graphs}")
+    log(
+        f"{what} [{card}]: check_every=64 (chunk graphs {graphs}) bitwise check_every=1 in every "
+        f"State field, nit {got.nit}, nit_internal {got.nit_internal} and status {got.status}; "
+        f"wall {wall64:.3f} s against check_every=1's {wall1:.3f} s"
+    )
+    return ref
+
+
+#: Phase 9: iterations of the timed runs, and the bound of a one-trial
+#: backtracking iteration: A read four times (f(y), jac_f(y)'s two
+#: products, f of the trial) at the card's memory rate.
+BT_ITERS = 500
+BT_BOUND_US = 1e6 * 4 * M * N * 4 / PEAK_BYTES_PER_S
+
+
 def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
     """Backtracking LASSO at full width: ``Lasso.solve`` with the default
-    ``decay_rate=0.5`` and ``lr=1``, against the fixed-step solve."""
+    ``decay_rate=0.5`` and ``lr=1``.  At ``check_every=64`` its line search
+    runs as carried trials whose chunks are replayed CUDA graphs, bitwise
+    the default ``check_every=1`` solve (a host read per trial): a first
+    solve (a fresh ``Lasso``: one eager chunk, the capture, the replays)
+    at 64 and at 16 against the default solve, in turns; then
+    ``BT_ITERS`` iterations on the cached graph, with eager chunks, at
+    ``check_every=1`` and by the fixed step: iter/s in turns, host reads
+    per iteration, device events and busy share."""
     from zfista_tpu_torch.models import Lasso
 
     x0 = torch.zeros(N, dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    res = Lasso(A, b, LAM).solve(x0, nesterov=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log(
-        f"phase 9 [{card}]: Lasso(m={M}, n={N}, f32, lambda={LAM}).solve(nesterov=True) "
-        f"(decay_rate 0.5, lr 1, tol 1e-5): status={res.status} nit={res.nit} "
-        f"nit_internal={res.nit_internal} trials/iteration={res.nit_internal / res.nit!r} "
-        f"lr={res.lr!r} fun={float(res.fun[0])!r} wall {wall:.3f} s"
-    )
-    if res.status != 1 or not np.all(np.isfinite(res.x)) or res.x.shape != (N,):
-        raise AssertionError("backtracking LASSO: no convergence or non-finite x")
-
-    # iter/s, backtracking against fixed step, in turns (after a warm-up).
-    iters = 500
+    what = f"Lasso(m={M}, n={N}, f32, lambda={LAM}).solve(nesterov=True) (decay_rate 0.5, lr 1, tol 1e-5)"
     runs = {
-        "backtracking": lambda: Lasso(A, b, LAM).solve(x0, nesterov=True, tol=0, max_iter=iters),
-        "fixed_step": lambda: Lasso(A, b, LAM).solve_fixed_step(
-            x0, lr=lr_fixed, tol=0, max_iter=iters
-        ),
+        "first check_every=64": lambda: Lasso(A, b, LAM).solve(x0, nesterov=True, check_every=64),
+        "default (check_every=1)": lambda: Lasso(A, b, LAM).solve(x0, nesterov=True),
+        "first check_every=16": lambda: Lasso(A, b, LAM).solve(x0, nesterov=True, check_every=16),
     }
-    for fn in runs.values():
+    walls: dict[str, list[float]] = {k: [] for k in runs}
+    graphs: dict[str, list[dict]] = {k: [] for k in runs}
+    capture: dict[str, list[float]] = {k: [] for k in runs}
+    out: dict = {}
+    for k in list(runs) + list(runs)[::-1]:
+        before = graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[k] = runs[k]()
+        torch.cuda.synchronize()
+        walls[k].append(time.perf_counter() - t0)
+        graphs[k].append(graphs_since(before))
+        if graphs[k][-1]["captures"]:
+            capture[k].append(last_capture_ms())
+    ref = out["default (check_every=1)"]
+    log(
+        f"phase 9 [{card}]: {what}: status={ref.status} nit={ref.nit} "
+        f"nit_internal={ref.nit_internal} trials/iteration={ref.nit_internal / ref.nit!r} "
+        f"lr={ref.lr!r} fun={float(ref.fun[0])!r}; a first solve in turns, s: {walls} "
+        f"(chunk graphs {graphs}; the captures' ms of host time {capture})"
+    )
+    if ref.status != 1 or not np.all(np.isfinite(ref.x)) or ref.x.shape != (N,):
+        raise AssertionError("backtracking LASSO: no convergence or non-finite x")
+    for k, chunk in (("first check_every=64", 64), ("first check_every=16", 16)):
+        same_result(out[k], ref, f"phase 9: {k} against the default check_every=1")
+        if any(g["captures"] != 1 or not trial_graphs_ok(g, ref, chunk) for g in graphs[k]):
+            raise AssertionError(f"phase 9: {k} ran chunk graphs {graphs[k]}")
+    if any(g != {"captures": 0, "replays": 0} for g in graphs["default (check_every=1)"]):
+        raise AssertionError(f"phase 9: the default solve ran chunk graphs {graphs}")
+    log(f"phase 9 [{card}]: check_every 64 and 16 (replayed graphs) are bitwise the default "
+        f"check_every=1 solve in every State field, nit, nit_internal and status")
+
+    # BT_ITERS iterations (tol 0) on one instance: the carried trials on
+    # the cached graph, with eager chunks, check_every=1 and the fixed step.
+    prob = Lasso(A, b, LAM)
+    kw = dict(nesterov=True, tol=0, max_iter=BT_ITERS)
+
+    def eager():
+        with eager_chunks():
+            return prob.solve(x0, check_every=64, **kw)
+
+    # Unquieted: count_host_reads reads the sync warnings (status 0 warns
+    # too, and is not counted).
+    timed = {
+        "graph": lambda: prob.solve(x0, check_every=64, **kw),
+        "eager chunks": eager,
+        "check_every=1": lambda: prob.solve(x0, check_every=1, **kw),
+        "fixed_step": lambda: prob.solve_fixed_step(x0, lr=lr_fixed, tol=0, max_iter=BT_ITERS),
+    }
+    before = graph_counts()
+    got = quiet(timed["graph"])
+    graphs = graphs_since(before)
+    same_result(got, quiet(timed["check_every=1"]), f"phase 9: {BT_ITERS} iterations at check_every=64")
+    if graphs["captures"] != 1 or not trial_graphs_ok(graphs, got, 64):
+        raise AssertionError(f"phase 9: {BT_ITERS} iterations ran chunk graphs {graphs}")
+    for fn in timed.values():
         quiet(fn)
-    rates: dict[str, list[float]] = {k: [] for k in runs}
-    for k in ("backtracking", "fixed_step", "fixed_step", "backtracking"):
-        rates[k].append(iters / sync_time(lambda: quiet(runs[k])))
-    reads = {}
-    for k, fn in runs.items():
+    rates: dict[str, list[float]] = {k: [] for k in timed}
+    order = list(timed)
+    for k in order + order[::-1]:
+        rates[k].append(BT_ITERS / sync_time(lambda: quiet(timed[k])))
+    reads, events, busy = {}, {}, {}
+    for k, fn in timed.items():
         r, n_reads = count_host_reads(fn)
         reads[k] = n_reads / r.nit
-    busy = {k: device_events(lambda: quiet(fn))[1] for k, fn in runs.items()}
-    for k in runs:
-        wall_us = 1e6 * iters / statistics.mean(rates[k])
-        share = busy[k] / wall_us if busy[k] else float("nan")
-        log(
-            f"phase 9 [{card}]: {k} {iters} iterations (tol 0): "
-            f"{[round(r, 1) for r in rates[k]]} iter/s; host reads/iteration "
-            f"{reads[k]!r}; device busy {busy[k] / iters:.1f} us/iteration (torch.profiler), "
-            f"share of the unprofiled wall {share:.3f}"
-            + ("" if busy[k] else " (profiler showed no device time: not measured)")
+    # The graphed paths only: eager chunks launch what the graph replays,
+    # and the host loop's profile is the longest (the run's time limit).
+    for k in ("graph", "fixed_step"):
+        events[k], busy[k] = device_events(lambda: quiet(timed[k]))
+    for k in timed:
+        wall_us = 1e6 / statistics.mean(rates[k])
+        profiled = (
+            f"{events[k] / BT_ITERS:.2f} device events and {busy[k] / BT_ITERS:.1f} us busy an "
+            f"iteration (torch.profiler), share of the unprofiled wall "
+            f"{busy[k] / BT_ITERS / wall_us:.3f}" if k in busy else "not profiled"
         )
+        log(
+            f"phase 9 [{card}]: {k}, {BT_ITERS} iterations (tol 0; chunk graphs of the first "
+            f"graph run {graphs}, {got.nit_internal} trials, bitwise check_every=1): "
+            f"{[round(r, 1) for r in rates[k]]} iter/s (in turns); host reads/iteration "
+            f"{reads[k]!r}; {profiled}; a one-trial iteration's bound {BT_BOUND_US:.1f} us (A "
+            f"read four times)"
+        )
+    if not reads["graph"] < 0.1:
+        raise AssertionError(f"phase 9: {reads['graph']!r} host reads per graphed iteration")
 
     # float64 on the card against float64 on the CPU: the first 50
     # iterations take the same trials and agree to 1e-9 relative.
@@ -1361,7 +1480,7 @@ def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
     )
     if not rel32 <= AGREE_RTOL:
         raise AssertionError("backtracking LASSO: float32 disagrees with float64")
-    return {"rates": rates, "reads": reads, "busy_us": busy}
+    return {"rates": rates, "reads": reads, "busy_us": busy, "first_s": walls, "capture_ms": capture}
 
 
 #: Phase 10: the benchmark harness's problem list and variants, from the
@@ -1612,11 +1731,13 @@ def phase11(card: str, dev) -> None:
     for p, low, high in cases:
         x0 = np.random.default_rng(42).uniform(low, high, size=(HARNESS_STARTS, p.n_features))[0]
         kw = dict(nesterov=True, tol_internal=HARNESS_TOL_INTERNAL, max_iter=HARNESS_MAX_ITER)
-        runs = {}
+        runs, graphs = {}, {}
         for extra in ({"check_every": 1}, {"check_every": 8}, {"iter_chunk": 5}, {"return_all": True}):
+            before = graph_counts()
             t0 = time.perf_counter()
             runs[str(extra)] = quiet(p.solve, torch.tensor(x0, device=dev), **kw, **extra)
             runs[str(extra)]["wall"] = time.perf_counter() - t0
+            graphs[str(extra)] = graphs_since(before)
         ref = runs[str({"check_every": 1})]
         counted, n_reads = count_host_reads(
             lambda: p.solve(torch.tensor(x0, device=dev), **kw)
@@ -1634,20 +1755,29 @@ def phase11(card: str, dev) -> None:
                 same = same and np.array_equal(r.allvecs[-1], ref.x) and len(r.allvecs) == ref.nit + 1
             log(
                 f"phase 11 [{card}]: {p.name} accelerated, {name}: status {r.status} nit {r.nit} "
-                f"nit_internal {r.nit_internal} wall {r['wall']:.3f} s; bitwise equal to "
-                f"check_every=1 (x, nit, nit_internal, State{', history' if 'return_all' in name else ''}): {same}"
+                f"nit_internal {r.nit_internal} wall {r['wall']:.3f} s; chunk graphs {graphs[name]}; "
+                f"bitwise equal to check_every=1 (x, nit, nit_internal, "
+                f"State{', history' if 'return_all' in name else ''}): {same}"
             )
             if not same or r.status != 1:
                 raise AssertionError(f"phase 11: {p.name} {name} differs from check_every=1")
+            # At m = 2 the backtracking check_every=8 solve runs its trials
+            # (at least one a step) on replayed graphs; m >= 3 and the
+            # other drivers stay eager.
+            if "check_every': 8" in name and p.n_objectives <= 2:
+                if graphs[name]["captures"] != 1 or graphs[name]["replays"] < -(-r.nit // 8) - 1:
+                    raise AssertionError(f"phase 11: {p.name} {name}: chunk graphs {graphs[name]}")
+            elif graphs[name] != {"captures": 0, "replays": 0}:
+                raise AssertionError(f"phase 11: {p.name} {name} ran chunk graphs {graphs[name]}")
 
 
 #: Phase 11b: JOS1 at m = 2 by the fixed step in float64, phase 11's L1
 #: terms: n, and the runs as (lr over 1/L, tol, max_iter).  At lr = 1/L the
 #: solve converges in two steps, so that run goes to max_iter (tol 0); at
 #: a tenth of it the solve stops by tol.  An eager step costs the host
-#: ~25 ms on the card (~600 launches), so the fixed run is 200 steps.
+#: ~25 ms on the card (~600 launches), so the fixed run is 100 steps.
 JOS1_FIXED_N = 50
-JOS1_FIXED_RUNS = ((1.0, 0.0, 200), (0.1, 1e-5, 1000))
+JOS1_FIXED_RUNS = ((1.0, 0.0, 100), (0.1, 1e-5, 1000))
 
 
 def phase11b(card: str, dev) -> None:
@@ -1711,7 +1841,7 @@ def phase11b(card: str, dev) -> None:
 #: starts tiled), over COUNT_ITERS iterations, within COUNT_RTOL.
 SWEEP_SHAPE, SWEEP_LAMBDAS, SWEEP_MU, SWEEP_CHECK, SWEEP_RTOL = (500, 2000), 1000, 0.1, 8, 1e-5
 JOS1_LANES, FDS_LANES, FDS_CHUNK, CHUNK_ITERS = 10_000, 1024, 256, 20
-COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 3, 0.01
+COUNT_WIDTHS, COUNT_ITERS, COUNT_RTOL = (16, 1024), 1, 0.01
 
 
 def phase12_tasks(dev) -> list:
@@ -1853,6 +1983,26 @@ def phase12b(card: str, dev) -> None:
     )
     if not (np.all(np.isfinite(res.x)) and np.all(res.status == 1)):
         raise AssertionError("phase 12b: the sweep did not converge everywhere")
+    # The fixed-lr chunk as a replayed graph: check_every=8, a first sweep
+    # (one eager chunk, the capture, the replays) and a repeat on the cached
+    # graph, each bitwise the check_every=1 sweep in every field of every lane.
+    graphed = {}
+    for k in ("first", "repeat"):
+        before = graph_counts()
+        t0 = time.perf_counter()
+        got = minimize_proximal_gradient_batch(*fns, x0s, max_iter=HARNESS_MAX_ITER, check_every=8, **kw)
+        graphed[k] = (time.perf_counter() - t0, graphs_since(before))
+        same_state(got.state, res.state, f"phase 12b: the {k} check_every=8 sweep against check_every=1")
+    chunks = -(-int(np.max(res.nit)) // 8)
+    if graphed["first"][1] != {"captures": 1, "replays": chunks - 1} or graphed["repeat"][1] != {
+        "captures": 0, "replays": chunks}:
+        raise AssertionError(f"phase 12b: chunk graphs {graphed}")
+    log(
+        f"phase 12b [{card}]: check_every=8 on replayed graphs, bitwise the check_every=1 sweep "
+        f"in every field of every lane: a first sweep {graphed['first'][0]:.3f} s (the capture "
+        f"{last_capture_ms():.1f} ms of host time; {graphed['first'][1]}), a repeat "
+        f"{graphed['repeat'][0]:.3f} s ({graphed['repeat'][1]}), beside check_every=1's {wall:.3f} s"
+    )
     worst = 0.0
     for j in np.linspace(0, SWEEP_LAMBDAS - 1, SWEEP_CHECK).astype(int):
         one = Lasso(A, b, float(lams[j]), l2_ratio=SWEEP_MU).solve_fixed_step(
@@ -2700,6 +2850,10 @@ def phase14c(card: str, dev) -> dict:
             f"{int(np.sum(r.x != 0))} kkt_residual {prob.kkt_residual(r.x)!r} wall {walls[name]:.3f} s; "
             f"kernel launches {dict(fused.launch_counts)}"
         )
+    # The backtracking solves' carried trials on replayed graphs.
+    for name, kw in (("default", {}), ("f32 accept slack", dict(tol_internal_rel=F32_ACCEPT_REL))):
+        ref = held_at_64(card, f"phase 14c: SparseLogistic.solve({kw})", prob.solve, **kw)
+        same_result(runs[name], ref, f"phase 14c: the {name} solve against check_every=1")
     fixed = runs["fixed"]
     steps = -(-fixed.nit // chunk_of(None, dev)) * chunk_of(None, dev)
     launched = fused.launch_counts["lasso_step_tail"]
@@ -2762,6 +2916,10 @@ def phase14d(card: str, dev) -> dict:
     for name, r in runs.items():
         if r.status != 1 or not np.all(np.isfinite(r.x)):
             raise AssertionError(f"phase 14d: the float32 group-LASSO {name} solve did not converge")
+    # The backtracking solves' carried trials on replayed graphs.
+    for name, kw in (("default", {}), ("f32 accept slack", dict(tol_internal_rel=F32_ACCEPT_REL))):
+        ref = held_at_64(card, f"phase 14d: GroupLasso.solve({kw})", partial(model_solve, "group_lasso", prob), **kw)
+        same_result(runs[name], ref, f"phase 14d: the {name} solve against check_every=1")
     return dict(group_f64=model_windows("group_lasso", str(dev), torch.float64, None),
                 group_funs={k: float(r.fun[0]) for k, r in runs.items()})
 

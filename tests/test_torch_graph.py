@@ -19,7 +19,9 @@ cache, the launch counts.
   whose params tensor died, and an in-place change of ``A`` seen;
 * the generic fixed step (``tol_rel``, ``warm_start``, restart, ISTA, ...)
   graphed and bitwise its ``check_every=1`` solve; the steps and routes
-  that are not capturable never reach the graph path;
+  that are not capturable never reach the graph path (backtracking at
+  m <= 2 and the fixed-lr batch are graphed:
+  tests/test_torch_graph_backtracking.py);
 * the launch counters count replayed launches;
 * a host scalar inside a capture raises.
 
@@ -328,11 +330,13 @@ def test_generic_fixed_steps_are_graphed_and_bitwise(graphed, how):
      "return_all", "iter_chunk", "batch"],
 )
 def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
-    """Backtracking, an m >= 3 step (its Newton loop reads the host), a
-    feature-sharded step (its all-reduces) and the batch step are not
+    """Backtracking at m >= 3 and an m >= 3 fixed step (the Newton loop
+    reads the host), a feature-sharded step (its all-reduces) and the
+    backtracking batch step (one read per round of trials) are not
     capturable; ``check_every=1``, a solve of one chunk, ``verbose``,
     ``return_all`` and ``iter_chunk`` keep the eager loop: none reaches
-    the graph factory."""
+    the graph factory.  (Backtracking at m <= 2 and the fixed-lr batch are
+    graphed: tests/test_torch_graph_backtracking.py.)"""
     A, b, lr = _lasso(22)
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
@@ -347,7 +351,8 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
         return type("R", (), {"status": int(out.converged)})
 
     runs = {
-        "backtracking": lambda: prob.solve(x0, nesterov=True, check_every=8),
+        "backtracking": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
+                                       nesterov=True, check_every=8, max_iter=12, tol=0),
         "m>=3": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
                                decay_rate=1, lr=0.05, nesterov=True, check_every=8,
                                max_iter=40, tol=0),
@@ -358,12 +363,13 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
         "verbose": lambda: prob.solve_fixed_step(x0, verbose=True, **fixed),
         "return_all": lambda: _quiet(prob.solve_fixed_step, x0, return_all=True, **fixed),
         "iter_chunk": lambda: _quiet(prob.solve_fixed_step, x0, iter_chunk=5, **fixed),
-        "batch": lambda: prob.solve_batch(np.zeros((2, A.shape[1])), lr=lr, decay_rate=1,
-                                          nesterov=True, tol=1e-8),
+        "batch": lambda: prob.solve_batch(np.zeros((2, A.shape[1])), nesterov=True, tol=1e-8,
+                                          check_every=8),
     }
     res = runs[how]()
     assert _Replay.made == 0 and len(graphed) == 0
-    assert np.all(np.asarray(res.status) == (0 if how in ("one chunk", "m>=3") else 1))
+    stopped = ("one chunk", "m>=3", "backtracking")  # at max_iter
+    assert np.all(np.asarray(res.status) == (0 if how in stopped else 1))
 
 
 def test_launch_counts_count_replayed_launches(graphed, counted):
@@ -404,10 +410,12 @@ def test_host_scalar_inside_a_capture_raises(monkeypatch):
 
 def test_only_the_fused_tail_is_marked_capturable():
     """Which steps carry the ``capturable`` mark: the fused tail (which alone
-    takes the scratch words) and the generic fixed step at m <= 2, each
-    with every option it bakes in; not a backtracking step, an m >= 3
-    step, a verbose one, nor the batch step, which masks itself but reads
-    the host in its line search."""
+    takes the scratch words), the generic fixed step at m <= 2, the
+    carried search of a backtracking step at m <= 2 and the fixed-lr batch
+    step at m <= 2, each with every option it bakes in; not the
+    per-iteration backtracking step, an m >= 3 step, a verbose one, nor the
+    backtracking batch step, which masks itself but reads the host in its
+    line search."""
     step, _, _ = _step_and_state("lasso", 10, 1e-8)
     assert step.capturable and step.takes_scratch and step.options == (0.0, 0.25, 1e-8, 10)
     f = lambda x: torch.sum(x * x)  # noqa: E731
@@ -425,20 +433,34 @@ def test_only_the_fused_tail_is_marked_capturable():
             lambda x: torch.stack([2 * x] * m), prox, m, **args,
         )
 
+    baked = (0.0, 0.25, 1e-8, 0.0)
+    inner = (False, True, False, False, False, 1e-12, 0.0, 10, True, 10)
     for m in (1, 2):
         generic = make(m, decay_rate=1)
         assert generic.capturable and not getattr(generic, "takes_scratch", False)
-        assert generic.options == (
-            "step", 0.0, 0.25, 1e-8, 0.0, m, False, True, False, False, False, 1e-12, 0.0,
-            10, True, 10,
+        assert generic.options == ("step", *baked, m, *inner)
+        assert not hasattr(generic, "carried_search")
+        backtracking = make(m)
+        assert not getattr(backtracking, "capturable", False)
+        search = backtracking.carried_search
+        assert search.capturable and search.masks_itself
+        assert search.options == ("search", *baked, m, *inner, 0.5, 10)
+    for step in (make(3, decay_rate=1), make(1, decay_rate=1, verbose=True), make(3),
+                 make(1, verbose=True), make(1, max_backtrack_iter=0)):
+        assert not getattr(step, "capturable", False) and not hasattr(step, "carried_search")
+
+    def batch(**kw):
+        return solver._make_batch_step(
+            lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
+            lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, tol=1e-8,
+            tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
+            warm_start=False, nesterov=True, deprecated=False, max_iter=10, **kw,
         )
-    for step in (make(1), make(3, decay_rate=1), make(1, decay_rate=1, verbose=True)):
-        assert not getattr(step, "capturable", False)
-    batch = solver._make_batch_step(
-        lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
-        lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, tol=1e-8,
-        tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
-        warm_start=False, decay_rate=1, nesterov=True, nesterov_ratio=(0, 0.25),
-        deprecated=False, max_iter=10,
-    )
-    assert batch.masks_itself and not getattr(batch, "capturable", False)
+
+    fixed = batch(decay_rate=1, nesterov_ratio=(0, 0.25))
+    assert fixed.masks_itself and fixed.capturable
+    assert fixed.options == ("batch", *baked, 1, *inner)
+    lanes = batch(decay_rate=1, nesterov_ratio=(torch.zeros(2), torch.full((2,), 0.25)))
+    assert lanes.capturable and lanes.options == ("batch", "lanes", 1e-8, 0.0, 1, *inner)
+    backtracking = batch(decay_rate=0.5, nesterov_ratio=(0, 0.25))
+    assert backtracking.masks_itself and not getattr(backtracking, "capturable", False)

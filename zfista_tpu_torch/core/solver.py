@@ -15,8 +15,13 @@ port runs the same step eagerly: a :class:`State` of tensors on the
 solve's device advanced by a Python function.  Data-dependent loops need a
 host decision here:
 
-* the backtracking line search is a host loop, one host read per trial
-  (its accept test);
+* the backtracking line search of the per-iteration step is a host loop,
+  one host read per trial (its accept test).  At m <= 2 a solve chunked
+  by ``check_every > 1`` (and not ``verbose``, ``return_all``,
+  ``iter_chunk`` or feature-sharded) runs it instead as carried trials:
+  one trial per step, the search's state (:class:`_Search`) in the carry
+  and the accept test selected on the device, the counterpart of the JAX
+  package's ``lax.while_loop`` inside the step;
 * the m>=3 dual's Newton loop and arc search are host loops
   (:mod:`zfista_tpu_torch.core.subproblem`); the m=2 bisection reads
   nothing;
@@ -24,14 +29,14 @@ host decision here:
   steps (the while driver), once per step (the history driver) or once
   per ``iter_chunk`` steps (the chunk driver, from the host copy it keeps).
 
-The fixed-step, single-objective step reads nothing at all.  Every step a
-run takes is computed from the same inputs in the same order, so any
+The fixed-step step and the carried trial read nothing at all.  Every step
+a run takes is computed from the same inputs in the same order, so any
 ``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
 bitwise equal to the uninterrupted ``check_every=1`` solve.  On a card the
 chunks of every step that reads nothing (the one-launch LASSO-family
-step below, and the generic fixed step at m <= 2) run as replayed CUDA
-graphs (:func:`run_graphed`), the counterpart of the JAX package's one
-device program per chunk.
+step below, the generic fixed step and the carried trial at m <= 2) run
+as replayed CUDA graphs (:func:`run_graphed`), the counterpart of the JAX
+package's one device program per chunk.
 
 On dense LASSO (:meth:`zfista_tpu_torch.models.Lasso.solve_fixed_step`)
 the fixed-step step is its gradient and one launch of the fused CUDA
@@ -115,16 +120,49 @@ class State(NamedTuple):
 
 
 class _LS(NamedTuple):
-    """A line search's outcome.  ``done`` is on the host: the search's own
-    reads decided it."""
+    """A line search's outcome.  ``done`` is a host bool where the search
+    ran as a host loop (its own reads decided it), a 0-d bool tensor for a
+    carried trial (its accept test, never read on the host)."""
 
     lr: Array
-    done: bool
+    done: bool | Array
     x: Array
     F_x: Array
     w: Array
     sub_fun: Array
     nits: int | Array
+
+
+class _Search(NamedTuple):
+    """The carry of a solve whose backtracking line search runs as carried
+    trials, one a step: the 12 :class:`State` fields, then the search's
+    own (the JAX ``line_search`` loop state, carried across steps)."""
+
+    x: Array
+    y: Array
+    F_x: Array
+    lr: Array
+    t: Array
+    w: Array
+    err: Array
+    sub_fun: Array
+    nit: Array
+    nit_internal: Array
+    converged: Array
+    failed: Array
+    k: Array  # trials taken in this iteration (0-d int32)
+    lr_try: Array  # the next trial's lr (0-d)
+    w_try: Array  # the next trial's dual warm start (m,)
+    spent: Array  # inner iterations of this iteration's trials so far (0-d int32)
+
+    @classmethod
+    def start(cls, state: State) -> "_Search":
+        """``state`` at the start of an iteration: no trial taken yet."""
+        zero = torch.zeros((), dtype=torch.int32, device=state.x.device)
+        return cls(*state, k=zero, lr_try=state.lr, w_try=state.w, spent=zero)
+
+    def state(self) -> State:
+        return State(*self[: len(State._fields)])
 
 
 def _make_step(
@@ -177,6 +215,13 @@ def _make_step(
     ``verbose`` nor feature-sharded: its line search returns at once, the
     m = 1 subproblem is one prox and the m = 2 bisection runs a count of
     halvings fixed on the host.
+
+    A backtracking step (``decay_rate < 1``) reads the host once per trial.
+    At m <= 2, not ``verbose`` and not feature-sharded, it also carries
+    ``carried_search``: a capturable step of a :class:`_Search` carry that
+    takes one trial of the line search, so that a chunk of trials reads
+    nothing (the facade runs it where ``check_every > 1``).  Its
+    iterations are bitwise those of the step.
     """
     m = n_objectives
     sharded = feature_sum is not None
@@ -272,6 +317,61 @@ def _make_step(
         tail_step.options = (float(a), float(b), float(tol), max_iter)
         return tail_step
 
+    def judge(state: State, x: Array) -> tuple[Array, Array]:
+        """``||x - y||_inf`` at the step's ``x`` and the convergence test."""
+        err = torch.amax(torch.abs(x - state.y))
+        x_max = torch.amax(torch.abs(x)) if tol_rel else None
+        if sharded:
+            # One all-reduce per step: every rank stops on the same step.
+            if tol_rel:
+                err, x_max = feature_max(torch.stack([err, x_max]))
+            else:
+                err = feature_max(err)
+        if tol_rel:
+            # Opt-in iterate-scaled criterion: ||x - y||_inf < tol +
+            # tol_rel * ||x||_inf (0 compiles to the reference test).
+            return err, err < tol + tol_rel * x_max
+        return err, err < tol
+
+    def momentum(state: State, x: Array) -> tuple[Array, Array]:
+        """``t_{k+1}`` and the extrapolated ``y`` from the accepted ``x``."""
+        if not nesterov:
+            return state.t, x
+        t_k = state.t
+        if adaptive_restart:
+            # O'Donoghue & Candes gradient-scheme restart: reset the
+            # momentum when the step opposes the previous direction.
+            osc = fsum(dot_hp(state.y - x, x - state.x)) > 0
+            t_k = torch.where(osc, torch.ones_like(t_k), t_k)
+        t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
+        gamma = (t_k - 1) / t_new
+        y_new = x + gamma * (x - state.x)
+        if project_momentum:
+            # Feasible extrapolation: y through the zero-weight prox
+            # (for a box-constrained problem, the box projection).
+            y_new = prox_wsum_g(
+                torch.zeros((m,), dtype=y_new.dtype, device=y_new.device), y_new
+            )
+        return t_new, y_new
+
+    def accepted(state: State, ls: _LS, err, converged_now, t_new, y_new) -> State:
+        """The iteration's end after the line search accepted ``ls``."""
+        # Converged step: keep the old y/t (the JAX step's freeze).
+        return State(
+            x=ls.x,
+            y=torch.where(converged_now, state.y, y_new),
+            F_x=ls.F_x,
+            lr=ls.lr,
+            t=torch.where(converged_now, state.t, t_new),
+            w=ls.w,
+            err=err,
+            sub_fun=ls.sub_fun,
+            nit=state.nit + 1,
+            nit_internal=state.nit_internal + ls.nits,
+            converged=converged_now,
+            failed=state.failed,
+        )
+
     def step(state: State) -> State:
         dev = state.x.device
         f_y = f(state.y) if need_f_y else None
@@ -291,25 +391,11 @@ def _make_step(
         else:
             ls = line_search(state, f_y, jac_y)
 
-        err = torch.amax(torch.abs(ls.x - state.y))
-        x_max = torch.amax(torch.abs(ls.x)) if tol_rel else None
-        if sharded:
-            # One all-reduce per step: every rank stops on the same step.
-            if tol_rel:
-                err, x_max = feature_max(torch.stack([err, x_max]))
-            else:
-                err = feature_max(err)
-        if tol_rel:
-            # Opt-in iterate-scaled criterion: ||x - y||_inf < tol +
-            # tol_rel * ||x||_inf (0 compiles to the reference test).
-            converged_now = err < tol + tol_rel * x_max
-        else:
-            converged_now = err < tol
-        nit_internal = state.nit_internal + ls.nits
-
+        err, converged_now = judge(state, ls.x)
         if not ls.done:
             # Line search exhausted: freeze at the last accepted point; nit
             # does not advance, the inner iterations spent still count.
+            nit_internal = state.nit_internal + ls.nits
             if verbose:
                 _print_row(state, max_iter, state.nit, nit_internal, err, ls)
             return state._replace(
@@ -317,59 +403,71 @@ def _make_step(
                 converged=torch.zeros((), dtype=torch.bool, device=dev),
                 failed=torch.ones((), dtype=torch.bool, device=dev),
             )
-
-        if fused:
-            pass  # t_new and y_new came with the kernel's x
-        elif nesterov:
-            t_k = state.t
-            if adaptive_restart:
-                # O'Donoghue & Candes gradient-scheme restart: reset the
-                # momentum when the step opposes the previous direction.
-                osc = fsum(dot_hp(state.y - ls.x, ls.x - state.x)) > 0
-                t_k = torch.where(osc, torch.ones_like(t_k), t_k)
-            t_new = torch.sqrt(t_k**2 - a * t_k + b) + 0.5
-            gamma = (t_k - 1) / t_new
-            y_new = ls.x + gamma * (ls.x - state.x)
-            if project_momentum:
-                # Feasible extrapolation: y through the zero-weight prox
-                # (for a box-constrained problem, the box projection).
-                y_new = prox_wsum_g(
-                    torch.zeros((m,), dtype=y_new.dtype, device=dev), y_new
-                )
-        else:
-            t_new = state.t
-            y_new = ls.x
-
-        nit_new = state.nit + 1
+        if not fused:  # the fused kernel computed t_new and y_new with x
+            t_new, y_new = momentum(state, ls.x)
+        new = accepted(state, ls, err, converged_now, t_new, y_new)
         if verbose:
-            _print_row(state, max_iter, nit_new, nit_internal, err, ls)
-        # Converged step: keep the old y/t (the JAX step's freeze).
-        return State(
-            x=ls.x,
-            y=torch.where(converged_now, state.y, y_new),
-            F_x=ls.F_x,
-            lr=ls.lr,
-            t=torch.where(converged_now, state.t, t_new),
-            w=ls.w,
-            err=err,
-            sub_fun=ls.sub_fun,
-            nit=nit_new,
-            nit_internal=nit_internal,
-            converged=converged_now,
-            failed=state.failed,
-        )
+            _print_row(state, max_iter, new.nit, new.nit_internal, err, ls)
+        return new
 
+    options = (
+        float(a), float(b), float(tol), float(tol_rel), m, bool(warm_start),
+        bool(nesterov), bool(adaptive_restart), bool(project_momentum),
+        bool(deprecated), float(tol_internal), float(tol_internal_rel),
+        int(max_iter_internal), bool(track_objective), max_iter,
+    )
     if fixed_lr and m <= 2 and not verbose and not sharded:
         # No host read (see the docstring): a chunk of it can be captured,
         # with every option the step bakes in as the graph's key.
         step.capturable = True
-        step.options = (
-            "step", float(a), float(b), float(tol), float(tol_rel), m,
-            bool(warm_start), bool(nesterov), bool(adaptive_restart),
-            bool(project_momentum), bool(deprecated), float(tol_internal),
-            float(tol_internal_rel), int(max_iter_internal),
-            bool(track_objective), max_iter,
-        )
+        step.options = ("step", *options)
+
+    carried = not fixed_lr and m <= 2 and not verbose and not sharded
+    if carried and max_backtrack_iter >= 1 and max_iter is not None:
+        moved = ("x", "y", "F_x", "lr", "t", "w", "err", "sub_fun", "nit")
+
+        def search_step(c: _Search) -> _Search:
+            """One trial of the line search (the body of the JAX
+            ``line_search`` loop), its outcome selected on the device:
+            accepted, the iteration ends as ``step`` ends it; rejected
+            with trials left, the State stays and the next trial's ``lr``
+            decays; rejected at ``max_backtrack_iter``, the failure
+            freeze.  An inactive carry stays as it is (the step masks
+            itself); it, like a carry at an iteration's start, has ``k``
+            and ``spent`` at 0.  A retry computes ``f(y)`` and
+            ``jac_f(y)`` again at the same ``y``: the same bits."""
+            state = c.state()
+            live = _active(c, max_iter)
+            f_y = f(state.y)
+            jac_y = jac_f(state.y)
+            sub, f_t, F_t = trial(state, c.lr_try, c.w_try, f_y, jac_y)
+            ok = live & accept_test(state, f_y, f_t, F_t, sub.fun)
+            w = sub.weight if warm_start else c.w_try
+            spent = c.spent + sub.nit
+            ls = _LS(c.lr_try, ok, sub.x, F_t, w, sub.fun, spent)
+            err, converged_now = judge(state, sub.x)
+            t_new, y_new = momentum(state, sub.x)
+            new = accepted(state, ls, err, converged_now, t_new, y_new)
+            k = c.k + 1
+            out_of_trials = live & ~ok & (k >= max_backtrack_iter)
+            retry = live & ~(ok | out_of_trials)
+            return _Search(
+                **{name: torch.where(ok, getattr(new, name), getattr(c, name)) for name in moved},
+                # Accepted or exhausted, the iteration's inner count lands.
+                nit_internal=torch.where(ok | out_of_trials, new.nit_internal, c.nit_internal),
+                converged=torch.where(ok, new.converged, c.converged),
+                failed=c.failed | out_of_trials,
+                k=torch.where(retry, k, 0),
+                lr_try=torch.where(retry, c.lr_try * decay_rate, c.lr_try),
+                w_try=torch.where(live, w, c.w_try) if warm_start else c.w_try,
+                spent=torch.where(retry, spent, 0),
+            )
+
+        search_step.masks_itself = True
+        # No host read: a chunk of trials can be captured.
+        search_step.capturable = True
+        search_step.options = ("search", *options, float(decay_rate), int(max_backtrack_iter))
+        step.carried_search = search_step
     return step
 
 
@@ -416,7 +514,10 @@ def _make_batch_step(
     fails alone.  Lanes that are not active (converged, failed or at
     ``max_iter``) enter the trial loop already done, and the step returns
     their state as it was: the step masks itself.  There is no fused LASSO
-    tail here.
+    tail here.  At a fixed ``lr`` with at most two objectives, not
+    feature-sharded, the line search returns at once and the step reads
+    nothing: it is marked ``capturable``, with its ``options``, and the
+    batch driver replays its chunks as CUDA graphs on a card.
 
     ``feature_sum``/``feature_max`` (lanes that are feature blocks, m == 1;
     both or neither) all-reduce over the ``"model"`` ranks, as in
@@ -559,6 +660,19 @@ def _make_batch_step(
         )
 
     step.masks_itself = True
+    if fixed_lr and m <= 2 and not sharded:
+        # No host read (its line search returns at once): a chunk of it
+        # can be captured, with every option it bakes in as the graph's
+        # key.  A per-lane momentum pair is read by pointer: the caller
+        # passes it as an owner.
+        pair = ("lanes",) if isinstance(a, torch.Tensor) else (float(a), float(b))
+        step.capturable = True
+        step.options = (
+            "batch", *pair, float(tol), float(tol_rel), m, bool(warm_start),
+            bool(nesterov), bool(adaptive_restart), bool(project_momentum),
+            bool(deprecated), float(tol_internal), float(tol_internal_rel),
+            int(max_iter_internal), bool(track_objective), max_iter,
+        )
     return step
 
 
@@ -1156,11 +1270,20 @@ def minimize_proximal_gradient(
     :class:`State`, tensors or numpy, e.g. ``res.state``; pass the same
     options), ``check_every`` and ``iter_chunk``.
 
-    ``check_every=None`` picks 64 for a single-objective fixed-step solve
-    on a CUDA device (one host read of the convergence flag per 64 steps)
-    and 1 elsewhere.  On a card the chunks of a fixed-step solve with at
-    most two objectives (not ``verbose``, not feature-sharded) run as
-    replayed CUDA graphs (:func:`run_graphed`).  ``iter_chunk`` runs at most that many steps between
+    ``check_every=None`` picks 64 on a CUDA device (one host read of the
+    convergence flag per 64 steps) for a single-objective fixed-step solve
+    when nothing reads every iteration (not ``return_all``, ``verbose`` or
+    ``iter_chunk``), and 1 elsewhere, backtracking solves included
+    (:func:`_default_check_every`).  A backtracking solve with at most two
+    objectives at ``check_every > 1`` (not ``verbose``, ``return_all``,
+    ``iter_chunk`` or feature-sharded) runs one trial of its line search
+    per step, its search carried on the device: ``check_every`` then
+    counts trials, and no host read happens inside a chunk.  Otherwise
+    the line search is a host loop, each trial's accept test a host read.
+    On a card the chunks of a fixed-step solve with at most
+    two objectives (not ``verbose``, not feature-sharded) and of those
+    carried trials run as replayed CUDA graphs (:func:`run_graphed`).
+    ``iter_chunk`` runs at most that many steps between
     host copies of the state; when the device faults inside a chunk, the
     solve returns the last chunk's host copy with ``success=False``,
     status 2 and a "device fault" message, without touching the device
@@ -1226,20 +1349,8 @@ def minimize_proximal_gradient(
         )
 
     if check_every is None:
-        # The JAX rule with "device is CUDA" for "backend is TPU": chunking
-        # keeps a CUDA card fed between host reads; on the CPU the step
-        # itself is the host's work and per-step checking stops earliest.
-        check_every = (
-            64
-            if (
-                m == 1
-                and decay_rate == 1
-                and not return_all
-                and not verbose
-                and iter_chunk is None
-                and dev.type == "cuda"
-            )
-            else 1
+        check_every = _default_check_every(
+            dev.type, m, decay_rate, per_iteration=return_all or verbose or iter_chunk is not None
         )
     # Single-objective fixed-step solves with no per-iteration consumer of
     # F skip the objective in the step and recompute it once at the end.
@@ -1354,7 +1465,13 @@ def minimize_proximal_gradient(
         # What the step reads by pointer: a chunk graph's cache key.
         leaves = params if isinstance(params, (tuple, list)) else (params,)
         owners = (f, g, jac_f, prox_wsum_g, *leaves)
-        state = make_while_driver(step, max_iter, check_every, owners)(state)
+        search = getattr(step, "carried_search", None)
+        if search is not None and check_every > 1:
+            # The line search as carried trials: check_every counts trials.
+            run = make_while_driver(search, max_iter, check_every, owners)
+            state = run(_Search.start(state)).state()
+        else:
+            state = make_while_driver(step, max_iter, check_every, owners)(state)
 
     if not device_faulted:
         if skip_F:
@@ -1405,6 +1522,28 @@ def minimize_proximal_gradient(
         res.message = TERMINATION_MESSAGES[0]
         warnings.warn(res.message, stacklevel=2)
     return res
+
+
+def _default_check_every(
+    device_type: str, n_objectives: int, decay_rate: float, *, per_iteration: bool
+) -> int:
+    """``check_every=None``'s pick: 64 on a CUDA device (one host read of
+    the convergence flag per 64 steps) for a single-objective fixed-step
+    solve that nothing reads every iteration (``per_iteration``:
+    ``return_all``, ``verbose``, ``iter_chunk``); 1 elsewhere.  The JAX
+    rule with "device is CUDA" for "backend is TPU": chunking keeps a card
+    fed between host reads; on the CPU the step itself is the host's work
+    and per-step checking stops earliest.
+
+    A backtracking solve stays at 1, though at ``check_every > 1`` its
+    carried trials run as replayed graphs: on an H100 (700 W) a first
+    backtracking LASSO solve (2000 x 10,000 float32, 275 trials) at 64,
+    with its eager chunk and its capture, took 0.235 s on average against
+    0.224 s at 1 (six of each, in turns); a repeat solve on the cached
+    graph runs an iteration in about half the time of ``check_every=1``."""
+    if device_type == "cuda" and n_objectives == 1 and decay_rate == 1 and not per_iteration:
+        return 64
+    return 1
 
 
 def state_to_numpy(state: State) -> State:

@@ -11,14 +11,18 @@ advances all lanes together.  The problem callables run over the lanes by
 
 Where the JAX package vmaps its single step and lets XLA turn each lane's
 ``while_loop`` into one masked loop, the port's step holds host decisions
-(line-search trials, the m>=3 Newton loop).  In the batch they are masks:
+(backtracking trials, the m>=3 Newton loop).  In the batch they are masks:
 a loop runs while any lane still needs it, with one host read per round
 for all lanes, and a lane that is done keeps its values.  A lane that is
 not active (converged, failed or at ``max_iter``) keeps its state, so the
 drivers need no mask of their own:
 
 * ``check_every`` / ``iter_chunk``: that many steps between host reads of
-  "is any lane still active", bitwise equal to ``check_every=1``;
+  "is any lane still active", bitwise equal to ``check_every=1``.  The
+  fixed-``lr`` step at m <= 2 (not feature-sharded) reads nothing, so on
+  a card its chunks are replayed CUDA graphs
+  (:func:`zfista_tpu_torch.core.solver.run_chunks`); backtracking and
+  m >= 3 batches and the CPU run eager chunks;
 * history (``history=True``): one read of the same flag per step; the
   per-step records (``F``, the error, the iterate with ``record_vecs``)
   stay on the device and are copied to the host once per
@@ -55,7 +59,7 @@ from zfista_tpu_torch.core.solver import (
     _over_lanes,
     _solve_device,
     _to_device,
-    run_masked,
+    run_chunks,
     state_to_numpy,
 )
 from zfista_tpu_torch.parallel.sharding import (
@@ -170,6 +174,13 @@ def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _tree_leaves(tree: Any) -> list:
+    """The leaves of nested tuples, lists and dicts, in order."""
+    leaves: list = []
+    _tree_map(leaves.append, tree)
+    return leaves
 
 
 def _lane_chunked_solve(
@@ -828,9 +839,10 @@ def _solve_lanes(
         if features is not None and allvecs is not None:
             allvecs = gather_numpy(allvecs, features, dev, axis=2)
     else:
-        states = run_masked(
-            step, states, any_active, iter_chunk if iter_chunk is not None else check_every
-        )
+        # What the step reads by pointer: a chunk graph's cache key.
+        owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
+        chunk = iter_chunk if iter_chunk is not None else check_every
+        states = run_chunks(step, states, any_active, chunk, max_iter, owners)
         if skip_F:
             states = states._replace(F_x=v_F(states.x))
 
