@@ -10,13 +10,20 @@ kernels its phases ran, with null for what they did not measure.
 
 The fixed-step solves of phases 4, 5, 7, 11b, 13d, 14a and 14c,
 ``solve_warm`` in phase 7, the backtracking solves of phases 9, 11 (m = 2),
-14c and 14d (their line search as carried trials, one a step) and the
-fixed-lr batch of phase 12b run their chunks as replayed CUDA graphs
+14c and 14d (their line search as carried trials, one a step), the
+fixed-lr batch of phase 12b and the backtracking batch of 12c (one trial
+in every lane a step) run their chunks as replayed CUDA graphs
 (``zfista_tpu_torch.core.solver.run_graphed``): each is held bitwise
 against its ``check_every=1`` run, its captures and replays are counted,
 and phase 4's launch count is held against the profiler's count of the
-step-tail kernel.  ``--phases 7,11`` runs the graphed TV and m = 2 checks,
-``--phases 9,11,12b,14c,14d`` the graphed backtracking and batch ones.
+step-tail kernel.  The history drivers at m <= 2 (phase 11's
+``return_all``, 12a's ``benchmark()`` batches, 12e's counted batches)
+replay graphs of a few steps (``run_recorded``), each held bitwise
+against the eager per-step driver.  ``--phases 7,11`` runs the graphed TV
+and m = 2 checks, ``--phases 9,11,12b,14c,14d`` the graphed backtracking
+and batch ones, ``--phases 11,12a,12c,12e`` the batch search and the
+history graphs (``--history-steps 2,8`` also times 12a's first solves at
+those steps a history graph).
 
 Drives the port's three slices on the card and checks every CUDA kernel
 of them against its plain PyTorch version:
@@ -120,7 +127,9 @@ Phases:
     within 1e-6 relative); run in worker processes, one CPU thread each;
 11. ``check_every=8``, ``iter_chunk=5`` and ``return_all`` solves on the
     card, bitwise equal to the ``check_every=1`` solve, for JOS1 with L1
-    (``check_every=8`` on replayed graphs, counted) and for FDS (eager);
+    (``check_every=8`` and ``return_all`` on replayed graphs, counted, the
+    history bitwise the eager per-step driver's, walls beside) and for FDS
+    (eager);
     (b) JOS1 n=50 at m = 2 by the fixed step in float64, at
     ``check_every`` 8 and 64 on replayed graphs, bitwise ``check_every=1``,
     ms a step graphed against eager chunks;
@@ -129,14 +138,21 @@ Phases:
     by lane in phase 10's classes (all statuses equal, at most 10% of the
     lanes outside the classes: rounding-floor flips; m>=3 inner counts per
     batch), over the window and, for m<=2, to the end, with walls beside
-    phase 10's single solves; (b) the 1k-lambda
+    phase 10's single solves; the m<=2 card batches to the end on replayed
+    history graphs (one capture a first solve, replays counted), bitwise
+    the eager per-step history (State, allfuns, allerrs, history_mask),
+    first-solve walls graphed and eager in turns, host reads per history
+    row; (b) the 1k-lambda
     elastic-net sweep (A 500 x 2000, float32, fixed step), converged share,
     mean nit and solves/s, at ``check_every=8`` on replayed graphs bitwise
     the ``check_every=1`` sweep (a first and a repeat sweep, walls beside),
-    8 lanes against single ``Lasso`` solves within 1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front;
+    8 lanes against single ``Lasso`` solves within 1e-5; (c) JOS1 n=50 from 10,000 starts in float32, on the Pareto front,
+    and at ``check_every=8`` (per-lane carried trials on replayed graphs)
+    bitwise the ``check_every=1`` batch, a first and a repeat timed beside;
     (d) FDS n=10 from 1,024 starts in float64, and ``lane_chunk=256``
     bitwise equal to the unchunked batch; (e) host reads and device events
-    per outer iteration at 16 and 1,024 lanes, within 1%.  Phases 10, 12
+    per outer iteration at 16 and 1,024 lanes, within 1%, and JOS1's with
+    ``history=True`` on its cached history graphs.  Phases 10, 12
     and 13's harness work shares one pool of worker processes.
 13. the experiment layer: (a) the metrics of 12a's to-the-end batches
     (m<=2 cells) card against CPU (Error rate equal, Hypervolume within
@@ -1536,22 +1552,16 @@ def harness_solve(task: tuple) -> dict:
         return model_cpu(task[1])
     if task[0] == "windows":
         return model_windows(task[1], "cpu", torch.float64, task[2])
-    from zfista_tpu_torch.bench.harness import (
-        _effective_variants,
-        benchmark,
-        initialize_problems,
-    )
+    from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
 
     i, variant, k, device, window = task
     problem, low, high = initialize_problems(large=False)[i]
     opts = _effective_variants(problem, None)[variant]
+    if k is None and not window and device != "cpu" and problem.n_objectives <= 2:
+        return history_turns(problem, low, high, variant, opts, device)
     t0 = time.perf_counter()
     if k is None and not window:
-        lanes = benchmark(
-            problem, low, high, n_samples=BATCH_STARTS, max_iter=HARNESS_MAX_ITER,
-            tol_internal=HARNESS_TOL_INTERNAL, history=True, variants={variant: opts},
-            device=device,
-        )[variant]
+        lanes = benchmark_one(problem, low, high, variant, opts, device)
         return dict(
             nit=np.array([r.nit for r in lanes]),
             nit_internal=np.array([r.nit_internal for r in lanes]),
@@ -1575,6 +1585,114 @@ def harness_solve(task: tuple) -> dict:
         status=np.reshape(res.status, lanes), x=np.reshape(res.x, (lanes, -1)),
         fun=np.reshape(res.fun, (lanes, -1)), wall=wall,
     )
+
+
+#: Phase 12a: the steps a history graph runs at m <= 2, besides the rule's,
+#: that ``--history-steps`` asks 12a to time (the environment carries the
+#: list to the pool's workers).
+HISTORY_STEPS_ENV = "CHIP_SMOKE_HISTORY_STEPS"
+
+
+def history_same(got, ref) -> bool:
+    """Two batches with history equal bit for bit: every State field and
+    the four history arrays (NaN where both have it)."""
+    keys = ("allfuns", "allerrs", "history_mask", "allvecs", "nit", "nit_internal", "status")
+    return all(
+        np.array_equal(a, c, equal_nan=a.dtype.kind == "f") and a.dtype == c.dtype
+        for a, c in zip(got.state, ref.state)
+    ) and all(
+        (got.get(k) is None and ref.get(k) is None)
+        or (got[k].dtype == ref[k].dtype
+            and np.array_equal(got[k], ref[k], equal_nan=got[k].dtype.kind == "f"))
+        for k in keys
+    )
+
+
+def history_turns(problem, low, high, variant: str, opts: dict, device: str) -> dict:
+    """12a's m <= 2 batch to the end on the card, in a worker: the
+    harness's ``benchmark()`` (one variant, ``history=True``) as a first
+    solve through the graphed history driver (the graph cache emptied;
+    captures and replays counted), then the same batch call eagerly (the
+    per-step driver, ``eager_chunks``) with its host reads counted, held
+    bitwise (State and the four history arrays), then graphed again with
+    its host reads counted: first-solve walls in turns (graph, eager,
+    graph).  With ``--history-steps``, a first solve at each of those
+    steps a graph, each held bitwise too."""
+    from zfista_tpu_torch.bench import harness
+    from zfista_tpu_torch.core import solver
+
+    real = harness.minimize_proximal_gradient_batch
+    kept: dict = {}
+
+    def keep(*a, **kw):
+        t0 = time.perf_counter()
+        kept["res"] = real(*a, **kw)
+        torch.cuda.synchronize()
+        kept["wall"], kept["call"] = time.perf_counter() - t0, (a, kw)
+        return kept["res"]
+
+    def first(graphs: bool):
+        """One first solve of the batch call, timed: graphed from an empty
+        cache, or eager."""
+        a, kw = kept["call"]
+        solver._GRAPHS.clear()
+        ctx = contextlib.nullcontext() if graphs else eager_chunks()
+        t0 = time.perf_counter()
+        with ctx:
+            res = real(*a, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    solver._GRAPHS.clear()
+    harness.minimize_proximal_gradient_batch = keep
+    before = graph_counts()
+    t0 = time.perf_counter()
+    try:
+        lanes = benchmark_one(problem, low, high, variant, opts, device)
+    finally:
+        harness.minimize_proximal_gradient_batch = real
+    wall = time.perf_counter() - t0
+    graphs = graphs_since(before)
+    graphed = kept["res"]
+    m = problem.n_objectives
+    rule = solver.HISTORY_GRAPH_STEPS.get(m, 0)
+    (eager, e_wall), e_reads = count_host_reads(lambda: first(False))
+    (graphed2, g2_wall), g_reads = count_host_reads(lambda: first(True))
+    same = history_same(graphed, eager) and history_same(graphed2, eager)
+    extra = {}
+    for G in (int(v) for v in os.environ.get(HISTORY_STEPS_ENV, "").split(",") if v):
+        solver.HISTORY_GRAPH_STEPS[m] = G
+        try:
+            res, w = first(True)
+        finally:
+            solver.HISTORY_GRAPH_STEPS[m] = rule
+        extra[G] = (w, history_same(res, eager))
+    rows = int(np.asarray(graphed.allfuns).shape[1])
+    return dict(
+        nit=np.array([r.nit for r in lanes]),
+        nit_internal=np.array([r.nit_internal for r in lanes]),
+        status=np.array([r.status for r in lanes]),
+        x=np.stack([r.x for r in lanes]),
+        fun=np.stack([np.atleast_1d(r.fun) for r in lanes]),
+        wall=wall,
+        results=lanes,
+        turns=dict(
+            steps=rule, graphs=graphs, same=same, rows=rows,
+            graph=[kept["wall"], g2_wall], eager=[e_wall],
+            reads={"graph": g_reads, "eager": e_reads}, extra=extra,
+        ),
+    )
+
+
+def benchmark_one(problem, low, high, variant: str, opts: dict, device: str) -> list:
+    """One variant of the harness's ``benchmark()`` at 12a's settings."""
+    from zfista_tpu_torch.bench.harness import benchmark
+
+    return benchmark(
+        problem, low, high, n_samples=BATCH_STARTS, max_iter=HARNESS_MAX_ITER,
+        tol_internal=HARNESS_TOL_INTERNAL, history=True, variants={variant: opts},
+        device=device,
+    )[variant]
 
 
 def run_pool(card: str, dev, tasks: list) -> dict:
@@ -1721,7 +1839,11 @@ def phase10(card: str, dev, results: dict) -> dict:
 def phase11(card: str, dev) -> None:
     """``check_every=8``, ``iter_chunk=5`` and ``return_all`` solves on the
     card, bitwise against the ``check_every=1`` solve: x, nit, nit_internal
-    and every State field; the history ends at the while driver's state."""
+    and every State field; the history ends at the while driver's state.
+    At m = 2 the ``return_all`` solve runs on replayed graphs, its
+    ``allvecs``, ``allfuns`` and ``allerrs`` bitwise the eager per-step
+    driver's."""
+    from zfista_tpu_torch.core import solver
     from zfista_tpu_torch.models import FDS, JOS1
 
     cases = [
@@ -1753,6 +1875,20 @@ def phase11(card: str, dev) -> None:
             )
             if "return_all" in name:
                 same = same and np.array_equal(r.allvecs[-1], ref.x) and len(r.allvecs) == ref.nit + 1
+                with eager_chunks():
+                    t0 = time.perf_counter()
+                    eager = quiet(p.solve, torch.tensor(x0, device=dev), **kw, return_all=True)
+                    e_wall = time.perf_counter() - t0
+                same = same and all(
+                    np.array_equal(np.asarray(u), np.asarray(v))
+                    for u, v in ((r.allvecs, eager.allvecs), (r.allfuns, eager.allfuns),
+                                 (r.allerrs, eager.allerrs))
+                )
+                steps = solver.HISTORY_GRAPH_STEPS.get(p.n_objectives, 0)
+                log(f"phase 11 [{card}]: {p.name} return_all "
+                    f"({f'replayed graphs of {steps} steps' if steps else 'the per-step driver'}) "
+                    f"{r['wall']:.3f} s, the eager per-step history {e_wall:.3f} s; the histories "
+                    f"bitwise equal: {same}")
             log(
                 f"phase 11 [{card}]: {p.name} accelerated, {name}: status {r.status} nit {r.nit} "
                 f"nit_internal {r.nit_internal} wall {r['wall']:.3f} s; chunk graphs {graphs[name]}; "
@@ -1762,10 +1898,12 @@ def phase11(card: str, dev) -> None:
             if not same or r.status != 1:
                 raise AssertionError(f"phase 11: {p.name} {name} differs from check_every=1")
             # At m = 2 the backtracking check_every=8 solve runs its trials
-            # (at least one a step) on replayed graphs; m >= 3 and the
-            # other drivers stay eager.
-            if "check_every': 8" in name and p.n_objectives <= 2:
-                if graphs[name]["captures"] != 1 or graphs[name]["replays"] < -(-r.nit // 8) - 1:
+            # (at least one a step) on replayed graphs, and so does the
+            # return_all solve; m >= 3 and the other drivers stay eager.
+            chunk = {"check_every': 8": 8, "return_all": solver.HISTORY_GRAPH_STEPS.get(2, 0)}
+            graphed = [c for k, c in chunk.items() if k in name and p.n_objectives <= 2]
+            if graphed:
+                if graphs[name]["captures"] != 1 or graphs[name]["replays"] < -(-r.nit // graphed[0]) - 1:
                     raise AssertionError(f"phase 11: {p.name} {name}: chunk graphs {graphs[name]}")
             elif graphs[name] != {"captures": 0, "replays": 0}:
                 raise AssertionError(f"phase 11: {p.name} {name} ran chunk graphs {graphs[name]}")
@@ -1951,10 +2089,35 @@ def phase12a(card: str, dev, results: dict, singles: dict) -> None:
                 )
             if bad:
                 failures.append(f"{p.name} / {v}: lanes outside {outside}, inner {inner_c}/{inner_p}")
+            if full and not history_turns_ok(card, p.name, v, fc["turns"]):
+                failures.append(f"{p.name} / {v}: the graphed history differs from the eager one "
+                                f"or ran no graph: {fc['turns']}")
     for f in failures:
         log(f"phase 12a: MISMATCH {f}")
     if failures:
         raise AssertionError(f"phase 12a: {len(failures)} batches differ card against CPU")
+
+
+def history_turns_ok(card: str, name: str, variant: str, t: dict) -> bool:
+    """12a's line on one m <= 2 card batch's history runs
+    (:func:`history_turns`), and whether they held: every graphed run
+    bitwise the eager per-step history, one capture on the first solve."""
+    rows = max(t["rows"], 1)
+    log(
+        f"phase 12a [{card}]: {name} / {variant}: history on replayed graphs of {t['steps']} "
+        f"steps ({t['rows']} rows; chunk graphs {t['graphs']}), bitwise the eager per-step "
+        f"history (State, allfuns, allerrs, history_mask): {t['same']}; first-solve walls in "
+        f"turns (graph, eager, graph): graph {[round(w, 4) for w in t['graph']]} s, eager "
+        f"{[round(w, 4) for w in t['eager']]} s; host reads per row: graphed "
+        f"{t['reads']['graph'] / rows!r}, eager {t['reads']['eager'] / rows!r} "
+        f"({t['reads']['graph']} and {t['reads']['eager']})"
+        + (f"; first solves at other steps a graph (s, bitwise): {t['extra']}" if t["extra"] else "")
+    )
+    return (
+        t["same"]
+        and all(ok for _, ok in t["extra"].values())
+        and t["graphs"]["captures"] == 1
+    )
 
 
 def phase12b(card: str, dev) -> None:
@@ -2022,7 +2185,9 @@ def phase12b(card: str, dev) -> None:
 
 def phase12c(card: str, dev) -> None:
     """JOS1 n=50 from ``JOS1_LANES`` starts in float32: every converged
-    lane on the Pareto set, the segment x = c 1, c in [0, 2]."""
+    lane on the Pareto set, the segment x = c 1, c in [0, 2]; at
+    ``check_every=8`` (the line search as per-lane carried trials on
+    replayed graphs) bitwise the ``check_every=1`` batch, timed beside."""
     from zfista_tpu_torch.models import JOS1
 
     p = JOS1(n_features=50)
@@ -2047,6 +2212,22 @@ def phase12c(card: str, dev) -> None:
     if not (ok.mean() >= 0.99 and np.max(gap) <= 1e-3 and np.all(res.x >= -0.05)
             and np.all(res.x <= 2.05)):
         raise AssertionError("phase 12c: JOS1 lanes off the Pareto set or not converged")
+    graphed = {}
+    for k in ("first", "repeat"):
+        before = graph_counts()
+        t0 = time.perf_counter()
+        got = p.solve_batch(x0s, nesterov=True, tol=1e-5, check_every=8)
+        graphed[k] = (time.perf_counter() - t0, graphs_since(before))
+        same_state(got.state, res.state, f"phase 12c: the {k} check_every=8 batch against check_every=1")
+    if graphed["first"][1]["captures"] != 1 or graphed["repeat"][1]["captures"] != 0:
+        raise AssertionError(f"phase 12c: chunk graphs {graphed}")
+    log(
+        f"phase 12c [{card}]: check_every=8 (per-lane carried trials on replayed graphs), "
+        f"bitwise the check_every=1 batch in every field of every lane: a first batch "
+        f"{graphed['first'][0]:.3f} s (the capture {last_capture_ms():.1f} ms of host time; "
+        f"{graphed['first'][1]}), a repeat {graphed['repeat'][0]:.3f} s "
+        f"({graphed['repeat'][1]}), beside check_every=1's {wall:.3f} s"
+    )
 
 
 def phase12d(card: str, dev, wide: dict) -> None:
@@ -2120,6 +2301,49 @@ def phase12e(card: str, dev) -> None:
             log(f"phase 12e: {name}: events that differ by width (over {COUNT_ITERS} iterations): {diff}")
         if abs(ra - rb) > COUNT_RTOL * max(ra, rb) or abs(ea - eb) > COUNT_RTOL * max(ea, eb):
             raise AssertionError(f"phase 12e: {name}'s counts depend on the width")
+    phase12e_history(card, dev)
+
+
+#: Phase 12e under history: JOS1's outer iterations counted, per iteration
+#: from runs of HISTORY_COUNT_ITERS and twice that on their cached graphs.
+HISTORY_COUNT_ITERS = 8
+
+
+def phase12e_history(card: str, dev) -> None:
+    """Host reads and device events per outer iteration of the JOS1 batch
+    with ``history=True`` (its line search as per-lane carried trials, one
+    trial an iteration at lr 1, on replayed history graphs) at each of
+    ``COUNT_WIDTHS`` lanes: each run once uncounted first (the capture),
+    then counted on its cached graph."""
+    from zfista_tpu_torch.core import solver
+    from zfista_tpu_torch.models import JOS1
+
+    p = JOS1(n_features=50)
+    base = torch.tensor(np.random.default_rng(42).uniform(-2.0, 4.0, (16, 50)), device=dev)
+    steps = solver.HISTORY_GRAPH_STEPS.get(2, 0)
+    seen = {}
+    for B in COUNT_WIDTHS:
+        x0s = base.repeat(B // 16, 1)
+        got = {}
+        for its in (HISTORY_COUNT_ITERS, 2 * HISTORY_COUNT_ITERS):
+            run = lambda: p.solve_batch(x0s, nesterov=True, tol=0, max_iter=its, history=True)
+            run()
+            before = graph_counts()
+            events, reads = count_host_reads(lambda: device_events(run))
+            got[its] = (reads, *events, graphs_since(before))
+        (r1, e1, b1, g1), (r2, e2, b2, g2) = got[HISTORY_COUNT_ITERS], got[2 * HISTORY_COUNT_ITERS]
+        seen[B] = (r2 - r1, e2 - e1)
+        log(
+            f"phase 12e [{card}]: JOS1 n=50 with history=True, {B} lanes, history graphs of "
+            f"{steps} steps: host reads {(r2 - r1) / HISTORY_COUNT_ITERS!r} and device events "
+            f"{(e2 - e1) / HISTORY_COUNT_ITERS!r} per outer iteration, device busy "
+            f"{(b2 - b1) / HISTORY_COUNT_ITERS:.1f} us per iteration (chunk graphs {g1}, {g2})"
+        )
+        if g1["captures"] or g2["captures"] or not g2["replays"]:
+            raise AssertionError(f"phase 12e: the history runs did not replay cached graphs: {g1}, {g2}")
+    (ra, ea), (rb, eb) = (seen[B] for B in COUNT_WIDTHS)
+    if abs(ra - rb) > COUNT_RTOL * max(ra, rb) or abs(ea - eb) > COUNT_RTOL * max(ea, eb):
+        raise AssertionError("phase 12e: JOS1's history counts depend on the width")
 
 
 #: Phase 13: the experiment layer (zfista_tpu_torch.bench, .metrics, .native,
@@ -4054,7 +4278,15 @@ def main(argv: list[str] | None = None) -> None:
         help="comma list of phases and ranges to run, e.g. '1-5,14a' (default: every phase); "
         "each computes what it needs of the others",
     )
-    want = select_phases(parser.parse_args(argv).phases)
+    parser.add_argument(
+        "--history-steps",
+        help="comma list of steps a history graph runs at m <= 2 at which 12a also times a "
+        "first solve of each of its card batches, beside the rule's (an experiment)",
+    )
+    args = parser.parse_args(argv)
+    want = select_phases(args.phases)
+    if args.history_steps:
+        os.environ[HISTORY_STEPS_ENV] = args.history_steps
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke: no CUDA device (torch.cuda.is_available() is False)"

@@ -331,12 +331,14 @@ def test_generic_fixed_steps_are_graphed_and_bitwise(graphed, how):
 )
 def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
     """Backtracking at m >= 3 and an m >= 3 fixed step (the Newton loop
-    reads the host), a feature-sharded step (its all-reduces) and the
-    backtracking batch step (one read per round of trials) are not
-    capturable; ``check_every=1``, a solve of one chunk, ``verbose``,
-    ``return_all`` and ``iter_chunk`` keep the eager loop: none reaches
-    the graph factory.  (Backtracking at m <= 2 and the fixed-lr batch are
-    graphed: tests/test_torch_graph_backtracking.py.)"""
+    reads the host), a feature-sharded step (its all-reduces), an m >= 3
+    ``return_all`` solve and an m >= 3 backtracking batch are not
+    capturable; ``check_every=1``, a solve of one chunk, ``verbose`` and
+    ``iter_chunk`` keep the eager loop: none reaches the graph factory.
+    (Backtracking at m <= 2 and the fixed-lr batch are graphed:
+    tests/test_torch_graph_backtracking.py; the backtracking batch at
+    m <= 2, the history drivers and ``return_all`` at m <= 2:
+    tests/test_torch_graph_history.py.)"""
     A, b, lr = _lasso(22)
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
@@ -361,14 +363,15 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
         "one chunk": lambda: _quiet(prob.solve_fixed_step, x0, lr=lr, tol=0, max_iter=8,
                                     check_every=8),
         "verbose": lambda: prob.solve_fixed_step(x0, verbose=True, **fixed),
-        "return_all": lambda: _quiet(prob.solve_fixed_step, x0, return_all=True, **fixed),
+        "return_all": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
+                                     nesterov=True, return_all=True, max_iter=12, tol=0),
         "iter_chunk": lambda: _quiet(prob.solve_fixed_step, x0, iter_chunk=5, **fixed),
-        "batch": lambda: prob.solve_batch(np.zeros((2, A.shape[1])), nesterov=True, tol=1e-8,
-                                          check_every=8),
+        "batch": lambda: _quiet(FDS(n_features=10).solve_batch, torch.zeros((2, 10), dtype=F64),
+                                nesterov=True, check_every=8, max_iter=12, tol=0),
     }
     res = runs[how]()
     assert _Replay.made == 0 and len(graphed) == 0
-    stopped = ("one chunk", "m>=3", "backtracking")  # at max_iter
+    stopped = ("one chunk", "m>=3", "backtracking", "return_all", "batch")  # at max_iter
     assert np.all(np.asarray(res.status) == (0 if how in stopped else 1))
 
 
@@ -411,9 +414,10 @@ def test_host_scalar_inside_a_capture_raises(monkeypatch):
 def test_only_the_fused_tail_is_marked_capturable():
     """Which steps carry the ``capturable`` mark: the fused tail (which alone
     takes the scratch words), the generic fixed step at m <= 2, the
-    carried search of a backtracking step at m <= 2 and the fixed-lr batch
-    step at m <= 2, each with every option it bakes in; not the
-    per-iteration backtracking step, an m >= 3 step, a verbose one, nor the
+    carried search of a backtracking step at m <= 2, the fixed-lr batch
+    step at m <= 2 and the carried search of a backtracking batch step at
+    m <= 2, each with every option it bakes in; not the per-iteration
+    backtracking step, an m >= 3 step, a verbose one, nor the round-based
     backtracking batch step, which masks itself but reads the host in its
     line search."""
     step, _, _ = _step_and_state("lasso", 10, 1e-8)
@@ -450,11 +454,12 @@ def test_only_the_fused_tail_is_marked_capturable():
         assert not getattr(step, "capturable", False) and not hasattr(step, "carried_search")
 
     def batch(**kw):
+        args = dict(tol=1e-8, tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
+                    warm_start=False, nesterov=True, deprecated=False, max_iter=10)
+        args.update(kw)
         return solver._make_batch_step(
             lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
-            lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, tol=1e-8,
-            tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
-            warm_start=False, nesterov=True, deprecated=False, max_iter=10, **kw,
+            lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, **args,
         )
 
     fixed = batch(decay_rate=1, nesterov_ratio=(0, 0.25))
@@ -464,3 +469,8 @@ def test_only_the_fused_tail_is_marked_capturable():
     assert lanes.capturable and lanes.options == ("batch", "lanes", 1e-8, 0.0, 1, *inner)
     backtracking = batch(decay_rate=0.5, nesterov_ratio=(0, 0.25))
     assert backtracking.masks_itself and not getattr(backtracking, "capturable", False)
+    search = backtracking.carried_search
+    assert search.capturable and search.masks_itself
+    assert search.options == ("batch search", *baked, 1, *inner, 0.5, 10)
+    assert not hasattr(batch(decay_rate=0.5, nesterov_ratio=(0, 0.25), max_backtrack_iter=0),
+                       "carried_search")

@@ -21,22 +21,27 @@ host decision here:
   ``iter_chunk`` or feature-sharded) runs it instead as carried trials:
   one trial per step, the search's state (:class:`_Search`) in the carry
   and the accept test selected on the device, the counterpart of the JAX
-  package's ``lax.while_loop`` inside the step;
+  package's ``lax.while_loop`` inside the step; so does ``return_all``
+  on a card;
 * the m>=3 dual's Newton loop and arc search are host loops
   (:mod:`zfista_tpu_torch.core.subproblem`); the m=2 bisection reads
   nothing;
 * the drivers read the state's ``active`` flag once per ``check_every``
-  steps (the while driver), once per step (the history driver) or once
-  per ``iter_chunk`` steps (the chunk driver, from the host copy it keeps).
+  steps (the while driver), once per step or, for a step that reads
+  nothing on a card, once per replayed graph of a few steps (the history
+  driver, :func:`_history_steps`), or once per ``iter_chunk`` steps (the
+  chunk driver, from the host copy it keeps).
 
 The fixed-step step and the carried trial read nothing at all.  Every step
 a run takes is computed from the same inputs in the same order, so any
 ``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
 bitwise equal to the uninterrupted ``check_every=1`` solve.  On a card the
 chunks of every step that reads nothing (the one-launch LASSO-family
-step below, the generic fixed step and the carried trial at m <= 2) run
-as replayed CUDA graphs (:func:`run_graphed`), the counterpart of the JAX
-package's one device program per chunk.
+step below, the generic fixed step and the carried trial at m <= 2, and
+the batch's fixed-lr step and per-lane carried trials at m <= 2) run as
+replayed CUDA graphs (:func:`run_graphed`; with history,
+:func:`run_recorded`), the counterpart of the JAX package's one device
+program per chunk.
 
 On dense LASSO (:meth:`zfista_tpu_torch.models.Lasso.solve_fixed_step`)
 the fixed-step step is its gradient and one launch of the fused CUDA
@@ -136,7 +141,8 @@ class _LS(NamedTuple):
 class _Search(NamedTuple):
     """The carry of a solve whose backtracking line search runs as carried
     trials, one a step: the 12 :class:`State` fields, then the search's
-    own (the JAX ``line_search`` loop state, carried across steps)."""
+    own (the JAX ``line_search`` loop state, carried across steps).  In a
+    batch every field has the leading lane axis."""
 
     x: Array
     y: Array
@@ -157,8 +163,9 @@ class _Search(NamedTuple):
 
     @classmethod
     def start(cls, state: State) -> "_Search":
-        """``state`` at the start of an iteration: no trial taken yet."""
-        zero = torch.zeros((), dtype=torch.int32, device=state.x.device)
+        """``state`` at the start of an iteration: no trial taken yet (a
+        batch's lanes each at the start of theirs)."""
+        zero = torch.zeros(state.nit.shape, dtype=torch.int32, device=state.x.device)
         return cls(*state, k=zero, lr_try=state.lr, w_try=state.w, spent=zero)
 
     def state(self) -> State:
@@ -519,6 +526,16 @@ def _make_batch_step(
     nothing: it is marked ``capturable``, with its ``options``, and the
     batch driver replays its chunks as CUDA graphs on a card.
 
+    A backtracking step (``decay_rate < 1``) at m <= 2, not
+    feature-sharded, also carries ``carried_search``: a capturable step of
+    a :class:`_Search` carry with the lane axis that takes one trial in
+    every lane, each at its own ``lr`` and its own point of its own
+    iteration, the outcome selected per lane (accepted, retried at a
+    decayed ``lr``, or failed at ``max_backtrack_iter``), so that a chunk
+    of trials reads nothing.  Each lane's iterations are bitwise those of
+    the round-based step; a batch of them takes as many steps as its
+    slowest lane takes trials in all.
+
     ``feature_sum``/``feature_max`` (lanes that are feature blocks, m == 1;
     both or neither) all-reduce over the ``"model"`` ranks, as in
     :func:`_make_step`: each lane's ``max|x − y|`` (with ``‖x‖∞`` under
@@ -597,12 +614,9 @@ def _make_batch_step(
             searching = searching & ~ok
         return _LS(lr, done, x, F_t, w, sub_fun, nits)
 
-    def step(state: State) -> State:
-        active = _active(state, max_iter)
-        f_y = v_f(state.y) if need_f_y else None
-        jac_y = v_jac(state.y)
-        ls = line_search(state, f_y, jac_y, active)
-
+    def accepted(state: State, ls: _LS) -> State:
+        """Every lane's iteration end as if its line search accepted
+        ``ls``; the caller selects it where it did."""
         err = torch.amax(torch.abs(ls.x - state.y), dim=1)
         x_max = torch.amax(torch.abs(ls.x), dim=1) if tol_rel else None
         if sharded:
@@ -615,7 +629,6 @@ def _make_batch_step(
             converged_now = err < tol + tol_rel * x_max
         else:
             converged_now = err < tol
-        nit_internal = state.nit_internal + ls.nits
 
         if nesterov:
             t_k = state.t
@@ -632,7 +645,7 @@ def _make_batch_step(
             y_new = ls.x
 
         # Converged step: keep the old y/t (the JAX step's freeze).
-        new = State(
+        return State(
             x=ls.x,
             y=torch.where(converged_now[:, None], state.y, y_new),
             F_x=ls.F_x,
@@ -642,38 +655,95 @@ def _make_batch_step(
             err=err,
             sub_fun=ls.sub_fun,
             nit=state.nit + 1,
-            nit_internal=nit_internal,
+            nit_internal=state.nit_internal + ls.nits,
             converged=converged_now,
             failed=state.failed,
         )
+
+    def step(state: State) -> State:
+        active = _active(state, max_iter)
+        f_y = v_f(state.y) if need_f_y else None
+        jac_y = v_jac(state.y)
+        ls = line_search(state, f_y, jac_y, active)
+        new = accepted(state, ls)
         # Per lane: the step where it was active and accepted a trial; where
         # the line search was exhausted, a freeze at the last accepted point
         # (nit does not advance, the inner iterations spent still count,
         # failed); elsewhere the state as it was.
         moved = active & ls.done
-        out = State(
-            *(torch.where(moved.view(-1, *(1,) * (u.dim() - 1)), u, v) for u, v in zip(new, state))
-        )
+        out = State(*(_lanes_where(moved, u, v) for u, v in zip(new, state)))
         return out._replace(
-            nit_internal=torch.where(active, nit_internal, state.nit_internal),
+            nit_internal=torch.where(active, new.nit_internal, state.nit_internal),
             failed=state.failed | (active & ~ls.done),
         )
 
     step.masks_itself = True
+    # Every option the steps below bake in, for a graph's key.  A per-lane
+    # momentum pair is read by pointer: the caller passes it as an owner.
+    pair = ("lanes",) if isinstance(a, torch.Tensor) else (float(a), float(b))
+    options = (
+        *pair, float(tol), float(tol_rel), m, bool(warm_start),
+        bool(nesterov), bool(adaptive_restart), bool(project_momentum),
+        bool(deprecated), float(tol_internal), float(tol_internal_rel),
+        int(max_iter_internal), bool(track_objective), max_iter,
+    )
     if fixed_lr and m <= 2 and not sharded:
         # No host read (its line search returns at once): a chunk of it
-        # can be captured, with every option it bakes in as the graph's
-        # key.  A per-lane momentum pair is read by pointer: the caller
-        # passes it as an owner.
-        pair = ("lanes",) if isinstance(a, torch.Tensor) else (float(a), float(b))
+        # can be captured.
         step.capturable = True
-        step.options = (
-            "batch", *pair, float(tol), float(tol_rel), m, bool(warm_start),
-            bool(nesterov), bool(adaptive_restart), bool(project_momentum),
-            bool(deprecated), float(tol_internal), float(tol_internal_rel),
-            int(max_iter_internal), bool(track_objective), max_iter,
+        step.options = ("batch", *options)
+
+    if not fixed_lr and m <= 2 and not sharded and max_backtrack_iter >= 1:
+        moved = ("x", "y", "F_x", "lr", "t", "w", "err", "sub_fun", "nit")
+
+        def search_step(c: _Search) -> _Search:
+            """One trial in every lane (the body of the JAX ``line_search``
+            loop under ``vmap``), each lane's outcome selected on the
+            device, as in :func:`_make_step`'s carried search: accepted,
+            the iteration ends as ``step`` ends it; rejected with trials
+            left, the State stays and the next trial's ``lr`` decays;
+            rejected at ``max_backtrack_iter``, the failure freeze.  A lane
+            that is not active stays as it is (the step masks itself), with
+            ``k`` and ``spent`` at 0.  A retry computes ``f(y)`` and
+            ``jac_f(y)`` again at the same ``y``: the same bits."""
+            state = c.state()
+            live = _active(state, max_iter)
+            f_y = v_f(state.y)
+            jac_y = v_jac(state.y)
+            sub, f_t, F_t = trial(state, c.lr_try, c.w_try, f_y, jac_y, live)
+            ok = live & accept_test(state, f_y, f_t, F_t, sub.fun)
+            w = sub.weight if warm_start else c.w_try
+            spent = c.spent + sub.nit
+            new = accepted(state, _LS(c.lr_try, ok, sub.x, F_t, w, sub.fun, spent))
+            k = c.k + 1
+            out_of_trials = live & ~ok & (k >= max_backtrack_iter)
+            retry = live & ~(ok | out_of_trials)
+            return _Search(
+                **{name: _lanes_where(ok, getattr(new, name), getattr(c, name)) for name in moved},
+                # Accepted or exhausted, the iteration's inner count lands.
+                nit_internal=torch.where(ok | out_of_trials, new.nit_internal, c.nit_internal),
+                converged=torch.where(ok, new.converged, c.converged),
+                failed=c.failed | out_of_trials,
+                k=torch.where(retry, k, 0),
+                lr_try=torch.where(retry, c.lr_try * decay_rate, c.lr_try),
+                w_try=_lanes_where(live, w, c.w_try) if warm_start else c.w_try,
+                spent=torch.where(retry, spent, 0),
+            )
+
+        search_step.masks_itself = True
+        # No host read: a chunk of trials can be captured.
+        search_step.capturable = True
+        search_step.options = (
+            "batch search", *options, float(decay_rate), int(max_backtrack_iter)
         )
+        step.carried_search = search_step
     return step
+
+
+def _lanes_where(mask: Array, u: Array, v: Array) -> Array:
+    """``u`` where a lane's ``mask`` holds, else ``v`` (``mask`` is ``(B,)``,
+    ``u`` and ``v`` lane-first of any rank)."""
+    return torch.where(mask.view(-1, *(1,) * (u.dim() - 1)), u, v)
 
 
 def _identity(v: Any) -> Any:
@@ -848,21 +918,28 @@ def graph_chunk(
     active: Callable[[Any], Array],
     check_every: int,
     scratch: Array | None = None,
+    record: Callable[[Any, Any], tuple] | None = None,
 ):
     """The chunk that a graph captures, as a plain function of the static
     carry: ``check_every`` steps from ``static`` as a chunk loop runs them
     (:func:`_chunk_body`: masked by ``active`` unless the step masks
     itself), the step tail's ``scratch`` passed to a step that takes it,
     and the last step's fields copied back into ``static`` (the copies
-    are nodes of the graph; only the static buffers outlive a replay)."""
+    are nodes of the graph; only the static buffers outlive a replay).
+    With ``record`` (a history driver's), step ``j``'s ``record(before,
+    after)`` is copied into row ``j`` of the static ``records`` buffers."""
     body = _chunk_body(step, active)
     if scratch is not None:
         body = functools.partial(body, scratch=scratch)
 
-    def chunk(static: Any) -> None:
+    def chunk(static: Any, records: tuple = ()) -> None:
         carry = static
-        for _ in range(check_every):
-            carry = body(carry)
+        for j in range(check_every):
+            new = body(carry)
+            if record is not None:
+                for buf, v in zip(records, record(carry, new)):
+                    buf[j].copy_(v)
+            carry = new
         for s, c in zip(static, carry):
             if c is not s:
                 s.copy_(c)
@@ -909,16 +986,26 @@ def _launch_counters() -> tuple[dict[str, int], ...]:
 
 class _GraphEntry:
     """A cached chunk graph and what it owns: the static carry buffers,
-    the step tail's scratch words (for a step that takes them), the graph
-    (with its private memory pool), the kernel launches one replay makes,
-    and weak references to the tensors and callables it reads."""
+    the step tail's scratch words (for a step that takes them), a history
+    driver's record buffers (one row a step), the graph (with its private
+    memory pool), the kernel launches one replay makes, and weak
+    references to the tensors and callables it reads."""
 
-    def __init__(self, carry: Any, refs: list, scratch: bool) -> None:
+    def __init__(
+        self, carry: Any, refs: list, scratch: bool, record=None, check_every: int = 1
+    ) -> None:
         dev = carry[0].device
         self.static = type(carry)(
             *(torch.empty_like(v, memory_format=torch.contiguous_format) for v in carry)
         )
         self.scratch = fused.step_tail_scratch(dev) if scratch else None
+        self.record = record
+        self.records: tuple = ()
+        if record is not None:
+            self.records = tuple(
+                torch.empty((check_every, *v.shape), dtype=v.dtype, device=dev)
+                for v in record(carry, carry)
+            )
         self.stream = _capture_stream(dev)
         self.refs = refs
         self.graph = None
@@ -935,17 +1022,25 @@ class _GraphEntry:
         the capture recorded are what each replay adds to the wrappers'
         ``launch_counts``: the wrappers ran once at capture, and those were
         not launches."""
-        chunk = graph_chunk(step, active, check_every, self.scratch)
+        chunk = graph_chunk(step, active, check_every, self.scratch, self.record)
+        # What the graph reads and writes: the carry's static buffers and
+        # the record rows, as one flat tuple.
+        n = len(self.static)
+        buffers = (*self.static, *self.records)
+
+        def run(b: tuple) -> None:
+            chunk(type(self.static)(*b[:n]), b[n:])
+
         stream = self.stream
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(stream.device))
         counters = _launch_counters()
         with _on_stream(stream):
-            chunk(self.static)
+            run(buffers)
             before = [dict(c) for c in counters]
             t0 = _time.perf_counter()
             try:
-                self.graph = CHUNK_GRAPH(chunk, self.static, stream)
+                self.graph = CHUNK_GRAPH(run, buffers, stream)
                 self.capture_ms = 1e3 * (_time.perf_counter() - t0)
                 graph_counts["captures"] += 1
                 self.launches = {
@@ -997,12 +1092,13 @@ def _weak(obj: Any):
         return lambda: obj
 
 
-def _graph_key(step, carry, check_every: int, owners) -> tuple[tuple, list]:
+def _graph_key(step, carry, check_every: int, owners, record=None) -> tuple[tuple, list]:
     """The cache key of a chunk graph, and the references its entry keeps
     to check that what it reads is alive.  Tensors and callables count by
     identity (tensors also by dtype and shape; a bound method by its
     object's and its function's); other params by value, or by identity,
-    kept alive, where they do not hash."""
+    kept alive, where they do not hash.  A history driver's ``record``
+    counts by what it records (its ``tag``)."""
     ids, refs = [], []
     for o in owners:
         if isinstance(o, torch.Tensor):
@@ -1022,21 +1118,22 @@ def _graph_key(step, carry, check_every: int, owners) -> tuple[tuple, list]:
                 ids.append(("object", id(o)))
                 refs.append(lambda o=o: o)
     fields = tuple((v.dtype, tuple(v.shape)) for v in carry)
-    key = (step.options, int(check_every), carry[0].device, fields, tuple(ids), type(carry))
+    key = (step.options, int(check_every), carry[0].device, fields, tuple(ids), type(carry),
+           None if record is None else record.tag)
     return key, refs
 
 
-def _graph_entry(step, carry, check_every: int, owners) -> _GraphEntry:
+def _graph_entry(step, carry, check_every: int, owners, record=None) -> _GraphEntry:
     """The cached entry for this run, made (without its graph) on a miss.
     Entries whose tensors or callables died go first; past
     ``GRAPH_CACHE_SIZE`` the least recently used goes."""
     for k in [k for k, e in _GRAPHS.items() if not e.alive()]:
         del _GRAPHS[k]
-    key, refs = _graph_key(step, carry, check_every, owners)
+    key, refs = _graph_key(step, carry, check_every, owners, record)
     entry = _GRAPHS.get(key)
     if entry is None:
         scratch = getattr(step, "takes_scratch", False)
-        entry = _GRAPHS[key] = _GraphEntry(carry, refs, scratch)
+        entry = _GRAPHS[key] = _GraphEntry(carry, refs, scratch, record, check_every)
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
     else:
@@ -1050,6 +1147,8 @@ def run_graphed(
     active: Callable[[Any], Array],
     check_every: int,
     owners: tuple[Any, ...],
+    record: Callable[[Any, Any], tuple] | None = None,
+    after_chunk: Callable[[tuple], None] | None = None,
 ) -> Any:
     """:func:`run_masked` for a capturable step, each chunk one replay of a
     cached CUDA graph (:func:`graph_chunk` captured by ``CHUNK_GRAPH``):
@@ -1058,8 +1157,10 @@ def run_graphed(
     copy taken after the last read.  On a cache miss the first chunk runs
     eagerly and is then captured.  Bitwise the ``check_every=1`` run,
     step count included: frozen steps in the last chunk run and are
-    discarded by the mask."""
-    entry = _graph_entry(step, carry, check_every, owners)
+    discarded by the mask.  With ``record`` (:func:`run_recorded`) each
+    chunk also fills the entry's record rows, which ``after_chunk`` is
+    given after each chunk."""
+    entry = _graph_entry(step, carry, check_every, owners, record)
     static = entry.static
     for s, v in zip(static, carry):
         s.copy_(v)
@@ -1068,18 +1169,113 @@ def run_graphed(
             entry.capture(step, active, check_every)
         else:
             entry.replay()
+        if after_chunk is not None:
+            after_chunk(entry.records)
     return type(carry)(*(s.clone() for s in static))
 
 
+def run_recorded(
+    step: Callable[..., Any],
+    carry: Any,
+    active: Callable[[Any], Array],
+    steps: int,
+    owners: tuple[Any, ...],
+    record: Callable[[Any, Any], tuple],
+    chunk: int,
+    sink: Callable[[tuple], None],
+) -> Any:
+    """The history drivers' graphed loop: :func:`run_graphed` of a
+    capturable step at ``steps`` steps a replay, each step's
+    ``record(before, after)`` (:func:`history_record`) written into the
+    entry's record rows.  The host reads ``active`` once per replay; after
+    each replay a few device copies move its rows out, and once per
+    ``chunk`` steps (or the first replay past them) the rows go to
+    ``sink`` as host numpy arrays, steps first.  The carry is as
+    :func:`run_graphed` leaves it: steps after the last active one are
+    masked, and record nothing (``done`` and ``ended`` false)."""
+    pending: list[tuple] = []
+
+    def flush() -> None:
+        if pending:
+            sink(tuple(torch.cat(v).cpu().numpy() for v in zip(*pending)))
+            pending.clear()
+
+    def take(rows: tuple) -> None:
+        pending.append(tuple(r.clone() for r in rows))
+        if len(pending) * steps >= chunk:
+            flush()
+
+    carry = run_graphed(step, carry, active, steps, owners, record, take)
+    flush()
+    return carry
+
+
+def history_record(vecs: bool) -> Callable[[Any, Any], tuple]:
+    """What a history driver records of one step, from the carry before it
+    and after it (a :class:`State` or a :class:`_Search`, with or without
+    the lane axis): ``ended`` (the step ended an iteration: accepted, or
+    failed its line search), ``done`` (accepted: ``nit`` advanced), the
+    ``nit`` before it (the iteration's row), and ``F_x``, ``err`` and, with
+    ``vecs``, ``x`` after it.  A per-step driver's row is "active before
+    and not failed after", which is ``done`` for any step that ran."""
+
+    def record(before: Any, after: Any) -> tuple:
+        done = after.nit != before.nit
+        ended = done | (after.failed & ~before.failed)
+        out = (ended, done, before.nit, after.F_x, after.err)
+        return out + (after.x,) if vecs else out
+
+    record.tag = ("history", bool(vecs))
+    return record
+
+
+#: Steps per replayed graph of a history driver, by objective count
+#: (:func:`_history_steps`).
+HISTORY_GRAPH_STEPS: dict[int, int] = {1: 8, 2: 2}
+
+
+def _history_steps(step, carry, max_iter: int, owners, n_objectives: int) -> int:
+    """The history drivers' rule: the steps a replay of ``step``'s graph
+    runs (``HISTORY_GRAPH_STEPS``), or 0 for the per-step driver.  A graph
+    needs a capturable step, ``owners``, a card (:func:`_graphs_run_on`)
+    and a ``max_iter`` past one replay; m >= 3, ``verbose`` and
+    feature-sharded steps are not capturable, and the CPU steps one at a
+    time.
+
+    A first solve graphs too, and few steps a graph keep its capture
+    short (10-90 µs of host time a node, ~600 nodes an m = 2 step).  On
+    an H100 80GB HBM3 at 700 W the harness's 26 m = 2 batches with
+    history (``benchmark()``, 100 float64 starts, each a first solve from
+    an empty graph cache; ``chip_smoke.py --phases 12a --history-steps
+    2,8,16``) took 21.7 s in all at 2 steps a graph, 23.6 s at 4 (the
+    mean of two turns), 29.1 s at 8, 42.5 s at 16 and 121.4 s on the
+    per-step driver; 2 was fastest on 21 of the 26, 4 on the longest
+    (JOS1 n=50, 65-236 iterations: 1.5-2.9 s against 2.2-3.6 s), and no
+    graphed first solve was slower than the per-step driver (the
+    shortest, TOI4 at 6 iterations, 0.17-0.28 s against 0.26-0.34 s).
+    An m = 1 step has about a sixth of the nodes (~107 launches a LASSO
+    trial), so it takes 8; no harness cell has m = 1."""
+    steps = HISTORY_GRAPH_STEPS.get(n_objectives, 0)
+    graphed = (
+        steps >= 1
+        and getattr(step, "capturable", False)
+        and owners is not None
+        and max_iter > steps
+        and _graphs_run_on(carry[0].device)
+    )
+    return steps if graphed else 0
+
+
 def _run_history(step, state: State, max_iter: int, chunk: int):
-    """The history driver: step while active, recording ``(x, F_x, err)``
-    of every step that ran and did not fail the line search.
+    """The per-step history driver: step while active, recording ``(x,
+    F_x, err)`` of every step that ran and did not fail the line search.
 
     The JAX scan driver runs whole chunks of masked steps; here the host
     reads ``active`` before every step instead, so a frozen state is never
     stepped (each frozen backtracking step would re-run its line search).
     The steps recorded, and the final state, are the same.  Records are
-    copied to the host once per ``chunk`` steps, as numpy rows.
+    copied to the host once per ``chunk`` steps, as numpy rows.  A
+    capturable step on a card takes :func:`_run_history_graphed` instead.
     """
     xs, fs, errs, pending = [], [], [], []
 
@@ -1098,6 +1294,25 @@ def _run_history(step, state: State, max_iter: int, chunk: int):
             flush()
     flush()
     return state, xs, fs, errs
+
+
+def _run_history_graphed(step, carry, max_iter: int, steps: int, owners, chunk: int):
+    """:func:`_run_history` for a capturable step (the fixed step or the
+    carried search at m <= 2) on :func:`run_recorded`: ``steps`` steps a
+    replay, one host read per replay.  A row is kept where the step
+    accepted an iteration (a carried search's trial that ended one), so
+    the history is the per-step driver's, bitwise."""
+    xs, fs, errs = [], [], []
+
+    def sink(rows: tuple) -> None:
+        _, done, _, F, e, x = rows
+        xs.extend(x[done])
+        fs.extend(F[done])
+        errs.extend(e[done])
+
+    active = lambda c: _active(c, max_iter)  # noqa: E731
+    carry = run_recorded(step, carry, active, steps, owners, history_record(True), chunk, sink)
+    return carry, xs, fs, errs
 
 
 def _bind_params(
@@ -1282,8 +1497,10 @@ def minimize_proximal_gradient(
     the line search is a host loop, each trial's accept test a host read.
     On a card the chunks of a fixed-step solve with at most
     two objectives (not ``verbose``, not feature-sharded) and of those
-    carried trials run as replayed CUDA graphs (:func:`run_graphed`).
-    ``iter_chunk`` runs at most that many steps between
+    carried trials run as replayed CUDA graphs (:func:`run_graphed`), and
+    so does ``return_all`` for such a solve (its backtracking as carried
+    trials, a row kept where a trial ends its iteration), a few steps a
+    replay (:func:`_history_steps`).  ``iter_chunk`` runs at most that many steps between
     host copies of the state; when the device faults inside a chunk, the
     solve returns the last chunk's host copy with ``success=False``,
     status 2 and a "device fault" message, without touching the device
@@ -1409,6 +1626,9 @@ def minimize_proximal_gradient(
 
     device_faulted = False
     allvecs = allfuns = allerrs = None
+    # What the step reads by pointer: a chunk graph's cache key.
+    leaves = params if isinstance(params, (tuple, list)) else (params,)
+    owners = (f, g, jac_f, prox_wsum_g, *leaves)
     if return_all:
         if check_every != 1:
             warnings.warn(
@@ -1425,7 +1645,20 @@ def minimize_proximal_gradient(
         # allvecs[k] and allfuns[k] stay paired.
         head_x = x0_res if initial_state is None else to_host(state).x
         head_F = state.F_x.cpu().numpy()
-        state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
+        # At m <= 2 on a card: the fixed step, or the line search as
+        # carried trials (a row where a trial ends its iteration), on
+        # replayed graphs.
+        search = getattr(step, "carried_search", None)
+        graph_step = step if search is None else search
+        steps = _history_steps(graph_step, state, max_iter, owners, m)
+        if steps:
+            carry = state if search is None else _Search.start(state)
+            carry, xs, fs, allerrs = _run_history_graphed(
+                graph_step, carry, max_iter, steps, owners, chunk
+            )
+            state = carry if search is None else carry.state()
+        else:
+            state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
         if fsh is not None and xs:
             xs = list(shd.gather_numpy(np.stack(xs), fsh, dev, axis=1))
         allvecs = [head_x] + xs
@@ -1462,9 +1695,6 @@ def minimize_proximal_gradient(
                 device_faulted = True
                 break
     else:
-        # What the step reads by pointer: a chunk graph's cache key.
-        leaves = params if isinstance(params, (tuple, list)) else (params,)
-        owners = (f, g, jac_f, prox_wsum_g, *leaves)
         search = getattr(step, "carried_search", None)
         if search is not None and check_every > 1:
             # The line search as carried trials: check_every counts trials.

@@ -13,20 +13,28 @@ Where the JAX package vmaps its single step and lets XLA turn each lane's
 ``while_loop`` into one masked loop, the port's step holds host decisions
 (backtracking trials, the m>=3 Newton loop).  In the batch they are masks:
 a loop runs while any lane still needs it, with one host read per round
-for all lanes, and a lane that is done keeps its values.  A lane that is
-not active (converged, failed or at ``max_iter``) keeps its state, so the
-drivers need no mask of their own:
+for all lanes, and a lane that is done keeps its values.  At m <= 2 (not
+feature-sharded) the backtracking line search also runs as per-lane
+carried trials: one trial in every lane a step, each lane's search in the
+carry and its outcome selected on the device, so the step reads nothing
+and lanes need not move in lockstep.  A lane that is not active
+(converged, failed or at ``max_iter``) keeps its state, so the drivers
+need no mask of their own:
 
 * ``check_every`` / ``iter_chunk``: that many steps between host reads of
   "is any lane still active", bitwise equal to ``check_every=1``.  The
-  fixed-``lr`` step at m <= 2 (not feature-sharded) reads nothing, so on
-  a card its chunks are replayed CUDA graphs
-  (:func:`zfista_tpu_torch.core.solver.run_chunks`); backtracking and
-  m >= 3 batches and the CPU run eager chunks;
-* history (``history=True``): one read of the same flag per step; the
-  per-step records (``F``, the error, the iterate with ``record_vecs``)
-  stay on the device and are copied to the host once per
-  ``history_chunk`` steps.
+  fixed-``lr`` step at m <= 2 and, at ``check_every > 1`` without
+  ``iter_chunk``, the carried trials (``check_every`` then counts trials)
+  read nothing, so on a card their chunks are replayed CUDA graphs
+  (:func:`zfista_tpu_torch.core.solver.run_chunks`); the round-based
+  backtracking step, m >= 3 batches and the CPU run eager chunks;
+* history (``history=True``): at m <= 2 on a card, replayed graphs of a
+  few steps (the fixed-``lr`` step or the carried trials;
+  :func:`zfista_tpu_torch.core.solver._history_steps`), one read of the
+  same flag per replay; elsewhere one read per step.  The per-step
+  records (``F``, the error, the iterate with ``record_vecs``) stay on
+  the device and are copied to the host once per ``history_chunk``
+  steps; the histories are the same either way.
 
 Per-lane problem data (a λ sweep, per-lane operators) enters through
 ``batch_params``, passed as the callables' last argument, and per-lane
@@ -54,12 +62,16 @@ from zfista_tpu_torch.core.result import TERMINATION_MESSAGES, SolveResult
 from zfista_tpu_torch.core.solver import (
     State,
     _active,
+    _history_steps,
     _make_batch_step,
     _normalize_problem,
     _over_lanes,
+    _Search,
     _solve_device,
     _to_device,
+    history_record,
     run_chunks,
+    run_recorded,
     state_to_numpy,
 )
 from zfista_tpu_torch.parallel.sharding import (
@@ -537,9 +549,13 @@ def minimize_proximal_gradient_batch(
     ``history=True`` records per-iteration ``allfuns``/``allerrs``;
     ``record_vecs=True`` (implies ``history``) also the iterates
     (``allvecs``); the records are copied to the host once per
-    ``history_chunk`` steps.  ``check_every`` and ``iter_chunk`` set the
-    steps between host reads of "any lane active" and give bitwise the
-    result of ``check_every=1``; ``lane_chunk`` solves the batch in padded
+    ``history_chunk`` steps (at m <= 2 on a card the history driver
+    replays graphs of a few steps).  ``check_every`` and ``iter_chunk`` set
+    the steps between host reads of "any lane active" and give bitwise the
+    result of ``check_every=1``; a backtracking batch with at most two
+    objectives at ``check_every > 1`` (without ``iter_chunk``) runs one
+    line-search trial in every lane a step, and ``check_every`` then
+    counts trials; ``lane_chunk`` solves the batch in padded
     chunks of that many lanes and merges them lane for lane (a device fault
     in a later chunk returns the solved chunks and marks the rest status
     2).  ``initial_states`` (e.g. a previous result's ``state``, tensors or
@@ -814,6 +830,11 @@ def _solve_lanes(
     else:
         states = _init_states(x0s, v_F(x0s), m, lr)
     any_active = lambda s: torch.any(_active(s, max_iter))
+    # What the step reads by pointer: a chunk graph's cache key.
+    owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
+    # A backtracking step at m <= 2: its line search as per-lane carried
+    # trials, one trial in every lane a step.
+    search = getattr(step, "carried_search", None)
 
     allfuns = allerrs = hist_mask = allvecs = F0 = vec_head = None
     if history:
@@ -833,14 +854,27 @@ def _solve_lanes(
         F0 = states.F_x.cpu().numpy()
         if record_vecs and initial_states is not None:
             vec_head = to_numpy(states).x
-        states, allfuns, allerrs, hist_mask, allvecs = _run_history(
-            step, states, max_iter, chunk, record_vecs
-        )
+        # At m <= 2 on a card: the fixed-lr step, or the carried trials, on
+        # replayed graphs; else one step at a time.
+        graph_step = step if search is None else search
+        steps = _history_steps(graph_step, states, max_iter, owners, m)
+        if steps:
+            carry = states if search is None else _Search.start(states)
+            carry, allfuns, allerrs, hist_mask, allvecs = _run_history_graphed(
+                graph_step, carry, max_iter, steps, owners, chunk, record_vecs
+            )
+            states = carry if search is None else carry.state()
+        else:
+            states, allfuns, allerrs, hist_mask, allvecs = _run_history(
+                step, states, max_iter, chunk, record_vecs
+            )
         if features is not None and allvecs is not None:
             allvecs = gather_numpy(allvecs, features, dev, axis=2)
+    elif search is not None and iter_chunk is None and check_every > 1:
+        # check_every counts trials (iter_chunk counts iterations).
+        carry = run_chunks(search, _Search.start(states), any_active, check_every, max_iter, owners)
+        states = carry.state()
     else:
-        # What the step reads by pointer: a chunk graph's cache key.
-        owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
         chunk = iter_chunk if iter_chunk is not None else check_every
         states = run_chunks(step, states, any_active, chunk, max_iter, owners)
         if skip_F:
@@ -895,11 +929,13 @@ def _init_states(x0s: torch.Tensor, F0: torch.Tensor, m: int, lr: float) -> Stat
 
 
 def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bool):
-    """The history driver: step while any lane is active (one host read per
-    step), recording every lane's ``(F_x, err, recorded)`` — and ``x`` with
-    ``record_vecs`` — on the device; the records go to the host once per
-    ``chunk`` steps.  ``recorded`` is "active before the step and not
-    failed after it", as the JAX scan driver's mask.
+    """The per-step history driver: step while any lane is active (one
+    host read per step), recording every lane's ``(F_x, err, recorded)``
+    — and ``x`` with ``record_vecs`` — on the device; the records go to
+    the host once per ``chunk`` steps.  ``recorded`` is "active before the
+    step and not failed after it", as the JAX scan driver's mask.  It
+    serves the CPU, m >= 3 and feature-sharded batches; a capturable step
+    on a card takes :func:`_run_history_graphed`.
 
     Returns the final state and the histories as numpy, lane first:
     ``(B, T, m)``, ``(B, T)``, ``(B, T)``, ``(B, T, n)`` (or ``None``)."""
@@ -926,6 +962,46 @@ def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bo
         rows = [[v[:, None][:, :0].cpu().numpy()] for v in (states.F_x, states.err, states.failed, states.x)]
     out = [np.concatenate(r, axis=1) for r in rows[:3]]
     return (states, *out, np.concatenate(rows[3], axis=1) if record_vecs else None)
+
+
+def _run_history_graphed(
+    step, carry, max_iter: int, steps: int, owners, chunk: int, record_vecs: bool
+):
+    """:func:`_run_history` for a capturable step on
+    :func:`~zfista_tpu_torch.core.solver.run_recorded`: ``steps`` steps a
+    replayed graph, one host read of "any lane active" per replay, the
+    records to the host once per ``chunk`` steps.  The histories are the
+    per-step driver's, bitwise, whether a step is an iteration in every
+    lane (the fixed-lr step) or a trial (the carried search, whose lanes
+    do not move in lockstep): a lane's row is its iteration's, placed by
+    its ``nit`` before the step that ended it (accepted or failed), and
+    its rows past its last iteration hold its final values, unrecorded,
+    as the per-step driver's frozen rows do.  ``T`` is the most
+    iterations any lane ended, the per-step driver's step count.
+
+    Returns the final carry and the histories, as :func:`_run_history`."""
+    nit0 = carry.nit.cpu().numpy()
+    kept: list[list[np.ndarray]] = []
+
+    def sink(rows: tuple) -> None:
+        ended, done, nit, *values = rows  # steps first: (S, B, ...)
+        at, lane = np.nonzero(ended)
+        kept.append([lane, nit[at, lane] - nit0[lane], done[at, lane], *(v[at, lane] for v in values)])
+
+    active = lambda c: torch.any(_active(c, max_iter))  # noqa: E731
+    carry = run_recorded(step, carry, active, steps, owners, history_record(record_vecs), chunk, sink)
+    final = state_to_numpy(State(*carry[: len(State._fields)]))
+    T = max((int(k[1].max()) + 1 for k in kept if k[1].size), default=0)
+    mask = np.zeros((len(nit0), T), dtype=bool)
+    hist = [
+        np.repeat(v[:, None], T, axis=1)
+        for v in (final.F_x, final.err) + ((final.x,) if record_vecs else ())
+    ]
+    for lane, row, done, *values in kept:
+        mask[lane, row] = done
+        for h, v in zip(hist, values):
+            h[lane, row] = v
+    return carry, hist[0], hist[1], mask, hist[2] if record_vecs else None
 
 
 def _pack_result(
