@@ -29,7 +29,8 @@ the launch counters held) and graphs allowed on the CPU:
   within 1e-10; m = 2 equal ``nit``, x within 1e-8;
 * (f) the graph key separating ``decay_rate`` and ``max_backtrack_iter``;
 * (g) an m >= 3 batch and an m >= 3 ``return_all`` never reach the graph
-  factory.
+  factory;
+* ``bench.history_bench``'s first solves in turns, on the stand-in graph.
 """
 
 import jax.numpy as jnp
@@ -369,12 +370,32 @@ def test_history_rule(monkeypatch):
     step, states, owners, _ = _batch_parts(fns, x0s, lams)
     search = step.carried_search
     rule = solver._history_steps
-    assert solver.HISTORY_GRAPH_STEPS == {1: 8, 2: 2}
+    assert solver.HISTORY_GRAPH_STEPS == {1: 4, 2: 2}
     assert rule(search, states, 100, owners, 1) == 0  # the CPU
     monkeypatch.setattr(solver, "_graphs_run_on", lambda device: True)
-    assert rule(search, states, 100, owners, 1) == 8
+    assert rule(search, states, 100, owners, 1) == 4
     assert rule(search, states, 100, owners, 2) == 2
-    assert rule(search, states, 8, owners, 1) == 0
+    assert rule(search, states, 4, owners, 1) == 0
     assert rule(search, states, 100, None, 1) == 0
     assert rule(search, states, 100, owners, 3) == 0
     assert rule(step, states, 100, owners, 1) == 0  # the round-based step reads the host
+
+
+def test_history_bench_times_first_solves_in_turns(graphed, monkeypatch):
+    """``bench.history_bench.in_turns`` on the stand-in graph: the carried
+    sweep batch with history as first solves at G = 0 (the per-step
+    driver) and 3, two turns in reversed order: no graph at 0, one capture
+    and its replays at 3, every run bitwise the first, and the steps
+    table as it was after each."""
+    from zfista_tpu_torch.bench import history_bench
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    fns, x0s, kw = _history_case("carried", 3)
+    table = dict(solver.HISTORY_GRAPH_STEPS)
+    run = lambda: _quiet(minimize_proximal_gradient_batch, *fns, x0s, **kw)  # noqa: E731
+    out = history_bench.in_turns(1, (0, 3), run, history_bench.batch_arrays, 2)
+    assert out["bitwise"] and solver.HISTORY_GRAPH_STEPS == table
+    assert {k: len(w) for k, w in out["walls"].items()} == {"0": 2, "3": 2}
+    assert out["graphs"]["0"] == {"captures": 0, "replays": 0}
+    assert out["graphs"]["3"]["captures"] == 1 and out["graphs"]["3"]["replays"] >= 1
+    assert _Replay.made == 2

@@ -1231,7 +1231,7 @@ def history_record(vecs: bool) -> Callable[[Any, Any], tuple]:
 
 #: Steps per replayed graph of a history driver, by objective count
 #: (:func:`_history_steps`).
-HISTORY_GRAPH_STEPS: dict[int, int] = {1: 8, 2: 2}
+HISTORY_GRAPH_STEPS: dict[int, int] = {1: 4, 2: 2}
 
 
 def _history_steps(step, carry, max_iter: int, owners, n_objectives: int) -> int:
@@ -1243,18 +1243,27 @@ def _history_steps(step, carry, max_iter: int, owners, n_objectives: int) -> int
     time.
 
     A first solve graphs too, and few steps a graph keep its capture
-    short (10-90 µs of host time a node, ~600 nodes an m = 2 step).  On
-    an H100 80GB HBM3 at 700 W the harness's 26 m = 2 batches with
-    history (``benchmark()``, 100 float64 starts, each a first solve from
-    an empty graph cache; ``chip_smoke.py --phases 12a --history-steps
-    2,8,16``) took 21.7 s in all at 2 steps a graph, 23.6 s at 4 (the
-    mean of two turns), 29.1 s at 8, 42.5 s at 16 and 121.4 s on the
-    per-step driver; 2 was fastest on 21 of the 26, 4 on the longest
-    (JOS1 n=50, 65-236 iterations: 1.5-2.9 s against 2.2-3.6 s), and no
-    graphed first solve was slower than the per-step driver (the
-    shortest, TOI4 at 6 iterations, 0.17-0.28 s against 0.26-0.34 s).
-    An m = 1 step has about a sixth of the nodes (~107 launches a LASSO
-    trial), so it takes 8; no harness cell has m = 1."""
+    short (10-90 µs of host time a node, ~600 nodes an m = 2 step).  First
+    solves on an H100 80GB HBM3 at 700 W, each from an empty graph cache,
+    in two turns (``python -m zfista_tpu_torch.bench.history_bench``):
+
+    * m = 2, the harness's 26 m <= 2 cells (``benchmark()``, 100 float64
+      starts, every variant) summed 7.49-7.60 s at 2 steps a graph and
+      10.00-10.08 s at 4; 2 was faster in both turns on 25 of the 26;
+    * m = 1, steps 2 / 4 / 8 / 16 / 32 against the per-step driver, s:
+      the LASSO (2000 x 10,000 float32, 293 iterations) by
+      ``solve_fixed_step(return_all=True)`` 0.10-0.14 / 0.097-0.100 /
+      0.096-0.098 / 0.11-0.13 / 0.16-0.25 against 0.31-0.40; by the
+      backtracking ``solve(return_all=True)`` (270) 0.097-0.107 /
+      0.100-0.107 / 0.109-0.112 / 0.13-0.14 / 0.16-0.18 against
+      0.30-0.34; the 1k-lambda sweep with history (320 steps)
+      0.31-0.34 / 0.32 / 0.34-0.37 / 0.40-0.43 / 0.51-0.71 against
+      1.40-1.65; 4 is within 5% of the fastest on each, 16 and 32 pay
+      for their longer capture.
+
+    The harness CLI at ``--max-iter 3`` (one or two replays a capture)
+    took 51.5-52.3 s graphed against 48.0-48.8 s per step, on one CPU
+    thread."""
     steps = HISTORY_GRAPH_STEPS.get(n_objectives, 0)
     graphed = (
         steps >= 1
