@@ -6,8 +6,8 @@ CPU, in the tolerance classes of ROADMAP.md Queue 3.
   inner counts against JAX's batch and against the port's single solves;
 * m>=3 (FDS with and without L1, TRIDIA): equal ``nit``, x at 1e-9
   against the port's single solves, and x at 1e-6 against JAX;
-* the lane-batched ``solve_small_linear`` against the single one, singular
-  systems included; ``lane_chunk`` and ``check_every`` on an m>=3 batch;
+* ``solve_small_linear`` over lanes (under ``vmap``, as the m>=3 batch
+  runs it) against the single one, singular systems included; ``lane_chunk`` and ``check_every`` on an m>=3 batch;
   ``Problem.solve_batch`` against ``zfista_tpu``'s.
 
 Each JAX batch is solved once per module (a vmapped m>=3 JAX program
@@ -180,7 +180,7 @@ def _systems(rng, n, B):
 def test_solve_small_linear_batched_equals_the_single_one():
     rng = np.random.default_rng(0)
     K, b = _systems(rng, 5, 8)
-    got = ts.solve_small_linear_batched(torch.tensor(K), torch.tensor(b)).numpy()
+    got = torch.func.vmap(ts.solve_small_linear)(torch.tensor(K), torch.tensor(b)).numpy()
     for i in range(len(K)):
         one = ts.solve_small_linear(torch.tensor(K[i]), torch.tensor(b[i])).numpy()
         np.testing.assert_array_equal(got[i], one)

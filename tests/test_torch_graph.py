@@ -21,7 +21,8 @@ cache, the launch counts.
   graphed and bitwise its ``check_every=1`` solve; the steps and routes
   that are not capturable never reach the graph path (backtracking at
   m <= 2 and the fixed-lr batch are graphed:
-  tests/test_torch_graph_backtracking.py);
+  tests/test_torch_graph_backtracking.py; m >= 3 solves:
+  tests/test_torch_graph_newton.py);
 * the launch counters count replayed launches;
 * a host scalar inside a capture raises.
 
@@ -330,15 +331,17 @@ def test_generic_fixed_steps_are_graphed_and_bitwise(graphed, how):
      "return_all", "iter_chunk", "batch"],
 )
 def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
-    """Backtracking at m >= 3 and an m >= 3 fixed step (the Newton loop
-    reads the host), a feature-sharded step (its all-reduces), an m >= 3
-    ``return_all`` solve and an m >= 3 backtracking batch are not
-    capturable; ``check_every=1``, a solve of one chunk, ``verbose`` and
+    """A feature-sharded step (its all-reduces) is not capturable;
+    ``check_every=1``, a solve of one chunk, ``verbose`` and
     ``iter_chunk`` keep the eager loop: none reaches the graph factory.
-    (Backtracking at m <= 2 and the fixed-lr batch are graphed:
-    tests/test_torch_graph_backtracking.py; the backtracking batch at
-    m <= 2, the history drivers and ``return_all`` at m <= 2:
-    tests/test_torch_graph_history.py.)"""
+    At m >= 3 (FDS) too: a backtracking solve and a batch under
+    ``iter_chunk``, a fixed-step solve and a ``return_all`` solve with
+    ``verbose`` (each prints its rows).  (Backtracking at m <= 2 and the
+    fixed-lr batch are graphed: tests/test_torch_graph_backtracking.py;
+    the backtracking batch at m <= 2, the history drivers and
+    ``return_all`` at m <= 2: tests/test_torch_graph_history.py; every
+    m >= 3 solve, batch and history otherwise:
+    tests/test_torch_graph_newton.py.)"""
     A, b, lr = _lasso(22)
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
@@ -354,23 +357,27 @@ def test_steps_that_are_not_capturable_stay_eager(graphed, how, capsys):
 
     runs = {
         "backtracking": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
-                                       nesterov=True, check_every=8, max_iter=12, tol=0),
+                                       nesterov=True, check_every=8, iter_chunk=5, max_iter=12,
+                                       tol=0),
         "m>=3": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
                                decay_rate=1, lr=0.05, nesterov=True, check_every=8,
-                               max_iter=40, tol=0),
+                               max_iter=40, tol=0, verbose=True),
         "feature-sharded": sharded,
         "check_every=1": lambda: prob.solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=1),
         "one chunk": lambda: _quiet(prob.solve_fixed_step, x0, lr=lr, tol=0, max_iter=8,
                                     check_every=8),
         "verbose": lambda: prob.solve_fixed_step(x0, verbose=True, **fixed),
         "return_all": lambda: _quiet(FDS(n_features=10).solve, torch.zeros(10, dtype=F64),
-                                     nesterov=True, return_all=True, max_iter=12, tol=0),
+                                     nesterov=True, return_all=True, max_iter=12, tol=0,
+                                     verbose=True),
         "iter_chunk": lambda: _quiet(prob.solve_fixed_step, x0, iter_chunk=5, **fixed),
         "batch": lambda: _quiet(FDS(n_features=10).solve_batch, torch.zeros((2, 10), dtype=F64),
-                                nesterov=True, check_every=8, max_iter=12, tol=0),
+                                nesterov=True, check_every=8, iter_chunk=5, max_iter=12, tol=0),
     }
     res = runs[how]()
     assert _Replay.made == 0 and len(graphed) == 0
+    if how in ("m>=3", "return_all"):
+        assert capsys.readouterr().out.count("\n") >= 12  # a row a step
     stopped = ("one chunk", "m>=3", "backtracking", "return_all", "batch")  # at max_iter
     assert np.all(np.asarray(res.status) == (0 if how in stopped else 1))
 
@@ -414,12 +421,14 @@ def test_host_scalar_inside_a_capture_raises(monkeypatch):
 def test_only_the_fused_tail_is_marked_capturable():
     """Which steps carry the ``capturable`` mark: the fused tail (which alone
     takes the scratch words), the generic fixed step at m <= 2, the
-    carried search of a backtracking step at m <= 2, the fixed-lr batch
-    step at m <= 2 and the carried search of a backtracking batch step at
-    m <= 2, each with every option it bakes in; not the per-iteration
-    backtracking step, an m >= 3 step, a verbose one, nor the round-based
-    backtracking batch step, which masks itself but reads the host in its
-    line search."""
+    carried search of a backtracking step at m <= 2 and of any m >= 3 step
+    (fixed or backtracking, its Newton iterations carried), the fixed-lr
+    batch step at m <= 2 and the carried search of a backtracking batch
+    step at m <= 2 and of any m >= 3 batch step, each with every option it
+    bakes in; not the per-iteration backtracking step, a per-iteration
+    m >= 3 step (its Newton loop reads the host), a verbose one, nor the
+    round-based backtracking batch step, which masks itself but reads the
+    host in its line search."""
     step, _, _ = _step_and_state("lasso", 10, 1e-8)
     assert step.capturable and step.takes_scratch and step.options == (0.0, 0.25, 1e-8, 10)
     f = lambda x: torch.sum(x * x)  # noqa: E731
@@ -449,17 +458,25 @@ def test_only_the_fused_tail_is_marked_capturable():
         search = backtracking.carried_search
         assert search.capturable and search.masks_itself
         assert search.options == ("search", *baked, m, *inner, 0.5, 10)
-    for step in (make(3, decay_rate=1), make(1, decay_rate=1, verbose=True), make(3),
-                 make(1, verbose=True), make(1, max_backtrack_iter=0)):
+    for decay, mbi in ((1, 0), (0.5, 10)):  # a fixed step takes no backtracking bound
+        newton = make(3, decay_rate=decay, max_backtrack_iter=mbi)
+        assert not getattr(newton, "capturable", False)
+        search = newton.carried_search
+        assert search.capturable and search.masks_itself
+        assert search.options == ("newton search", *baked, 3, *inner, float(decay), mbi)
+        assert search.start == solver._NewtonSearch.start
+    for step in (make(1, decay_rate=1, verbose=True), make(1, verbose=True),
+                 make(1, max_backtrack_iter=0), make(3, verbose=True),
+                 make(3, decay_rate=1, verbose=True), make(3, max_backtrack_iter=0)):
         assert not getattr(step, "capturable", False) and not hasattr(step, "carried_search")
 
-    def batch(**kw):
+    def batch(m=1, **kw):
         args = dict(tol=1e-8, tol_internal=1e-12, max_iter_internal=10, max_backtrack_iter=10,
                     warm_start=False, nesterov=True, deprecated=False, max_iter=10)
         args.update(kw)
         return solver._make_batch_step(
-            lambda x: torch.reshape(f(x), (1,)), lambda x: torch.zeros(1, dtype=x.dtype),
-            lambda x: torch.reshape(2 * x, (1, -1)), prox, 1, None, **args,
+            lambda x: torch.stack([f(x)] * m), lambda x: torch.zeros(m, dtype=x.dtype),
+            lambda x: torch.stack([2 * x] * m), prox, m, None, **args,
         )
 
     fixed = batch(decay_rate=1, nesterov_ratio=(0, 0.25))
@@ -474,3 +491,9 @@ def test_only_the_fused_tail_is_marked_capturable():
     assert search.options == ("batch search", *baked, 1, *inner, 0.5, 10)
     assert not hasattr(batch(decay_rate=0.5, nesterov_ratio=(0, 0.25), max_backtrack_iter=0),
                        "carried_search")
+    for decay in (1, 0.5):
+        newton = batch(3, decay_rate=decay, nesterov_ratio=(0, 0.25))
+        assert newton.masks_itself and not getattr(newton, "capturable", False)
+        search = newton.carried_search
+        assert search.capturable and search.masks_itself
+        assert search.options == ("batch newton search", *baked, 3, *inner, float(decay), 10)

@@ -225,9 +225,9 @@ def test_default_check_every_rule():
     1 for an m = 1 backtracking solve (on a card a first solve with its
     64-trial capture measured slower than the host loop), on the CPU, for
     m = 2 and m >= 3, and where something reads every iteration.  At
-    ``check_every > 1`` a backtracking step at m <= 2 has a carried
-    search; a feature-sharded one, an m >= 3 one and a verbose one do
-    not."""
+    ``check_every > 1`` a backtracking step at m <= 2 and an m >= 3 step
+    (its Newton iterations carried) have a carried search; a
+    feature-sharded one and a verbose one do not."""
     rule = solver._default_check_every
     assert rule("cuda", 1, 1, per_iteration=False) == 64
     assert rule("cuda", 1, 0.5, per_iteration=False) == 1
@@ -250,7 +250,10 @@ def test_default_check_every_rule():
                 warm_start=False, decay_rate=0.5, nesterov=True, nesterov_ratio=(0, 0.25),
                 deprecated=False, max_iter=10)
     assert solver._make_step(f2, g2, j2, lambda w, x: x, 2, **opts).carried_search.capturable
-    assert not hasattr(solver._make_step(f3, g3, j3, lambda w, x: x, 3, **opts), "carried_search")
+    newton = solver._make_step(f3, g3, j3, lambda w, x: x, 3, **opts).carried_search
+    assert newton.capturable and newton.options[0] == "newton search"
+    verbose3 = solver._make_step(f3, g3, j3, lambda w, x: x, 3, verbose=True, **opts)
+    assert not hasattr(verbose3, "carried_search")
 
 
 @pytest.mark.parametrize("pair", ["shared", "per lane"])

@@ -28,8 +28,9 @@ the launch counters held) and graphs allowed on the CPU:
   ``minimize_proximal_gradient_batch`` in x64: m = 1 equal ``nit``, x
   within 1e-10; m = 2 equal ``nit``, x within 1e-8;
 * (f) the graph key separating ``decay_rate`` and ``max_backtrack_iter``;
-* (g) an m >= 3 batch and an m >= 3 ``return_all`` never reach the graph
-  factory;
+* (g) an m >= 3 batch under ``iter_chunk``, an m >= 3 batch history of
+  one replay's ``max_iter`` and a ``verbose`` m >= 3 ``return_all`` never
+  reach the graph factory;
 * ``bench.history_bench``'s first solves in turns, on the stand-in graph.
 """
 
@@ -341,21 +342,24 @@ def test_graph_key_separates_the_batch_search_options(graphed, option, value):
 
 
 @pytest.mark.parametrize("how", ["batch", "batch history", "return_all"])
-def test_m3_solves_never_reach_the_graph_factory(graphed, how):
-    """FDS (m = 3): a backtracking batch at ``check_every=8``, a batch with
-    history and a ``return_all`` solve stay on their eager drivers (the
-    Newton loop reads the host): no graph is made, and each is bitwise its
-    ``check_every=1`` run."""
+def test_m3_solves_never_reach_the_graph_factory(graphed, monkeypatch, how):
+    """FDS (m = 3) runs where no graph is made: a backtracking batch at
+    ``check_every=8`` under ``iter_chunk`` (which counts iterations), a
+    batch with history whose ``max_iter`` is one replay of its history
+    graph, and a ``verbose`` ``return_all`` solve (its rows printed) stay
+    on their eager drivers, each bitwise its ``check_every=1`` run.  (Each
+    reaches the graph otherwise: tests/test_torch_graph_newton.py.)"""
     p = FDS(n_features=10)
     x0s = torch.tensor(np.random.default_rng(1).uniform(-2.0, 2.0, size=(4, 10)))
     kw = dict(nesterov=True, max_iter=6, tol=0)
+    monkeypatch.setattr(solver, "HISTORY_GRAPH_STEPS", {3: 6})
     if how == "return_all":
         ref = _quiet(p.solve, x0s[0], **kw)
-        got = _quiet(p.solve, x0s[0], return_all=True, **kw)
+        got = _quiet(p.solve, x0s[0], return_all=True, verbose=True, **kw)
         assert len(got.allvecs) == ref.nit + 1
     else:
         ref = _quiet(p.solve_batch, x0s, **kw)
-        extra = dict(check_every=8) if how == "batch" else dict(history=True)
+        extra = dict(check_every=8, iter_chunk=4) if how == "batch" else dict(history=True)
         got = _quiet(p.solve_batch, x0s, **kw, **extra)
     assert _Replay.made == 0 and len(graphed) == 0
     _bitwise(got.state, ref.state)
@@ -364,21 +368,35 @@ def test_m3_solves_never_reach_the_graph_factory(graphed, how):
 def test_history_rule(monkeypatch):
     """``_history_steps``: the steps of ``HISTORY_GRAPH_STEPS`` for a
     capturable step with owners on a card and a ``max_iter`` past one
-    replay, else 0 (the per-step driver): on the CPU, at m >= 3, for a
-    step that is not capturable, without owners, at a short ``max_iter``."""
+    replay, else 0 (the per-step driver): on the CPU, at an objective
+    count without an entry (m >= 5), for a step that is not capturable
+    (the round-based steps, FDS's at m = 3 too), without owners, at a
+    short ``max_iter``.  FDS's carried Newton steps take the m = 3
+    entry."""
     fns, x0s, lams, _ = _sweep()
     step, states, owners, _ = _batch_parts(fns, x0s, lams)
     search = step.carried_search
+    fds = FDS(n_features=4)
+    fv, gv, jv, pv, m, _ = solver._normalize_problem(fds.f, fds.g, fds.jac_f, fds.prox_wsum_g,
+                                                     x0s[0, :4])
+    step3 = solver._make_batch_step(fv, gv, jv, pv, m, None, tol=1e-6, tol_internal=1e-12,
+                                    max_iter_internal=100, max_backtrack_iter=10,
+                                    warm_start=False, decay_rate=0.5, nesterov=True,
+                                    nesterov_ratio=(0, 0.25), deprecated=False, max_iter=100)
+    states3 = tb._init_states(x0s[:, :4], torch.func.vmap(lambda x: fv(x) + gv(x))(x0s[:, :4]),
+                              3, 1.0)
     rule = solver._history_steps
-    assert solver.HISTORY_GRAPH_STEPS == {1: 4, 2: 2}
+    assert solver.HISTORY_GRAPH_STEPS == {1: 4, 2: 2, 3: 2, 4: 1}
     assert rule(search, states, 100, owners, 1) == 0  # the CPU
     monkeypatch.setattr(solver, "_graphs_run_on", lambda device: True)
     assert rule(search, states, 100, owners, 1) == 4
     assert rule(search, states, 100, owners, 2) == 2
     assert rule(search, states, 4, owners, 1) == 0
     assert rule(search, states, 100, None, 1) == 0
-    assert rule(search, states, 100, owners, 3) == 0
+    assert rule(search, states, 100, owners, 5) == 0
     assert rule(step, states, 100, owners, 1) == 0  # the round-based step reads the host
+    assert rule(step3.carried_search, states3, 100, owners, 3) == 2
+    assert rule(step3, states3, 100, owners, 3) == 0
 
 
 def test_history_bench_times_first_solves_in_turns(graphed, monkeypatch):

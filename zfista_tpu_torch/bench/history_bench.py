@@ -1,8 +1,8 @@
 """First solves of the history drivers on the card: replayed graphs of a
 few steps against the per-step driver, in turns.
 
-At m <= 2 on a card the history drivers (a single solve's ``return_all``,
-a batch's ``history=True``) replay CUDA graphs of ``HISTORY_GRAPH_STEPS[m]``
+On a card the history drivers (a single solve's ``return_all``, a
+batch's ``history=True``) replay CUDA graphs of ``HISTORY_GRAPH_STEPS[m]``
 steps (:func:`zfista_tpu_torch.core.solver._history_steps`), one host read
 per replay.  This bench times first solves, each from an empty graph
 cache so that it pays its capture, at several steps a graph and at 0, the
@@ -15,9 +15,11 @@ histories bitwise against the first run of its part.  Parts:
   (the carried search), each to its default tol;
 * ``sweep`` (m = 1): the 1k-lambda elastic-net sweep (A 500 x 2000,
   float32, mu 0.1, lambda 1e-4..1, fixed step) with ``history=True``;
-* ``harness`` (m <= 2): the harness's m <= 2 cells as ``benchmark()``
-  batches them (``initialize_problems(large=False)``, every variant, 100
-  float64 starts, ``history=True``), per cell and summed;
+* ``harness`` (m <= 2) and ``harness_m3`` (m >= 3: FDS, TRIDIA and
+  LinearFunctionRank1, a step one Newton iteration of each lane's trial):
+  the harness's cells as ``benchmark()`` batches them
+  (``initialize_problems(large=False)``, every variant, 100 float64
+  starts, ``history=True``), per cell and summed;
 * ``cli``: the harness CLI (``--no-plots --n-samples 8 --max-iter 3``,
   a fresh ``--out`` each run) on the rule's steps and on the per-step
   driver, in this process on one CPU thread, as a worker of
@@ -30,7 +32,8 @@ Card only: exits 1 without one.
 
 Usage::
 
-    python -m zfista_tpu_torch.bench.history_bench
+    python -m zfista_tpu_torch.bench.history_bench              # every part
+    python -m zfista_tpu_torch.bench.history_bench harness_m3   # some parts
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import sys
 import tempfile
 import time
 from typing import Any, Callable, Sequence
@@ -54,6 +58,12 @@ STEPS: dict[str, tuple] = {
     "lasso": (0, 2, 4, 8, 16, 32),
     "sweep": (0, 2, 4, 8, 16, 32),
     "harness": (2, 4),
+    "harness_m3": (0, 1, 2, 4, 8),
+}
+#: Settings a part runs in its first turn only: the m >= 3 cells' per-step
+#: history takes 2-6 min on the longest (FDS with l1, ISTA), ~20 min in all.
+ONCE: dict[str, tuple] = {
+    "harness_m3": (0,),
     "cli": (None, 0),
 }
 TURNS = 2
@@ -103,16 +113,21 @@ def same(a: list, b: list) -> bool:
     )
 
 
-def in_turns(m: int, settings: Sequence, run: Callable[[], Any], arrays, turns: int) -> dict:
+def in_turns(
+    m: int, settings: Sequence, run: Callable[[], Any], arrays, turns: int, once: Sequence = ()
+) -> dict:
     """First solves of ``run`` at each of ``settings`` (steps a graph) in
-    ``turns`` turns, the order reversed every other turn: the walls per
-    setting, the graph captures and replays of each setting's last run,
-    and whether every run's ``arrays(result)`` equalled the first's."""
+    ``turns`` turns, the order reversed every other turn (the settings in
+    ``once`` in the first turn only): the walls per setting, the graph
+    captures and replays of each setting's last run, and whether every
+    run's ``arrays(result)`` equalled the first's."""
     walls: dict = {str(s): [] for s in settings}
     graphs: dict = {}
     ref, bitwise = None, True
     for t in range(turns):
         for s in settings if t % 2 == 0 else settings[::-1]:
+            if t and s in once:
+                continue
             before = dict(solver.graph_counts)
             with history_steps(m, s):
                 out, wall = first_solve(run)
@@ -179,13 +194,14 @@ def sweep_part(dev, turns: int) -> dict:
     return out
 
 
-def harness_part(dev, turns: int) -> dict:
+def harness_part(dev, turns: int, part: str = "harness") -> dict:
     from zfista_tpu_torch.bench.harness import _effective_variants, initialize_problems
     from zfista_tpu_torch.parallel import minimize_proximal_gradient_batch
 
-    cells, totals = {}, {str(s): [0.0] * turns for s in STEPS["harness"]}
+    cells = {}
+    totals = {str(s): [0.0] * (1 if s in ONCE.get(part, ()) else turns) for s in STEPS[part]}
     for p, low, high in initialize_problems(large=False):
-        if p.n_objectives > 2:
+        if (p.n_objectives > 2) != (part == "harness_m3"):
             continue
         x0s = np.random.default_rng(42).uniform(low, high, size=(HARNESS_STARTS, p.n_features))
         for variant, opts in _effective_variants(p, None).items():
@@ -195,8 +211,10 @@ def harness_part(dev, turns: int) -> dict:
                     tol_internal=HARNESS_TOL_INTERNAL, history=True, device=dev, **opts,
                 )
 
-            cell = in_turns(p.n_objectives, STEPS["harness"], run, batch_arrays, turns)
+            cell = in_turns(p.n_objectives, STEPS[part], run, batch_arrays, turns,
+                            ONCE.get(part, ()))
             cells[f"{p.name} / {variant}"] = cell
+            print(json.dumps({"part": part, "cell": f"{p.name} / {variant}", **cell}), flush=True)
             for s, ws in cell["walls"].items():
                 totals[s] = [a + w for a, w in zip(totals[s], ws)]
     bitwise = all(c["bitwise"] for c in cells.values())
@@ -217,16 +235,28 @@ def cli_part(dev, turns: int) -> dict:
     return in_turns(2, STEPS["cli"], run, lambda _: [], turns)
 
 
-PARTS = {"lasso": lasso_part, "sweep": sweep_part, "harness": harness_part, "cli": cli_part}
+PARTS = {
+    "lasso": lasso_part,
+    "sweep": sweep_part,
+    "harness": harness_part,
+    "harness_m3": lambda dev, turns: harness_part(dev, turns, "harness_m3"),
+    "cli": cli_part,
+}
 
 
-def main() -> dict:
+def main(argv: Sequence[str] | None = None) -> dict:
+    """Run the parts named in ``argv`` (default: every part)."""
+    names = list(sys.argv[1:] if argv is None else argv) or list(PARTS)
+    unknown = [n for n in names if n not in PARTS]
+    if unknown:
+        raise SystemExit(f"history_bench: unknown parts {unknown} (parts: {', '.join(PARTS)})")
     print(require_card("zfista_tpu_torch.bench.history_bench"), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
     out = {}
-    for name, part in PARTS.items():
+    for name in names:
+        part = PARTS[name]
         t0 = time.perf_counter()
         out[name] = part(dev, TURNS)
         out[name]["seconds"] = time.perf_counter() - t0

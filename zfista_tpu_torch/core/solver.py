@@ -16,16 +16,17 @@ solve's device advanced by a Python function.  Data-dependent loops need a
 host decision here:
 
 * the backtracking line search of the per-iteration step is a host loop,
-  one host read per trial (its accept test).  At m <= 2 a solve chunked
-  by ``check_every > 1`` (and not ``verbose``, ``return_all``,
-  ``iter_chunk`` or feature-sharded) runs it instead as carried trials:
-  one trial per step, the search's state (:class:`_Search`) in the carry
-  and the accept test selected on the device, the counterpart of the JAX
-  package's ``lax.while_loop`` inside the step; so does ``return_all``
-  on a card;
-* the m>=3 dual's Newton loop and arc search are host loops
-  (:mod:`zfista_tpu_torch.core.subproblem`); the m=2 bisection reads
-  nothing;
+  one host read per trial (its accept test), and the m>=3 dual's Newton
+  loop reads once per Newton iteration
+  (:mod:`zfista_tpu_torch.core.subproblem`; its arc searches and the m=2
+  bisection read nothing).  A solve chunked by ``check_every > 1`` (and
+  not ``verbose``, ``return_all``, ``iter_chunk`` or feature-sharded)
+  runs instead the carried search: at m <= 2 one trial per step, the
+  search's state (:class:`_Search`) in the carry and the accept test
+  selected on the device; at m >= 3 (the fixed step too) one Newton
+  iteration of the current trial per step (:class:`_NewtonSearch`), the
+  counterpart of the JAX package's ``lax.while_loop`` inside the step;
+  so does ``return_all`` on a card;
 * the drivers read the state's ``active`` flag once per ``check_every``
   steps (the while driver), once per step or, for a step that reads
   nothing on a card, once per replayed graph of a few steps (the history
@@ -37,8 +38,8 @@ a run takes is computed from the same inputs in the same order, so any
 ``check_every``, ``iter_chunk`` or ``initial_state`` continuation is
 bitwise equal to the uninterrupted ``check_every=1`` solve.  On a card the
 chunks of every step that reads nothing (the one-launch LASSO-family
-step below, the generic fixed step and the carried trial at m <= 2, and
-the batch's fixed-lr step and per-lane carried trials at m <= 2) run as
+step below, the generic fixed step at m <= 2, the carried search, and the
+batch's fixed-lr step at m <= 2 and per-lane carried search) run as
 replayed CUDA graphs (:func:`run_graphed`; with history,
 :func:`run_recorded`), the counterpart of the JAX package's one device
 program per chunk.
@@ -80,6 +81,8 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.result import TERMINATION_MESSAGES, SolveResult
 from zfista_tpu_torch.core.subproblem import (
+    Newton,
+    NewtonParts,
     _over_lanes,
     make_batch_subproblem_solver,
     make_subproblem_solver,
@@ -172,6 +175,59 @@ class _Search(NamedTuple):
         return State(*self[: len(State._fields)])
 
 
+class _NewtonSearch(
+    NamedTuple(
+        "_NewtonSearchFields",
+        [(name, Array) for name in (*_Search._fields, *(f"newton_{f}" for f in Newton._fields))],
+    )
+):
+    """The carry of a solve whose m >= 3 line search runs as carried
+    Newton steps, one Newton iteration of the current trial a step: the
+    :class:`_Search` fields, then the trial's subproblem carry
+    (:class:`~zfista_tpu_torch.core.subproblem.Newton`, each field
+    ``newton_``-prefixed; ``newton_nit`` 0 while no subproblem is under
+    way, as at an iteration's start)."""
+
+    __slots__ = ()
+
+    @classmethod
+    def start(cls, state: State) -> "_NewtonSearch":
+        """``state`` at the start of an iteration: no trial taken and no
+        subproblem under way (a batch's lanes each at the start of
+        theirs)."""
+        search = _Search.start(state)
+        zero = search.k
+        return cls(
+            *search, torch.zeros_like(state.w), torch.zeros_like(state.t), zero,
+            torch.zeros_like(state.converged), zero, zero,
+        )
+
+    def state(self) -> State:
+        return State(*self[: len(State._fields)])
+
+    def newton(self) -> Newton:
+        return Newton(*self[len(_Search._fields):])
+
+
+def _newton_trial(newton: NewtonParts, c: _NewtonSearch, data: tuple, live: Array, where):
+    """One Newton iteration of the carry's trial, at the subproblem data
+    ``(lr_try, F_x, y, f(y), jac_f(y))``: a carry with no subproblem under
+    way starts one from its ``w_try``, then every carry iterates once.
+    Returns the trial's result as it stands, whether it ended (``live``
+    carries only: accepted or rejected this step), and the Newton fields
+    after the step: moved where live and not ended, cleared where it ended,
+    kept elsewhere.  ``where(mask, u, v)`` selects per carry."""
+    before = c.newton()
+    fresh = newton.start(*data, c.w_try)
+    under_way = before.nit > 0
+    nc = newton.iterate(Newton(*(where(under_way, u, v) for u, v in zip(before, fresh))), *data)
+    ended = live & newton.ended(nc)
+    kept = Newton(
+        *(where(ended, torch.zeros_like(u), where(live, u, v)) for u, v in zip(nc, before))
+    )
+    return newton.finish(nc, *data), ended, kept
+
+
 def _make_step(
     f: Callable[[Array], Array],
     g: Callable[[Array], Array],
@@ -223,12 +279,17 @@ def _make_step(
     m = 1 subproblem is one prox and the m = 2 bisection runs a count of
     halvings fixed on the host.
 
-    A backtracking step (``decay_rate < 1``) reads the host once per trial.
-    At m <= 2, not ``verbose`` and not feature-sharded, it also carries
-    ``carried_search``: a capturable step of a :class:`_Search` carry that
-    takes one trial of the line search, so that a chunk of trials reads
-    nothing (the facade runs it where ``check_every > 1``).  Its
-    iterations are bitwise those of the step.
+    A backtracking step (``decay_rate < 1``) reads the host once per trial,
+    and an m >= 3 step once per Newton iteration of its subproblem.  Not
+    ``verbose`` and not feature-sharded, a backtracking step at m <= 2
+    (with ``max_backtrack_iter >= 1``) and any m >= 3 step also carry
+    ``carried_search``: a capturable step that takes one trial of the line
+    search on a :class:`_Search` carry (m <= 2), or one Newton iteration
+    of the current trial's subproblem on a :class:`_NewtonSearch` carry
+    (m >= 3; a fixed step's one trial is accepted when its Newton loop
+    ends), so that a chunk of them reads nothing (the facade runs it where
+    ``check_every > 1``).  ``carried_search.start`` makes its carry from a
+    :class:`State`.  Its iterations are bitwise those of the step.
     """
     m = n_objectives
     sharded = feature_sum is not None
@@ -429,26 +490,39 @@ def _make_step(
         step.capturable = True
         step.options = ("step", *options)
 
-    carried = not fixed_lr and m <= 2 and not verbose and not sharded
-    if carried and max_backtrack_iter >= 1 and max_iter is not None:
+    newton = getattr(solve_sub, "newton", None)  # m >= 3: the Newton parts
+    carried = not verbose and not sharded and max_iter is not None and (
+        newton is not None or not fixed_lr
+    )
+    if carried and (fixed_lr or max_backtrack_iter >= 1):
         moved = ("x", "y", "F_x", "lr", "t", "w", "err", "sub_fun", "nit")
 
         def search_step(c: _Search) -> _Search:
-            """One trial of the line search (the body of the JAX
-            ``line_search`` loop), its outcome selected on the device:
-            accepted, the iteration ends as ``step`` ends it; rejected
-            with trials left, the State stays and the next trial's ``lr``
-            decays; rejected at ``max_backtrack_iter``, the failure
-            freeze.  An inactive carry stays as it is (the step masks
-            itself); it, like a carry at an iteration's start, has ``k``
-            and ``spent`` at 0.  A retry computes ``f(y)`` and
-            ``jac_f(y)`` again at the same ``y``: the same bits."""
+            """One step of the line search (the body of the JAX
+            ``line_search`` loop; at m >= 3 one Newton iteration of the
+            current trial's subproblem, :func:`_newton_trial`).  Where a
+            trial ended, its outcome is selected on the device: accepted,
+            the iteration ends as ``step`` ends it; rejected with trials
+            left, the State stays and the next trial's ``lr`` decays;
+            rejected at ``max_backtrack_iter``, the failure freeze.  A
+            fixed step's one trial is accepted when it ends.  An inactive
+            carry stays as it is (the step masks itself); it, like a carry
+            at an iteration's start, has ``k`` and ``spent`` at 0.  A step
+            computes ``f(y)`` and ``jac_f(y)`` again at the same ``y``: the
+            same bits."""
             state = c.state()
             live = _active(c, max_iter)
             f_y = f(state.y)
             jac_y = jac_f(state.y)
-            sub, f_t, F_t = trial(state, c.lr_try, c.w_try, f_y, jac_y)
-            ok = live & accept_test(state, f_y, f_t, F_t, sub.fun)
+            if newton is None:
+                sub, ended = solve_sub(c.lr_try, state.F_x, state.y, f_y, jac_y, c.w_try), live
+                rest = ()
+            else:
+                data = (c.lr_try, state.F_x, state.y, f_y, jac_y)
+                sub, ended, rest = _newton_trial(newton, c, data, live, torch.where)
+            f_t = f(sub.x)
+            F_t = f_t + g(sub.x)
+            ok = ended if fixed_lr else ended & accept_test(state, f_y, f_t, F_t, sub.fun)
             w = sub.weight if warm_start else c.w_try
             spent = c.spent + sub.nit
             ls = _LS(c.lr_try, ok, sub.x, F_t, w, sub.fun, spent)
@@ -456,24 +530,29 @@ def _make_step(
             t_new, y_new = momentum(state, sub.x)
             new = accepted(state, ls, err, converged_now, t_new, y_new)
             k = c.k + 1
-            out_of_trials = live & ~ok & (k >= max_backtrack_iter)
-            retry = live & ~(ok | out_of_trials)
-            return _Search(
+            out_of_trials = ended & ~ok & (k >= max_backtrack_iter)
+            retry = ended & ~(ok | out_of_trials)
+            out = _Search(
                 **{name: torch.where(ok, getattr(new, name), getattr(c, name)) for name in moved},
                 # Accepted or exhausted, the iteration's inner count lands.
                 nit_internal=torch.where(ok | out_of_trials, new.nit_internal, c.nit_internal),
                 converged=torch.where(ok, new.converged, c.converged),
                 failed=c.failed | out_of_trials,
-                k=torch.where(retry, k, 0),
+                k=torch.where(retry, k, torch.where(ended, 0, c.k)),
                 lr_try=torch.where(retry, c.lr_try * decay_rate, c.lr_try),
-                w_try=torch.where(live, w, c.w_try) if warm_start else c.w_try,
-                spent=torch.where(retry, spent, 0),
+                w_try=torch.where(ended, w, c.w_try) if warm_start else c.w_try,
+                spent=torch.where(retry, spent, torch.where(ended, 0, c.spent)),
             )
+            return out if newton is None else _NewtonSearch(*out, *rest)
 
         search_step.masks_itself = True
-        # No host read: a chunk of trials can be captured.
+        # No host read: a chunk of steps can be captured.
         search_step.capturable = True
-        search_step.options = ("search", *options, float(decay_rate), int(max_backtrack_iter))
+        search_step.options = (
+            "search" if newton is None else "newton search",
+            *options, float(decay_rate), int(max_backtrack_iter),
+        )
+        search_step.start = _Search.start if newton is None else _NewtonSearch.start
         step.carried_search = search_step
     return step
 
@@ -526,15 +605,20 @@ def _make_batch_step(
     nothing: it is marked ``capturable``, with its ``options``, and the
     batch driver replays its chunks as CUDA graphs on a card.
 
-    A backtracking step (``decay_rate < 1``) at m <= 2, not
-    feature-sharded, also carries ``carried_search``: a capturable step of
-    a :class:`_Search` carry with the lane axis that takes one trial in
-    every lane, each at its own ``lr`` and its own point of its own
-    iteration, the outcome selected per lane (accepted, retried at a
-    decayed ``lr``, or failed at ``max_backtrack_iter``), so that a chunk
-    of trials reads nothing.  Each lane's iterations are bitwise those of
-    the round-based step; a batch of them takes as many steps as its
-    slowest lane takes trials in all.
+    At m >= 3 the subproblem's Newton loop runs rounds while any lane
+    iterates (one host read per round).  Not feature-sharded, a
+    backtracking step at m <= 2 (with ``max_backtrack_iter >= 1``) and any
+    m >= 3 step also carry ``carried_search``: a capturable step on the
+    lane-axis :class:`_Search` carry that takes one trial in every lane
+    (m <= 2), or on the :class:`_NewtonSearch` carry one Newton iteration
+    of every lane's current trial (m >= 3; the fixed step's one trial is
+    accepted when it ends), each lane at its own ``lr`` and its own point
+    of its own iteration, the outcome selected per lane where its trial
+    ended (accepted, retried at a decayed ``lr``, or failed at
+    ``max_backtrack_iter``), so that a chunk of steps reads nothing.  Each
+    lane's iterations are bitwise those of the round-based step; a batch
+    of them takes as many steps as its slowest lane takes trials (m <= 2)
+    or Newton iterations (m >= 3) in all.
 
     ``feature_sum``/``feature_max`` (lanes that are feature blocks, m == 1;
     both or neither) all-reduce over the ``"model"`` ranks, as in
@@ -693,49 +777,63 @@ def _make_batch_step(
         step.capturable = True
         step.options = ("batch", *options)
 
-    if not fixed_lr and m <= 2 and not sharded and max_backtrack_iter >= 1:
+    newton = getattr(solve_sub, "newton", None)  # m >= 3: the Newton parts over lanes
+    carried = not sharded and (newton is not None or not fixed_lr)
+    if carried and (fixed_lr or max_backtrack_iter >= 1):
         moved = ("x", "y", "F_x", "lr", "t", "w", "err", "sub_fun", "nit")
 
         def search_step(c: _Search) -> _Search:
-            """One trial in every lane (the body of the JAX ``line_search``
-            loop under ``vmap``), each lane's outcome selected on the
-            device, as in :func:`_make_step`'s carried search: accepted,
-            the iteration ends as ``step`` ends it; rejected with trials
-            left, the State stays and the next trial's ``lr`` decays;
-            rejected at ``max_backtrack_iter``, the failure freeze.  A lane
-            that is not active stays as it is (the step masks itself), with
-            ``k`` and ``spent`` at 0.  A retry computes ``f(y)`` and
-            ``jac_f(y)`` again at the same ``y``: the same bits."""
+            """One step of the line search in every lane (the body of the
+            JAX ``line_search`` loop under ``vmap``; at m >= 3 one Newton
+            iteration of each lane's current trial), each lane's outcome
+            selected on the device where its trial ended, as in
+            :func:`_make_step`'s carried search: accepted, the iteration
+            ends as ``step`` ends it; rejected with trials left, the State
+            stays and the next trial's ``lr`` decays; rejected at
+            ``max_backtrack_iter``, the failure freeze.  A lane that is not
+            active stays as it is (the step masks itself), with ``k`` and
+            ``spent`` at 0.  A step computes ``f(y)`` and ``jac_f(y)``
+            again at the same ``y``: the same bits."""
             state = c.state()
             live = _active(state, max_iter)
             f_y = v_f(state.y)
             jac_y = v_jac(state.y)
-            sub, f_t, F_t = trial(state, c.lr_try, c.w_try, f_y, jac_y, live)
-            ok = live & accept_test(state, f_y, f_t, F_t, sub.fun)
+            if newton is None:
+                sub = solve_sub(c.lr_try, state.F_x, state.y, f_y, jac_y, c.w_try, live)
+                ended, rest = live, ()
+            else:
+                data = (c.lr_try, state.F_x, state.y, f_y, jac_y)
+                sub, ended, rest = _newton_trial(newton, c, data, live, _lanes_where)
+            f_t = v_f(sub.x)
+            F_t = f_t + v_g(sub.x)
+            ok = ended if fixed_lr else ended & accept_test(state, f_y, f_t, F_t, sub.fun)
             w = sub.weight if warm_start else c.w_try
             spent = c.spent + sub.nit
             new = accepted(state, _LS(c.lr_try, ok, sub.x, F_t, w, sub.fun, spent))
             k = c.k + 1
-            out_of_trials = live & ~ok & (k >= max_backtrack_iter)
-            retry = live & ~(ok | out_of_trials)
-            return _Search(
+            out_of_trials = ended & ~ok & (k >= max_backtrack_iter)
+            retry = ended & ~(ok | out_of_trials)
+            out = _Search(
                 **{name: _lanes_where(ok, getattr(new, name), getattr(c, name)) for name in moved},
                 # Accepted or exhausted, the iteration's inner count lands.
                 nit_internal=torch.where(ok | out_of_trials, new.nit_internal, c.nit_internal),
                 converged=torch.where(ok, new.converged, c.converged),
                 failed=c.failed | out_of_trials,
-                k=torch.where(retry, k, 0),
+                k=torch.where(retry, k, torch.where(ended, 0, c.k)),
                 lr_try=torch.where(retry, c.lr_try * decay_rate, c.lr_try),
-                w_try=_lanes_where(live, w, c.w_try) if warm_start else c.w_try,
-                spent=torch.where(retry, spent, 0),
+                w_try=_lanes_where(ended, w, c.w_try) if warm_start else c.w_try,
+                spent=torch.where(retry, spent, torch.where(ended, 0, c.spent)),
             )
+            return out if newton is None else _NewtonSearch(*out, *rest)
 
         search_step.masks_itself = True
-        # No host read: a chunk of trials can be captured.
+        # No host read: a chunk of steps can be captured.
         search_step.capturable = True
         search_step.options = (
-            "batch search", *options, float(decay_rate), int(max_backtrack_iter)
+            "batch search" if newton is None else "batch newton search",
+            *options, float(decay_rate), int(max_backtrack_iter),
         )
+        search_step.start = _Search.start if newton is None else _NewtonSearch.start
         step.carried_search = search_step
     return step
 
@@ -1231,22 +1329,32 @@ def history_record(vecs: bool) -> Callable[[Any, Any], tuple]:
 
 #: Steps per replayed graph of a history driver, by objective count
 #: (:func:`_history_steps`).
-HISTORY_GRAPH_STEPS: dict[int, int] = {1: 4, 2: 2}
+HISTORY_GRAPH_STEPS: dict[int, int] = {1: 4, 2: 2, 3: 2, 4: 1}
 
 
 def _history_steps(step, carry, max_iter: int, owners, n_objectives: int) -> int:
     """The history drivers' rule: the steps a replay of ``step``'s graph
     runs (``HISTORY_GRAPH_STEPS``), or 0 for the per-step driver.  A graph
-    needs a capturable step, ``owners``, a card (:func:`_graphs_run_on`)
-    and a ``max_iter`` past one replay; m >= 3, ``verbose`` and
-    feature-sharded steps are not capturable, and the CPU steps one at a
-    time.
+    needs a capturable step (at m >= 3 the carried Newton steps), an entry
+    for the objective count, ``owners``, a card (:func:`_graphs_run_on`)
+    and a ``max_iter`` past one replay; ``verbose`` and feature-sharded
+    steps are not capturable, and the CPU steps one at a time.
 
     A first solve graphs too, and few steps a graph keep its capture
-    short (10-90 µs of host time a node, ~600 nodes an m = 2 step).  First
-    solves on an H100 80GB HBM3 at 700 W, each from an empty graph cache,
-    in two turns (``python -m zfista_tpu_torch.bench.history_bench``):
+    short (10-90 µs of host time a node, ~600 nodes an m = 2 step, ~680
+    an m >= 3 Newton step).  First solves on an H100 80GB HBM3 at 700 W,
+    each from an empty graph cache, in two turns (``python -m
+    zfista_tpu_torch.bench.history_bench``):
 
+    * m >= 3, the harness's 22 m >= 3 cells (``benchmark()``, 100 float64
+      starts, every variant), summed, s at 1 / 2 / 4 / 8 steps a graph:
+      m = 3 (FDS and TRIDIA, 16 cells) 52.3-53.2 / 51.7-51.9 / 53.7-54.3
+      / 54.9-55.2, the per-step driver 788.4 (one turn); m = 4
+      (LinearFunctionRank1, 6 cells) 1.72-2.12 / 2.02-2.12 / 2.51-2.62 /
+      3.69-3.85, per-step 24.6.  1 was fastest on 20 of the m = 3 cells'
+      32 runs (the short ones: a smaller capture) and 9 of m = 4's 12,
+      2 on the sum at m = 3 (no count past 4 was timed: m >= 5 steps
+      one at a time);
     * m = 2, the harness's 26 m <= 2 cells (``benchmark()``, 100 float64
       starts, every variant) summed 7.49-7.60 s at 2 steps a graph and
       10.00-10.08 s at 4; 2 was faster in both turns on 25 of the 26;
@@ -1498,18 +1606,21 @@ def minimize_proximal_gradient(
     convergence flag per 64 steps) for a single-objective fixed-step solve
     when nothing reads every iteration (not ``return_all``, ``verbose`` or
     ``iter_chunk``), and 1 elsewhere, backtracking solves included
-    (:func:`_default_check_every`).  A backtracking solve with at most two
-    objectives at ``check_every > 1`` (not ``verbose``, ``return_all``,
-    ``iter_chunk`` or feature-sharded) runs one trial of its line search
-    per step, its search carried on the device: ``check_every`` then
-    counts trials, and no host read happens inside a chunk.  Otherwise
-    the line search is a host loop, each trial's accept test a host read.
-    On a card the chunks of a fixed-step solve with at most
-    two objectives (not ``verbose``, not feature-sharded) and of those
-    carried trials run as replayed CUDA graphs (:func:`run_graphed`), and
-    so does ``return_all`` for such a solve (its backtracking as carried
-    trials, a row kept where a trial ends its iteration), a few steps a
-    replay (:func:`_history_steps`).  ``iter_chunk`` runs at most that many steps between
+    (:func:`_default_check_every`).  At ``check_every > 1`` (not
+    ``verbose``, ``return_all``, ``iter_chunk`` or feature-sharded) a
+    backtracking solve with at most two objectives runs one trial of its
+    line search per step, and a solve with three or more (fixed step
+    included) one Newton iteration of its current trial's subproblem per
+    step, its search carried on the device: ``check_every`` then counts
+    those steps, and no host read happens inside a chunk.  Otherwise the
+    line search is a host loop, each trial's accept test a host read, and
+    an m >= 3 subproblem reads once per Newton iteration.  On a card the
+    chunks of a fixed-step solve with at most two objectives (not
+    ``verbose``, not feature-sharded) and of those carried steps run as
+    replayed CUDA graphs (:func:`run_graphed`), and so does ``return_all``
+    for such a solve (its line search as carried steps, a row kept where
+    a step ends its iteration), a few steps a replay
+    (:func:`_history_steps`).  ``iter_chunk`` runs at most that many steps between
     host copies of the state; when the device faults inside a chunk, the
     solve returns the last chunk's host copy with ``success=False``,
     status 2 and a "device fault" message, without touching the device
@@ -1654,14 +1765,14 @@ def minimize_proximal_gradient(
         # allvecs[k] and allfuns[k] stay paired.
         head_x = x0_res if initial_state is None else to_host(state).x
         head_F = state.F_x.cpu().numpy()
-        # At m <= 2 on a card: the fixed step, or the line search as
-        # carried trials (a row where a trial ends its iteration), on
+        # On a card: the fixed step at m <= 2, or the line search as
+        # carried steps (a row where a step ends its iteration), on
         # replayed graphs.
         search = getattr(step, "carried_search", None)
         graph_step = step if search is None else search
         steps = _history_steps(graph_step, state, max_iter, owners, m)
         if steps:
-            carry = state if search is None else _Search.start(state)
+            carry = state if search is None else search.start(state)
             carry, xs, fs, allerrs = _run_history_graphed(
                 graph_step, carry, max_iter, steps, owners, chunk
             )
@@ -1706,9 +1817,9 @@ def minimize_proximal_gradient(
     else:
         search = getattr(step, "carried_search", None)
         if search is not None and check_every > 1:
-            # The line search as carried trials: check_every counts trials.
+            # The line search as carried steps: check_every counts them.
             run = make_while_driver(search, max_iter, check_every, owners)
-            state = run(_Search.start(state)).state()
+            state = run(search.start(state)).state()
         else:
             state = make_while_driver(step, max_iter, check_every, owners)(state)
 

@@ -37,8 +37,12 @@ with :math:`u_w = y - lr\,J^\top w` and
   (a zero tangent) costs ~0.3-0.5 ms under ``torch.func.jvp``, and one
   ``jacfwd`` Hessian of the FDS dual ~8 ms on a CPU core against ~1.7 ms
   for ``jacrev``.
-  The Newton loop and the arc search are host loops: one host read per
-  arc-search trial and one per Newton iteration.
+  One Newton iteration reads nothing on the host (:func:`make_newton`):
+  each Armijo arc search evaluates its 40 trials at once on a trial axis
+  and takes the first accepted one, as the JAX inner ``while_loop``
+  would.  The eager solver loops over iterations with one host read each;
+  the solver's carried search (:mod:`zfista_tpu_torch.core.solver`) takes
+  one iteration a step, with no read.
 
 ``SubproblemResult.nit`` adds up exactly as the JAX package's does.
 """
@@ -53,7 +57,7 @@ import torch
 
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, matmul_hp, sum_hp
-from zfista_tpu_torch.ops.prox import project_simplex
+from zfista_tpu_torch.ops.prox import DeviceConstants, project_simplex
 
 _DOT = matmul_hp
 _VDOT = dot_hp
@@ -242,110 +246,206 @@ def make_subproblem_solver(
         return solve_m2
 
     # m >= 3: semismooth projected Newton on the simplex (see the JAX
-    # module for the design: two-metric projection, multiplier-correct
-    # active set, arc search, projected-gradient safeguard, stall floor).
-    newton_cap = min(max_iter, 30)
+    # module for the design and make_newton here for the parts).
+    parts = make_newton(g, prox_wsum_g, m, tol=tol, max_iter=max_iter, deprecated=deprecated)
 
     def solve_mk(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult:
+        """The JAX ``lax.while_loop`` as a host loop over
+        :func:`make_newton`'s ``iterate``: one host read per Newton
+        iteration (the loop's test, with the count riding on it), none
+        inside one.  ``nit`` is a host int."""
+        args = (lr, F_old, y, f_y, jac_f_y)
+        c = parts.start(*args, w0)
+        while True:
+            nit, ended = torch.stack([c.nit, parts.ended(c).to(torch.int32)]).tolist()
+            if ended:
+                break
+            c = parts.iterate(c, *args)
+        return parts.finish(c, *args)._replace(nit=nit)
+
+    solve_mk.newton = parts
+    return solve_mk
+
+
+class Newton(NamedTuple):
+    """The m >= 3 solver's loop state, the JAX ``solve_mk`` carry: one
+    lane's 0-d fields and ``(m,)`` weight, or every lane's with a leading
+    lane axis."""
+
+    w: Array  # (m,) the dual iterate
+    phi: Array  # its dual value (0 before the first iteration)
+    k: Array  # Newton iterations taken (int32)
+    done: Array  # bool
+    nit: Array  # inner count so far (int32)
+    stall: Array  # iterations in a row without real progress (int32)
+
+
+class NewtonParts(NamedTuple):
+    """The m >= 3 solver in parts that read nothing on the host, each
+    taking the subproblem's data ``(lr, F_old, y, f_y, jac_f_y)``:
+    ``start(*data, w0)`` makes the carry, ``iterate(carry, *data)`` takes
+    one Newton iteration (a carry that has ``ended`` passes through
+    unchanged), ``ended(carry)`` is the loop's exit test, and
+    ``finish(carry, *data)`` is the :class:`SubproblemResult`."""
+
+    start: Callable[..., Newton]
+    iterate: Callable[..., Newton]
+    ended: Callable[[Newton], Array]
+    finish: Callable[..., SubproblemResult]
+
+
+#: Trials of one Armijo arc search, as in the JAX ``ls_cond``.
+ARC_TRIALS = 40
+#: The arc's steps ``a_j = 2**-(j-1)``: repeated halving from 1 is exact in
+#: binary, so these are the sequential loop's steps, bit for bit.
+_HALVINGS = DeviceConstants(a=0.5 ** np.arange(ARC_TRIALS))
+
+
+def arc_searches(w, d_first, d_pg, bad, phi, grad, slack, values):
+    """The JAX ``body``'s two Armijo arc searches along ``w(a) =
+    P_simplex(w + a d)``, ``a = 1, 1/2, ..., 2**-39``, with every trial of
+    both arcs evaluated at once: ``values(W)`` is the dual's value at each
+    row of ``W (2 * ARC_TRIALS, m)``.  Each arc stops at its first
+    accepted trial or at trial 40, as the sequential search does; the
+    projected-gradient arc ``d_pg`` counts only where the JAX ``lax.cond``
+    runs it: the Newton arc ``d_first`` failed and was not already the
+    projected gradient (``bad``).  A trial that does not move is never
+    accepted: it falls through to the PG arc, whose failure is the
+    stationarity certificate.  Returns ``(ok, trials, w_new, phi_new)``,
+    with ``w`` and ``phi`` kept where no arc was accepted (the numerical
+    floor)."""
+    m = w.shape[-1]
+    a = _HALVINGS.on(w)["a"]
+    W = project_simplex(w + a[None, :, None] * torch.stack([d_first, d_pg])[:, None, :])
+    phi_t = values(W.reshape(2 * ARC_TRIALS, m)).reshape(2, ARC_TRIALS)
+    moved = torch.any(W != w, dim=-1)
+    ok_t = moved & (phi_t <= phi + 1e-4 * lane_sum(grad * (W - w)) + slack)
+    # Each arc's count, point and value where the sequential search stops.
+    number = torch.arange(1, ARC_TRIALS + 1, dtype=torch.int32, device=w.device)
+    first = torch.amin(torch.where(ok_t, number, ARC_TRIALS + 1), dim=-1)
+    n_arc = torch.clamp_max(first, ARC_TRIALS)
+    at = (n_arc - 1).to(torch.int64)
+    w_arc = torch.gather(W, 1, at[:, None, None].expand(2, 1, m))[:, 0]
+    phi_arc = torch.gather(phi_t, 1, at[:, None])[:, 0]
+    ok1 = first[0] <= ARC_TRIALS
+    retry = ~(ok1 | bad)
+    ok = ok1 | (retry & (first[1] <= ARC_TRIALS))
+    n_ls = n_arc[0] + torch.where(retry, n_arc[1], 0)
+    w_new = torch.where(ok, torch.where(retry, w_arc[1], w_arc[0]), w)
+    phi_new = torch.where(ok, torch.where(retry, phi_arc[1], phi_arc[0]), phi)
+    return ok, n_ls, w_new, phi_new
+
+
+def make_newton(
+    g: Callable[[Array], Array],
+    prox_wsum_g: Callable[[Array, Array], Array],
+    n_objectives: int,
+    *,
+    tol: float,
+    max_iter: int,
+    deprecated: bool = False,
+) -> NewtonParts:
+    """The m >= 3 semismooth projected Newton solver of one lane as
+    :class:`NewtonParts`: the JAX ``init``, ``body`` and ``cond`` of
+    ``solve_mk`` and its final ``vap``.
+
+    ``iterate`` is the JAX ``body``: the ``jacrev`` Hessian, the
+    two-metric KKT step, and both Armijo arc searches with their 40
+    trials evaluated at once on a trial axis (the projected-gradient arc
+    always computed, used and counted only where the JAX ``lax.cond``
+    runs it).  The trial count is the first accepted trial's number, or
+    40, as the sequential search counts it.  The trials' sums are
+    :func:`~zfista_tpu_torch.ops.precision.lane_sum` trees (the dual under
+    ``vmap`` over the trials, its Jacobian expanded so that no product is
+    one GEMM over them), so a trial's value does not depend on the trials
+    or lanes beside it.  Every part runs under ``torch.func.vmap`` over
+    lanes (:func:`make_batch_newton`)."""
+    m = n_objectives
+    newton_cap = min(max_iter, 30)
+
+    def setup(lr, F_old, y, f_y, jac_f_y):
         dual = _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated)
+        # Gradient-mapping scale: trace(J Jᵀ) >= lambda_max, no eigensolver.
+        Ls = torch.clamp_min(lr * sum_hp(jac_f_y * jac_f_y), 1.0)
+        return dual, Ls
+
+    def trial_values(W, lr, F_old, y, f_y, jac_f_y):
+        """The dual's value at each row of ``W (T, m)``."""
+        J = jac_f_y.expand(W.shape[0], *jac_f_y.shape)
+        value = lambda w, Jt: _make_dual(  # noqa: E731
+            f_y, Jt, F_old, g, prox_wsum_g, lr, y, deprecated
+        ).value(w)
+        return torch.func.vmap(value)(W, J)
+
+    def start(lr, F_old, y, f_y, jac_f_y, w0) -> Newton:
+        like = F_old[0]
+        return Newton(
+            w=project_simplex(w0.to(y.dtype)),
+            phi=torch.zeros_like(like),
+            k=torch.zeros_like(like, dtype=torch.int32),
+            done=torch.zeros_like(like, dtype=torch.bool),
+            nit=torch.ones_like(like, dtype=torch.int32),
+            stall=torch.zeros_like(like, dtype=torch.int32),
+        )
+
+    def ended(c: Newton) -> Array:
+        return c.done | (c.k >= newton_cap)
+
+    def iterate(c: Newton, lr, F_old, y, f_y, jac_f_y) -> Newton:
+        dual, Ls = setup(lr, F_old, y, f_y, jac_f_y)
         dtype, dev = y.dtype, y.device
         eps = _eps(dtype)
         delta = 1e-12 if dtype == torch.float64 else 1e-6
         stat_tol = max(tol, 100 * eps)
-        hess_fn = torch.func.jacrev(dual.grad)
-        eye = torch.eye(m, dtype=dtype, device=dev)
-        zero1 = torch.zeros((1,), dtype=dtype, device=dev)
+        w = c.w
+        phi, grad = dual.value_and_grad(w)
+        H = torch.func.jacrev(dual.grad)(w) + delta * torch.eye(m, dtype=dtype, device=dev)
 
-        # Gradient-mapping scale: trace(J Jᵀ) >= lambda_max, no eigensolver.
-        lam_bound = sum_hp(jac_f_y * jac_f_y)
-        Ls = torch.clamp_min(lr * lam_bound, 1.0)
+        # Active set from the projected-gradient point (multiplier-correct
+        # on the simplex): free iff w_pg > 0.
+        w_pg = project_simplex(w - grad / Ls)
+        fm = (w_pg > 0).to(dtype)
+        d_active = (1.0 - fm) * (w_pg - w)
+        K = torch.cat(
+            [
+                torch.cat([H * torch.outer(fm, fm) + torch.diag(1.0 - fm), fm[:, None]], dim=1),
+                torch.cat([fm, torch.zeros_like(fm[:1])])[None, :],
+            ],
+            dim=0,
+        )
+        rhs = torch.cat([-(grad + _DOT(H, d_active)) * fm, -sum_hp(d_active)[None]])
+        d_newton = solve_small_linear(K, rhs)[:m] + d_active
 
-        w = project_simplex(w0.to(dtype))
-        nit = 1
-        stall = 0
-        for _ in range(newton_cap):
-            phi_k, grad = dual.value_and_grad(w)
-            H = hess_fn(w) + delta * eye
+        d_pg = w_pg - w
+        bad = (~torch.all(torch.isfinite(d_newton))) | (_VDOT(grad, d_newton) >= 0)
+        d_first = torch.where(bad, d_pg, d_newton)
+        slack = 4 * eps * (1 + torch.abs(phi))
 
-            # Active set from the projected-gradient point (multiplier-
-            # correct on the simplex): free iff w_pg > 0.
-            w_pg = project_simplex(w - grad / Ls)
-            fm = (w_pg > 0).to(dtype)
-            d_active = (1.0 - fm) * (w_pg - w)
-            K = torch.cat(
-                [
-                    torch.cat(
-                        [H * torch.outer(fm, fm) + torch.diag(1.0 - fm), fm[:, None]],
-                        dim=1,
-                    ),
-                    torch.cat([fm, zero1])[None, :],
-                ],
-                dim=0,
-            )
-            rhs = torch.cat(
-                [-(grad + _DOT(H, d_active)) * fm, -torch.sum(d_active)[None]]
-            )
-            d_newton = solve_small_linear(K, rhs)[:m] + d_active
+        values = lambda W: trial_values(W, lr, F_old, y, f_y, jac_f_y)  # noqa: E731
+        ok, n_ls, w_new, phi_new = arc_searches(w, d_first, d_pg, bad, phi, grad, slack, values)
 
-            d_pg = w_pg - w
-            bad = (~torch.all(torch.isfinite(d_newton))) | (_VDOT(grad, d_newton) >= 0)
-            d_first = torch.where(bad, d_pg, d_newton)
+        # Scaled gradient mapping, and the progress-based floor.
+        gm = torch.sqrt(sum_hp((w - w_pg) * (w - w_pg)))
+        stationary = gm <= stat_tol * (1 + torch.sqrt(sum_hp(grad * grad)) / Ls)
+        progressed = (phi - phi_new) > eps * (1 + torch.abs(phi))
+        stall = torch.where(progressed, 0, c.stall + 1)
+        new = Newton(
+            w=w_new,
+            phi=phi_new,
+            k=c.k + 1,
+            done=stationary | ~ok | (stall >= 2),
+            nit=c.nit + n_ls + (m + 1),  # m tangents for H + phi evals
+            stall=stall,
+        )
+        going = ~ended(c)
+        return Newton(*(torch.where(going, u, v) for u, v in zip(new, c)))
 
-            slack = 4 * eps * (1 + torch.abs(phi_k))
+    def finish(c: Newton, lr, F_old, y, f_y, jac_f_y) -> SubproblemResult:
+        dual, _ = setup(lr, F_old, y, f_y, jac_f_y)
+        phi_star, x = dual.value_and_primal(c.w)
+        return SubproblemResult(x=x, fun=-phi_star, weight=c.w, nit=c.nit)
 
-            def accept(w_t, phi_t):
-                # A trial that does not move is never accepted: it falls
-                # through to the PG arc, whose failure is the stationarity
-                # certificate.
-                moved = torch.any(w_t != w)
-                return moved & (phi_t <= phi_k + 1e-4 * _VDOT(grad, w_t - w) + slack)
-
-            def arc_search(d, also=None):
-                """Armijo along w(a) = P_simplex(w + a d), a = 1, 1/2, ...;
-                at most 40 trials, one host read each.  ``also`` rides on
-                the first read.  Returns (ok, trials, w_t, phi_t, also)."""
-                a = 1.0
-                w_t = project_simplex(w + d)
-                phi_t = dual.value(w_t)
-                ok = accept(w_t, phi_t)
-                if also is None:
-                    ok_b, also_b = bool(ok), None
-                else:
-                    ok_b, also_b = torch.stack([ok, also]).tolist()
-                j = 1
-                while not ok_b and j < 40:
-                    a *= 0.5
-                    w_t = project_simplex(w + a * d)
-                    phi_t = dual.value(w_t)
-                    ok_b = bool(accept(w_t, phi_t))
-                    j += 1
-                return ok_b, j, w_t, phi_t, also_b
-
-            ok, n_ls, w_new, phi_new, bad_b = arc_search(d_first, bad)
-            # Retry along the projected gradient unless the first arc
-            # succeeded or already was the projected gradient (``bad``);
-            # both are on the host from the first arc's reads.
-            if not ok and not bad_b:
-                ok, n2, w_new, phi_new, _ = arc_search(d_pg)
-                n_ls += n2
-            nit += n_ls + m + 1  # m tangents for H + phi evals
-            if not ok:  # the numerical floor: w stays
-                break
-
-            # Scaled gradient mapping, and the progress-based floor.
-            gm = torch.linalg.vector_norm(w - w_pg)
-            stationary = gm <= stat_tol * (1 + torch.linalg.vector_norm(grad) / Ls)
-            progressed = (phi_k - phi_new) > eps * (1 + torch.abs(phi_k))
-            stationary_b, progressed_b = torch.stack([stationary, progressed]).tolist()
-            stall = 0 if progressed_b else stall + 1
-            w = w_new
-            if stationary_b or stall >= 2:
-                break
-
-        phi_star, x = dual.value_and_primal(w)
-        return SubproblemResult(x=x, fun=-phi_star, weight=w, nit=nit)
-
-    return solve_mk
+    return NewtonParts(start, iterate, ended, finish)
 
 
 # -- lane-batched solvers ------------------------------------------------------
@@ -353,30 +453,10 @@ def make_subproblem_solver(
 # The batch solver (zfista_tpu_torch.parallel.batch) advances B independent
 # solves together: every tensor below carries a leading lane axis.  The JAX
 # package gets the same by jax.vmap over the single solvers, where XLA turns
-# each lane's while_loop into one masked loop.  Eager PyTorch cannot vmap a
-# host loop, so the m>=3 Newton solver is written over the lane axis with
-# per-lane masks; m=1 and m=2 read nothing on the host and are the single
-# solvers under torch.func.vmap.
-
-
-def solve_small_linear_batched(K: Array, b: Array) -> Array:
-    """:func:`solve_small_linear` over a leading lane axis: ``K (B, n, n)``,
-    ``b (B, n)``.  Each lane pivots by its own ``argmax`` and swaps rows by
-    ``gather``: the single solver's operations lane by lane, with the same
-    inf/NaN on a singular system."""
-    n = K.shape[-1]
-    A = torch.cat([K, b[..., None]], dim=-1)
-    idx = torch.arange(n, device=K.device)
-    for k in range(n):
-        mag = torch.where(idx < k, -math.inf, torch.abs(A[:, :, k]))
-        p = torch.argmax(mag, dim=-1)[:, None]
-        perm = torch.where(idx == k, p, torch.where(idx == p, k, idx))
-        A = torch.gather(A, 1, perm[:, :, None].expand(-1, -1, n + 1))
-        row_scaled = A[:, k] / A[:, k, k : k + 1]
-        factors = torch.where(idx == k, 0.0, A[:, :, k])
-        A = A - factors[:, :, None] * row_scaled[:, None, :]
-        A = torch.where((idx == k)[None, :, None], row_scaled[:, None, :], A)
-    return A[:, :, n]
+# each lane's while_loop into one masked loop.  Here every solver is the
+# single one under torch.func.vmap: m=1 and m=2 whole, m>=3 as its parts
+# (make_newton), which read nothing, so a lane's Newton iterations are its
+# single solver's, and a host loop over them reads once per round.
 
 
 def _over_lanes(fn: Callable, n_args: int, params) -> Callable:
@@ -454,133 +534,59 @@ def make_batch_subproblem_solver(
 
         return solve_low
 
-    # m >= 3: the single solve_mk's iteration over lanes.  Per lane: its
-    # own done/stall/arc masks; a lane that is done keeps its w and adds
-    # nothing to its nit.  Host reads: one per Newton round (does any lane
-    # still iterate?) and one per arc-trial round (does any lane still
-    # search?), whatever the number of lanes.
-    newton_cap = min(max_iter, 30)
-
-    def dual(f_y, jac_f_y, F_old, lr, y, *p) -> _Dual:
-        return _make_dual(
-            f_y, jac_f_y, F_old, lambda x: g(x, *p), lambda w, x: prox_wsum_g(w, x, *p),
-            lr, y, deprecated,
-        )
-
-    v_value = _over_lanes(lambda w, *a: dual(*a).value(w), 6, params)
-    v_vag = _over_lanes(lambda w, *a: dual(*a).value_and_grad(w), 6, params)
-    v_vap = _over_lanes(lambda w, *a: dual(*a).value_and_primal(w), 6, params)
-    v_hess = _over_lanes(
-        torch.func.jacrev(lambda w, *a: dual(*a).grad(w)), 6, params
+    # m >= 3: the single solver's parts over lanes.  A lane that is done (or
+    # not live) passes through each iteration; a host loop runs them while
+    # any lane iterates: one read per Newton round, whatever the lanes.
+    newton = make_batch_newton(
+        g, prox_wsum_g, m, params, tol=tol, max_iter=max_iter, deprecated=deprecated
     )
-    v_dot = torch.func.vmap(_VDOT)
-    v_mv = torch.func.vmap(_DOT)
 
     def solve_mk_batched(lr, F_old, y, f_y, jac_f_y, w0, live) -> SubproblemResult:
-        args = (f_y, jac_f_y, F_old, lr, y)
-        dtype, dev = y.dtype, y.device
-        B = y.shape[0]
-        eps = _eps(dtype)
-        delta = 1e-12 if dtype == torch.float64 else 1e-6
-        stat_tol = max(tol, 100 * eps)
-        eye = torch.eye(m, dtype=dtype, device=dev)
-        zero1 = torch.zeros((B, 1), dtype=dtype, device=dev)
+        args = (lr, F_old, y, f_y, jac_f_y)
+        c = newton.start(*args, w0)
+        c = c._replace(done=c.done | ~live)
+        while bool(torch.any(~newton.ended(c))):  # the one read per Newton round
+            c = newton.iterate(c, *args)
+        return newton.finish(c, *args)
 
-        lam_bound = lane_sum((jac_f_y * jac_f_y).flatten(1))
-        Ls = torch.clamp_min(lr * lam_bound, 1.0)
-
-        w = project_simplex(w0.to(dtype))
-        nit = torch.ones(B, dtype=torch.int32, device=dev)
-        stall = torch.zeros(B, dtype=torch.int32, device=dev)
-        going = live
-        for _ in range(newton_cap):
-            if not bool(torch.any(going)):  # the one read per Newton round
-                break
-            phi_k, grad = v_vag(w, *args)
-            H = v_hess(w, *args) + delta * eye
-
-            w_pg = project_simplex(w - grad / Ls[:, None])
-            fm = (w_pg > 0).to(dtype)
-            d_active = (1.0 - fm) * (w_pg - w)
-            K = torch.cat(
-                [
-                    torch.cat(
-                        [
-                            H * (fm[:, :, None] * fm[:, None, :])
-                            + torch.diag_embed(1.0 - fm),
-                            fm[:, :, None],
-                        ],
-                        dim=2,
-                    ),
-                    torch.cat([fm, zero1], dim=1)[:, None, :],
-                ],
-                dim=1,
-            )
-            rhs = torch.cat(
-                [-(grad + v_mv(H, d_active)) * fm, -torch.sum(d_active, dim=1)[:, None]],
-                dim=1,
-            )
-            d_newton = solve_small_linear_batched(K, rhs)[:, :m] + d_active
-
-            d_pg = w_pg - w
-            bad = (~torch.all(torch.isfinite(d_newton), dim=1)) | (v_dot(grad, d_newton) >= 0)
-            d_first = torch.where(bad[:, None], d_pg, d_newton)
-            slack = 4 * eps * (1 + torch.abs(phi_k))
-
-            def accept(w_t, phi_t):
-                moved = torch.any(w_t != w, dim=1)
-                return moved & (phi_t <= phi_k + 1e-4 * v_dot(grad, w_t - w) + slack)
-
-            def arc_search(d, searching, also=None):
-                """Armijo along w(a) = P_simplex(w + a d), a = 1, 1/2, ... for
-                the ``searching`` lanes, at most 40 trials each; one host read
-                per round of trials.  ``also(ok)`` rides on the last read.
-                Returns (ok, trials, w_t, phi_t, also's value)."""
-                a = torch.ones(B, dtype=dtype, device=dev)
-                w_t = project_simplex(w + d)
-                phi_t = v_value(w_t, *args)
-                ok = accept(w_t, phi_t)
-                j = torch.ones(B, dtype=torch.int32, device=dev)
-                trying = searching & ~ok
-                while True:
-                    flags = [torch.any(trying)]
-                    if also is not None:
-                        flags.append(torch.any(also(ok)))
-                    more, *rest = torch.stack(flags).tolist()
-                    if not more:
-                        return ok, j, w_t, phi_t, (rest[0] if rest else None)
-                    a = torch.where(trying, a * 0.5, a)
-                    w_c = project_simplex(w + a[:, None] * d)
-                    phi_c = v_value(w_c, *args)
-                    ok_c = accept(w_c, phi_c)
-                    w_t = torch.where(trying[:, None], w_c, w_t)
-                    phi_t = torch.where(trying, phi_c, phi_t)
-                    ok = torch.where(trying, ok_c, ok)
-                    j = j + trying.to(torch.int32)
-                    trying = trying & ~ok_c & (j < 40)
-
-            # Retry along the projected gradient where the first arc failed
-            # and was not already the projected gradient (``bad``).
-            retry = lambda ok: going & ~ok & ~bad
-            ok, n_ls, w_new, phi_new, any_retry = arc_search(d_first, going, retry)
-            if any_retry:
-                need = retry(ok)
-                ok2, n2, w2, phi2, _ = arc_search(d_pg, need)
-                ok = torch.where(need, ok2, ok)
-                n_ls = n_ls + torch.where(need, n2, 0)
-                w_new = torch.where(need[:, None], w2, w_new)
-                phi_new = torch.where(need, phi2, phi_new)
-            nit = nit + torch.where(going, n_ls + (m + 1), 0)
-
-            gm = torch.linalg.vector_norm(w - w_pg, dim=1)
-            stationary = gm <= stat_tol * (1 + torch.linalg.vector_norm(grad, dim=1) / Ls)
-            progressed = (phi_k - phi_new) > eps * (1 + torch.abs(phi_k))
-            moved = going & ok  # a failed arc is the floor: w stays, the lane stops
-            stall = torch.where(moved, torch.where(progressed, 0, stall + 1), stall)
-            w = torch.where(moved[:, None], w_new, w)
-            going = moved & ~stationary & (stall < 2)
-
-        phi_star, x = v_vap(w, *args)
-        return SubproblemResult(x=x, fun=-phi_star, weight=w, nit=nit)
-
+    solve_mk_batched.newton = newton
     return solve_mk_batched
+
+
+def make_batch_newton(
+    g: Callable,
+    prox_wsum_g: Callable,
+    n_objectives: int,
+    params,
+    *,
+    tol: float,
+    max_iter: int,
+    deprecated: bool = False,
+) -> NewtonParts:
+    """:func:`make_newton`'s parts over a leading lane axis, with one
+    lane's callables ``g(x, *p)`` and ``prox_wsum_g(w, x, *p)`` (params
+    last, as :func:`make_batch_subproblem_solver` takes them): each part
+    is the single lane's under ``torch.func.vmap``, so a lane's carry
+    moves as its single solver's would, whatever the lanes beside it."""
+
+    def lane(*p) -> NewtonParts:
+        return make_newton(
+            lambda x: g(x, *p), lambda w, x: prox_wsum_g(w, x, *p), n_objectives,
+            tol=tol, max_iter=max_iter, deprecated=deprecated,
+        )
+
+    def start(lr, F_old, y, f_y, J, w0, *p):
+        return lane(*p).start(lr, F_old, y, f_y, J, w0)
+
+    def iterate(c, lr, F_old, y, f_y, J, *p):
+        return lane(*p).iterate(c, lr, F_old, y, f_y, J)
+
+    def finish(c, lr, F_old, y, f_y, J, *p):
+        return lane(*p).finish(c, lr, F_old, y, f_y, J)
+
+    return NewtonParts(
+        _over_lanes(start, 6, params),
+        _over_lanes(iterate, 6, params),
+        lane().ended,  # reads the carry alone
+        _over_lanes(finish, 6, params),
+    )

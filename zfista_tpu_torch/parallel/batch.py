@@ -10,26 +10,28 @@ advances all lanes together.  The problem callables run over the lanes by
 ``torch.func.vmap``, so one launch serves every lane.
 
 Where the JAX package vmaps its single step and lets XLA turn each lane's
-``while_loop`` into one masked loop, the port's step holds host decisions
-(backtracking trials, the m>=3 Newton loop).  In the batch they are masks:
-a loop runs while any lane still needs it, with one host read per round
-for all lanes, and a lane that is done keeps its values.  At m <= 2 (not
-feature-sharded) the backtracking line search also runs as per-lane
-carried trials: one trial in every lane a step, each lane's search in the
-carry and its outcome selected on the device, so the step reads nothing
-and lanes need not move in lockstep.  A lane that is not active
-(converged, failed or at ``max_iter``) keeps its state, so the drivers
-need no mask of their own:
+``while_loop`` into one masked loop, the port's round-based step holds
+host decisions (backtracking trials, the m>=3 Newton iterations).  In the
+batch they are masks: a loop runs while any lane still needs it, with one
+host read per round for all lanes, and a lane that is done keeps its
+values.  Not feature-sharded, the backtracking line search at m <= 2 and
+every m >= 3 step (fixed ``lr`` included) also run as per-lane carried
+steps (``carried_search``): one trial in every lane a step at m <= 2, one
+Newton iteration of every lane's current trial at m >= 3, each lane's
+search in the carry and its outcome selected on the device, so the step
+reads nothing and lanes need not move in lockstep.  A lane that is not
+active (converged, failed or at ``max_iter``) keeps its state, so the
+drivers need no mask of their own:
 
 * ``check_every`` / ``iter_chunk``: that many steps between host reads of
   "is any lane still active", bitwise equal to ``check_every=1``.  The
   fixed-``lr`` step at m <= 2 and, at ``check_every > 1`` without
-  ``iter_chunk``, the carried trials (``check_every`` then counts trials)
+  ``iter_chunk``, the carried steps (``check_every`` then counts them)
   read nothing, so on a card their chunks are replayed CUDA graphs
   (:func:`zfista_tpu_torch.core.solver.run_chunks`); the round-based
-  backtracking step, m >= 3 batches and the CPU run eager chunks;
-* history (``history=True``): at m <= 2 on a card, replayed graphs of a
-  few steps (the fixed-``lr`` step or the carried trials;
+  steps and the CPU run eager chunks;
+* history (``history=True``): on a card, replayed graphs of a few steps
+  (the fixed-``lr`` step at m <= 2 or the carried steps;
   :func:`zfista_tpu_torch.core.solver._history_steps`), one read of the
   same flag per replay; elsewhere one read per step.  The per-step
   records (``F``, the error, the iterate with ``record_vecs``) stay on
@@ -66,7 +68,6 @@ from zfista_tpu_torch.core.solver import (
     _make_batch_step,
     _normalize_problem,
     _over_lanes,
-    _Search,
     _solve_device,
     _to_device,
     history_record,
@@ -549,13 +550,14 @@ def minimize_proximal_gradient_batch(
     ``history=True`` records per-iteration ``allfuns``/``allerrs``;
     ``record_vecs=True`` (implies ``history``) also the iterates
     (``allvecs``); the records are copied to the host once per
-    ``history_chunk`` steps (at m <= 2 on a card the history driver
-    replays graphs of a few steps).  ``check_every`` and ``iter_chunk`` set
-    the steps between host reads of "any lane active" and give bitwise the
-    result of ``check_every=1``; a backtracking batch with at most two
-    objectives at ``check_every > 1`` (without ``iter_chunk``) runs one
-    line-search trial in every lane a step, and ``check_every`` then
-    counts trials; ``lane_chunk`` solves the batch in padded
+    ``history_chunk`` steps (on a card the history driver replays graphs
+    of a few steps).  ``check_every`` and ``iter_chunk`` set the steps
+    between host reads of "any lane active" and give bitwise the result of
+    ``check_every=1``; at ``check_every > 1`` (without ``iter_chunk``) a
+    backtracking batch with at most two objectives runs one line-search
+    trial in every lane a step, and a batch with three or more one Newton
+    iteration of every lane's current trial, and ``check_every`` then
+    counts those steps; ``lane_chunk`` solves the batch in padded
     chunks of that many lanes and merges them lane for lane (a device fault
     in a later chunk returns the solved chunks and marks the rest status
     2).  ``initial_states`` (e.g. a previous result's ``state``, tensors or
@@ -832,8 +834,8 @@ def _solve_lanes(
     any_active = lambda s: torch.any(_active(s, max_iter))
     # What the step reads by pointer: a chunk graph's cache key.
     owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
-    # A backtracking step at m <= 2: its line search as per-lane carried
-    # trials, one trial in every lane a step.
+    # A backtracking step at m <= 2, any step at m >= 3: its line search as
+    # per-lane carried steps (a trial, or a Newton iteration, a step).
     search = getattr(step, "carried_search", None)
 
     allfuns = allerrs = hist_mask = allvecs = F0 = vec_head = None
@@ -854,12 +856,12 @@ def _solve_lanes(
         F0 = states.F_x.cpu().numpy()
         if record_vecs and initial_states is not None:
             vec_head = to_numpy(states).x
-        # At m <= 2 on a card: the fixed-lr step, or the carried trials, on
+        # On a card: the fixed-lr step at m <= 2, or the carried steps, on
         # replayed graphs; else one step at a time.
         graph_step = step if search is None else search
         steps = _history_steps(graph_step, states, max_iter, owners, m)
         if steps:
-            carry = states if search is None else _Search.start(states)
+            carry = states if search is None else search.start(states)
             carry, allfuns, allerrs, hist_mask, allvecs = _run_history_graphed(
                 graph_step, carry, max_iter, steps, owners, chunk, record_vecs
             )
@@ -871,8 +873,8 @@ def _solve_lanes(
         if features is not None and allvecs is not None:
             allvecs = gather_numpy(allvecs, features, dev, axis=2)
     elif search is not None and iter_chunk is None and check_every > 1:
-        # check_every counts trials (iter_chunk counts iterations).
-        carry = run_chunks(search, _Search.start(states), any_active, check_every, max_iter, owners)
+        # check_every counts carried steps (iter_chunk counts iterations).
+        carry = run_chunks(search, search.start(states), any_active, check_every, max_iter, owners)
         states = carry.state()
     else:
         chunk = iter_chunk if iter_chunk is not None else check_every
@@ -934,8 +936,9 @@ def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bo
     — and ``x`` with ``record_vecs`` — on the device; the records go to
     the host once per ``chunk`` steps.  ``recorded`` is "active before the
     step and not failed after it", as the JAX scan driver's mask.  It
-    serves the CPU, m >= 3 and feature-sharded batches; a capturable step
-    on a card takes :func:`_run_history_graphed`.
+    serves the CPU, feature-sharded batches and objective counts without a
+    history graph; a capturable step on a card takes
+    :func:`_run_history_graphed`.
 
     Returns the final state and the histories as numpy, lane first:
     ``(B, T, m)``, ``(B, T)``, ``(B, T)``, ``(B, T, n)`` (or ``None``)."""
@@ -972,8 +975,8 @@ def _run_history_graphed(
     replayed graph, one host read of "any lane active" per replay, the
     records to the host once per ``chunk`` steps.  The histories are the
     per-step driver's, bitwise, whether a step is an iteration in every
-    lane (the fixed-lr step) or a trial (the carried search, whose lanes
-    do not move in lockstep): a lane's row is its iteration's, placed by
+    lane (the fixed-lr step) or a trial or a Newton iteration (the carried
+    search, whose lanes do not move in lockstep): a lane's row is its iteration's, placed by
     its ``nit`` before the step that ended it (accepted or failed), and
     its rows past its last iteration hold its final values, unrecorded,
     as the per-step driver's frozen rows do.  ``T`` is the most
