@@ -58,8 +58,10 @@ of them against its plain PyTorch version:
   ``zfista_tpu_torch.examples.large_lasso`` (A 8 GB float32, the fused
   raw step's tail ``fista_tail`` once per step), a world of one NCCL rank,
   two ranks sharing the card over Gloo (the feature-sharded ``Lasso`` runs
-  the kernel's ``fused_prox_momentum`` once per step), and the weak-scaling
-  bench's one-card row;
+  the kernel's ``fused_prox_momentum`` once per step), the weak-scaling
+  bench's one-card row, and feature-sharded zoo solves with two and three
+  objectives (the m = 2 bisection's and the m >= 3 Newton dual's sums over
+  features all-reduced; no kernel);
 * the two-axis ``("batch", "model")`` mesh (phase 16): lane batches on a
   feature-sharded operator over four ranks sharing the card, and
   ``GroupLasso`` on feature blocks.  It adds no kernel: the batch step
@@ -232,7 +234,18 @@ Phases:
     1e-9 of the unsharded card solve, ``fused_prox_momentum`` once per
     step run on each rank, and the sweep's lanes over ``batch=2`` bitwise
     the unsharded sweep in every field; (d)
-    ``bench.scaling.weak_scaling((1,), device="cuda")`` at its defaults.
+    ``bench.scaling.weak_scaling((1,), device="cuda")`` at its defaults;
+    (e) feature-sharded solves with two and three objectives, float64,
+    zoo problems built with ``sharding=feature_sharding(mesh)``: an NCCL
+    world of one rank (JOS1 at n = 10^6, 100 fixed steps at 1/L; FDS at
+    n = 10^5, 20 fixed steps at ``check_every=1``), each bitwise the
+    unsharded card solve in every State field; two Gloo ranks sharing the
+    card (those two and JOS1 by backtracking, 20 iterations): equal nit,
+    x within 1e-8 (m = 2) and 1e-6 (m = 3) of the unsharded card solve,
+    both ranks' x bitwise equal; a 1x2 batch of JOS1 (64 lanes, n = 10^4,
+    30 fixed steps) on the two ranks, each lane in the m = 2 class of the
+    unsharded card batch; walls and all-reduces per outer iteration
+    beside, and no fused-kernel launch.
 16. the two-axis mesh, four spawned processes sharing the card over
     Gloo: (a) the headline LASSO in float64 (A cast) as a 16-lane lambda
     sweep, geometric 0.005-0.05, backtracking from 1/L, on 2 (batch) x 2
@@ -3830,6 +3843,175 @@ def phase15d(card: str) -> dict:
     return rows[0]
 
 
+#: Phase 15e: feature-sharded solves with two and three objectives, float64.
+#: JOS1 at large_lasso's width, l1 ratios 0.1/n (f = ||x||^2/n: at ratios
+#: of 0.1 the prox at lr = 1/L = n/2 zeroes every feature in the first
+#: step), shifts (0, -1), from U(-2, 4): 100 fixed steps at 1/L and 20
+#: backtracking iterations (tol 0, Nesterov); FDS at n = 10^5, l1 ratios 0.1,
+#: from U(-2, 2): 20 fixed steps at 1/L of its stiffest objective at x0
+#: (f1's Hessian diagonal); the 1x2 batch: JOS1 at n = 10^4, 64 lanes, 30
+#: fixed steps at 1/L.
+JOS1_15E_N, FDS_15E_N, BATCH_15E_N, BATCH_15E_LANES = 1_000_000, 100_000, 10_000, 64
+JOS1_15E_STEPS, BT_15E_ITERS, FDS_15E_STEPS, BATCH_15E_STEPS = 100, 20, 20, 30
+#: The classes against the unsharded card solve: equal nit, x within these
+#: (m = 2, m = 3); seconds a Gloo collective waits for the other rank.
+X15E_TOL, GLOO_15E_TIMEOUT = {2: 1e-8, 3: 1e-6}, 300
+
+
+def jos1_15e(n: int, sharding=None):
+    """Phase 15e's JOS1 at ``n`` features and its fixed step 1/L."""
+    from zfista_tpu_torch.models import JOS1
+
+    # Both objectives' Hessians are 2/n I.
+    return JOS1(n, l1_ratios=[0.1 / n] * 2, l1_shifts=[0.0, -1.0], sharding=sharding), n / 2
+
+
+def problems15e(sharding=None) -> dict:
+    """Phase 15e's single solves: name -> (problem, x0 as numpy, the solve's
+    keywords), on ``sharding``'s feature blocks when given."""
+    from zfista_tpu_torch.models import FDS
+
+    jos1, lr_j = jos1_15e(JOS1_15E_N, sharding)
+    x_j = np.random.default_rng(15).uniform(-2.0, 4.0, JOS1_15E_N)
+    n = FDS_15E_N
+    x_f = np.random.default_rng(16).uniform(-2.0, 2.0, n)
+    k = np.arange(1, n + 1)
+    lr_f = 1.0 / float(np.max(12 * k * (x_f - k) ** 2) / n**2)
+    return {
+        "jos1_fixed": (jos1, x_j, dict(decay_rate=1, lr=lr_j, nesterov=True, tol=0.0,
+                                       max_iter=JOS1_15E_STEPS)),
+        "jos1_backtracking": (jos1, x_j, dict(nesterov=True, tol=0.0, max_iter=BT_15E_ITERS)),
+        "fds_fixed": (FDS(n, l1_ratios=[0.1] * 3, sharding=sharding), x_f,
+                      dict(decay_rate=1, lr=lr_f, tol=0.0, check_every=1, max_iter=FDS_15E_STEPS)),
+    }
+
+
+def batch15e(sharding=None) -> tuple:
+    """Phase 15e (c)'s batch: (problem, x0s as numpy, the solve's keywords)."""
+    jos1, lr = jos1_15e(BATCH_15E_N, sharding)
+    x0s = np.random.default_rng(17).uniform(-2.0, 4.0, (BATCH_15E_LANES, BATCH_15E_N))
+    return jos1, x0s, dict(decay_rate=1, lr=lr, nesterov=True, tol=0.0, max_iter=BATCH_15E_STEPS)
+
+
+def timed_solve(run) -> tuple:
+    """``run()`` with its wall (synchronised), the all-reduces it issued and
+    the fused kernel's launches."""
+    from zfista_tpu_torch.ops import fused
+    from zfista_tpu_torch.parallel import sharding as shd
+
+    torch.cuda.synchronize()
+    before, launched = dict(shd.collective_counts), dict(fused.launch_counts)
+    t0 = time.perf_counter()
+    res = quiet(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: shd.collective_counts[k] - before[k] for k in before}
+    return res, wall, counts, {k: fused.launch_counts[k] - launched[k] for k in launched}
+
+
+def phase15e_rank(rank: int, port: int, device: str, world: int, out) -> None:
+    """One of phase 15e's ranks on ``device`` (card 0): with ``world`` 1 an
+    NCCL world of one rank, (a)'s fixed-step solves from a 1x1 mesh's
+    blocks; else a Gloo rank, every single solve on the features' blocks
+    (a 1 x ``world`` mesh) and (c)'s batch on it.  Puts (rank, results)
+    on ``out``."""
+    warnings.simplefilter("ignore")
+    from zfista_tpu_torch.parallel import distributed
+    from zfista_tpu_torch.parallel import sharding as shd
+
+    dev = torch.device(device)
+    nccl = world == 1
+    distributed.initialize(
+        f"localhost:{port}", world, rank, local_device_ids=None if dev.index is None else [dev.index],
+        backend="nccl" if nccl else "gloo", timeout=GLOO_15E_TIMEOUT,
+    )
+    try:
+        fs = shd.feature_sharding(distributed.global_mesh(batch=1, model=world))
+        cases = problems15e(fs)
+        if nccl:
+            del cases["jos1_backtracking"]  # (b) takes it
+        else:
+            cases["batch"] = batch15e(fs)
+        got: dict = {}
+        for name, (prob, x0, kw) in cases.items():
+            solve = prob.solve_batch if name == "batch" else prob.solve
+            res, wall, counts, launched = timed_solve(lambda: solve(x0, device=dev, **kw))
+            got[name] = dict(x=res.x, nit=np.asarray(res.nit), status=np.asarray(res.status), wall=wall,
+                             counts=counts, launched=launched, block=prob.block_size,
+                             state=tuple(np.asarray(v) for v in res.state),
+                             nit_internal=np.asarray(res.nit_internal),
+                             same=distributed.all_processes_allclose(res.x, atol=0, rtol=0))
+        out.put((rank, got))
+    finally:
+        distributed.shutdown()
+
+
+def phase15e(card: str, dev) -> dict:
+    """Feature-sharded solves with two and three objectives on the card,
+    float64: (a) an NCCL world of one rank, JOS1 (m = 2) and FDS (m = 3)
+    from a ``feature_sharding`` block bitwise the unsharded card solve in
+    every State field; (b) two Gloo ranks sharing the card, JOS1 by the
+    fixed step and by backtracking in the m = 2 class of the unsharded
+    card solve and FDS in the m = 3 class, both ranks' x bitwise equal; (c)
+    a 1x2 batch of JOS1 on the two ranks, each lane in the m = 2 class of
+    the unsharded card batch.  Walls and all-reduces per outer iteration
+    beside; no phase-15e run launches the fused kernel.  The three ranks
+    run in spawned processes, at once, while this process computes the
+    unsharded references."""
+    one = start_ranks(phase15e_rank, 1, (str(dev), 1))
+    pair = start_ranks(phase15e_rank, GLOO_RANKS, (str(dev), GLOO_RANKS))
+    try:
+        refs = {}
+        for name, (prob, x0, kw) in problems15e().items():
+            refs[name] = timed_solve(lambda: prob.solve(torch.as_tensor(x0, device=dev), **kw))
+        prob, x0s, kw = batch15e()
+        refs["batch"] = timed_solve(lambda: prob.solve_batch(torch.as_tensor(x0s, device=dev), **kw))
+        worlds = {1: collect_ranks("phase 15e (a)", *one), GLOO_RANKS: collect_ranks("phase 15e", *pair)}
+    finally:
+        for p in one[0] + pair[0]:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    cases = dict(problems15e(), batch=batch15e())
+    for world, ranks in worlds.items():
+        for name, (prob, _, _) in cases.items():
+            if name not in ranks[0]:
+                continue
+            ref, ref_wall, ref_counts, _ = refs[name]
+            m = prob.n_objectives
+            for r, g in sorted((r, got[name]) for r, got in ranks.items()):
+                nit = int(np.max(g["nit"]))
+                dx = float(np.max(np.abs(g["x"] - ref.x)))
+                differ = [k for k, u, v in zip(ref.state._fields, g["state"], ref.state)
+                          if not np.array_equal(u, v)]
+                part = "a" if world == 1 else "c" if name == "batch" else "b"
+                where = "NCCL world of 1" if world == 1 else f"Gloo rank {r}/{world} on {dev}"
+                log(
+                    f"phase 15e ({part}) [{card}]: {where}, {name} (n={prob.n_features}, m={m}, block of "
+                    f"{g['block']}, float64{f', {BATCH_15E_LANES} lanes on a 1x2 mesh' if name == 'batch' else ''}): "
+                    f"nit {g['nit'].tolist()} nit_internal {g['nit_internal'].tolist()} status "
+                    f"{g['status'].tolist()} (unsharded {np.asarray(ref.nit).tolist()}, "
+                    f"{np.asarray(ref.nit_internal).tolist()}); max|x - x_unsharded| {dx!r} (bound "
+                    f"{0.0 if world == 1 else X15E_TOL[m]}); State fields not bitwise the unsharded "
+                    f"card solve's: {differ}; x bitwise on every rank: {g['same']}; wall {g['wall']:.3f} s, "
+                    f"{1e3 * g['wall'] / nit:.2f} ms an outer iteration (unsharded {ref_wall:.3f} s; "
+                    f"the three ranks and this process share the card); all-reduces {g['counts']}, "
+                    f"{g['counts']['sum'] / nit:.2f} sums and {g['counts']['max'] / nit:.2f} maxima an "
+                    f"outer iteration; fused kernel launches {g['launched']}"
+                )
+                same_nit = np.array_equal(g["nit"], np.asarray(ref.nit))
+                if world == 1 and (differ or not same_nit):
+                    raise AssertionError(f"phase 15e (a): {name} on a world of one differs from unsharded")
+                if not (same_nit and np.array_equal(g["status"], np.asarray(ref.status))
+                        and dx <= X15E_TOL[m] and g["same"]):
+                    raise AssertionError(f"phase 15e: rank {r}'s {name} is outside the m = {m} class")
+                if any(g["launched"].values()):
+                    raise AssertionError(f"phase 15e: rank {r}'s {name} launched the fused kernel")
+            if not all(np.array_equal(ranks[0][name]["x"], got[name]["x"]) for got in ranks.values()):
+                raise AssertionError(f"phase 15e: the ranks' {name} x differ")
+    return {name: worlds[GLOO_RANKS][0][name]["wall"] for name in cases}
+
+
 #: Phase 16: the two-axis ("batch", "model") mesh of four Gloo ranks on the
 #: card, the headline LASSO in float64 (A cast: 80 MB a rank's block).
 MESH16, SWEEP16_LANES, WIDE16_LANES, WIDE16_STEPS = (2, 2), 16, 64, 200
@@ -3853,12 +4035,11 @@ def free_port() -> int:
         return s_.getsockname()[1]
 
 
-def run_ranks(label: str, target, world: int, args: tuple, timeout: float = 600) -> dict:
-    """``target(rank, port, *args, out)`` in ``world`` spawned processes
-    (they re-import this module); returns each rank's result from ``out``,
-    by rank.  A rank that fails fails the phase."""
+def start_ranks(target, world: int, args: tuple) -> tuple:
+    """``target(rank, port, *args, out)`` started in ``world`` spawned
+    processes (they re-import this module); :func:`collect_ranks` takes
+    their results."""
     import multiprocessing as mp
-    import queue as queue_mod
 
     port = free_port()
     ctx = mp.get_context("spawn")
@@ -3866,10 +4047,18 @@ def run_ranks(label: str, target, world: int, args: tuple, timeout: float = 600)
     procs = [ctx.Process(target=target, args=(r, port, *args, out)) for r in range(world)]
     for p in procs:
         p.start()
+    return procs, out
+
+
+def collect_ranks(label: str, procs: list, out, timeout: float = 600) -> dict:
+    """Each rank's result from ``out``, by rank, within ``timeout`` seconds;
+    a rank that fails fails the phase.  Stops every process."""
+    import queue as queue_mod
+
     ranks = {}
     deadline = time.monotonic() + timeout
     try:
-        while len(ranks) < world:  # drained before the joins
+        while len(ranks) < len(procs):  # drained before the joins
             try:
                 r, got = out.get(timeout=5.0)
                 ranks[r] = got
@@ -3886,6 +4075,13 @@ def run_ranks(label: str, target, world: int, args: tuple, timeout: float = 600)
                 p.kill()
                 p.join()
     return ranks
+
+
+def run_ranks(label: str, target, world: int, args: tuple, timeout: float = 600) -> dict:
+    """``target(rank, port, *args, out)`` in ``world`` spawned processes
+    (they re-import this module); returns each rank's result from ``out``,
+    by rank.  A rank that fails fails the phase."""
+    return collect_ranks(label, *start_ranks(target, world, args), timeout=timeout)
 
 
 def batch_fields(r) -> dict:
@@ -4386,7 +4582,7 @@ PHASES = (
     "12a", "12b", "12c", "12d", "12e", "12f",
     "13a", "13b", "13c", "13d", "13e", "13f", "13g",
     "14a", "14b", "14c", "14d", "14e",
-    "15a", "15b", "15c", "15d", "16",
+    "15a", "15b", "15c", "15d", "15e", "16",
 )
 
 
@@ -4645,6 +4841,7 @@ def main(argv: list[str] | None = None) -> None:
         ("15b", "15b", lambda: card15.update(b=phase15b(smi, dev, lz()["A_np"], lz()["b_np"], lz()["lr"]))),
         ("15c", "15c", lambda: card15.update(c=phase15c(smi, dev))),
         ("15d", "15d", lambda: card15.update(d=phase15d(smi))),
+        ("15e", "15e", lambda: phase15e(smi, dev)),
         ("16", "16", lambda: phase16(smi, dev)),
     )
     # Steps that more than their own name selects: 14a's card run serves

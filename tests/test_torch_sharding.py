@@ -160,6 +160,40 @@ def test_world_of_one_feature_sharded_solve_is_the_unsharded_solve(monkeypatch):
     np.testing.assert_array_equal(r_sh.x, r.x)
 
 
+@pytest.mark.parametrize(
+    "cls, kw, opts",
+    [
+        ("JOS1", dict(n_features=16, l1_ratios=[1 / 16, 1 / 16]),
+         dict(decay_rate=1, lr=1.0, nesterov=True, max_iter=20)),
+        ("FDS", dict(n_features=16, l1_ratios=[1 / 16] * 3), dict(decay_rate=1, lr=0.1, max_iter=10)),
+    ],
+)
+def test_world_of_one_feature_sharded_multiobjective_is_the_unsharded_solve(cls, kw, opts):
+    """JOS1 (m = 2) and FDS (m = 3) built on a 1x1 mesh's feature sharding
+    and started from a ``feature_sharding`` block take the feature-sharded
+    path (the dual's sums and the Hessian through ``feature_sum``), and are
+    bitwise the unsharded solve: the single solve and the batch, every
+    field."""
+    from zfista_tpu_torch.models import zoo
+
+    mesh = td.global_mesh()
+    rng = np.random.default_rng(7)
+    x0, X = rng.uniform(-2, 2, 16), rng.uniform(-2, 2, (4, 16))
+    sharded = getattr(zoo, cls)(**kw, sharding=ts.feature_sharding(mesh))
+    plain = getattr(zoo, cls)(**kw)
+    got = sharded.solve(td.distribute_global(x0, mesh, P("model"), device=CPU), **opts)
+    want = plain.solve(torch.as_tensor(x0), **opts)
+    assert got.nit == want.nit == opts["max_iter"] and got.nit_internal == want.nit_internal
+    for name, u, v in zip(want.state._fields, got.state, want.state):
+        np.testing.assert_array_equal(u, v, err_msg=name)
+    got_b = sharded.solve_batch(torch.as_tensor(X), **opts)
+    want_b = plain.solve_batch(torch.as_tensor(X), **opts)
+    for k in ("x", "nit", "nit_internal", "fun", "status"):
+        np.testing.assert_array_equal(got_b[k], want_b[k], err_msg=k)
+    for name, u, v in zip(want_b.state._fields, got_b.state, want_b.state):
+        np.testing.assert_array_equal(u, v, err_msg=name)
+
+
 def test_groups_of_a_feature_sharded_operator_are_not_ported():
     """Once not ported, now run: GroupLasso and a lane batch on a
     feature-sharded operator (a world of one: the unsharded results)."""

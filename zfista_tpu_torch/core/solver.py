@@ -55,13 +55,19 @@ the rest of the tail runs as launches of their own.
 
 A start ``x0`` that is this rank's block of a feature-sharded iterate
 (tagged by :mod:`zfista_tpu_torch.parallel.sharding`, as
-``Lasso.solve_fixed_step`` lays it out from its operator) makes the solve
-feature-sharded: the problem callables reduce over the ``"model"`` ranks
-themselves, the step all-reduces its convergence test (``max|x − y|``,
-NaN carried) and its other sums over features, and the facade returns the
-whole ``x`` on every rank.  Such a step takes the composed tail around
-``fused_prox_momentum``: the one-launch tail decides convergence inside
-the kernel from a block's max, and ranks would stop on different steps.
+``Lasso.solve_fixed_step`` lays it out from its operator, or a zoo
+``Problem`` built with ``sharding=``) makes the solve feature-sharded, at
+any objective count: the problem callables reduce over the ``"model"``
+ranks themselves, the step all-reduces its convergence test (``max|x −
+y|``, NaN carried) and its other sums over features (the m = 2
+bisection's and the m >= 3 Newton dual's too,
+:mod:`zfista_tpu_torch.core.subproblem`), and the facade returns the
+whole ``x`` on every rank.  Such a step runs on the eager host-loop
+drivers: Gloo's collectives are not captured into CUDA graphs, so it is
+never ``capturable`` and has no ``carried_search``.  At m = 1 it takes the
+composed tail around ``fused_prox_momentum``: the one-launch tail decides
+convergence inside the kernel from a block's max, and ranks would stop on
+different steps.
 """
 
 from __future__ import annotations
@@ -260,6 +266,11 @@ def _make_step(
     ``feature_sum``/``feature_max`` (a feature-sharded solve; both or
     neither) all-reduce a sum or a NaN-carrying max over features across
     the ranks: the step's iterates are feature blocks, its scalars whole.
+    Every host decision of such a step (the accept test, the m >= 3 Newton
+    loop's exit, the convergence test, ``adaptive_restart``'s test) reads
+    values that are all-reduced or computed from such values, so every rank
+    holds them bit for bit and takes them alike; the step is never
+    ``capturable`` and has no ``carried_search``.
 
     ``track_objective=False`` (legal only for single-objective fixed-step
     solves with no history or verbose consumer) skips ``F(x) = f(x) +
@@ -620,20 +631,19 @@ def _make_batch_step(
     of them takes as many steps as its slowest lane takes trials (m <= 2)
     or Newton iterations (m >= 3) in all.
 
-    ``feature_sum``/``feature_max`` (lanes that are feature blocks, m == 1;
-    both or neither) all-reduce over the ``"model"`` ranks, as in
+    ``feature_sum``/``feature_max`` (lanes that are feature blocks, any
+    m; both or neither) all-reduce over the ``"model"`` ranks, as in
     :func:`_make_step`: each lane's ``max|x − y|`` (with ``‖x‖∞`` under
     ``tol_rel``) in one NaN-carrying all-reduce for every lane, and the
-    sums over features inside the subproblem and the restart test, so every
-    rank takes each lane's decisions alike.
+    sums over features inside the subproblem (the m = 2 bisection's and
+    the m >= 3 Newton dual's, Hessian included) and the restart test, so
+    every rank takes each lane's decisions alike: the rounds of trials and
+    of Newton iterations read values that every rank holds bit for bit.
+    Such a step stays round-based and eager (no ``capturable``, no
+    ``carried_search``): Gloo's collectives are not captured into graphs.
     """
     m = n_objectives
     sharded = feature_sum is not None
-    if sharded and m != 1:
-        raise NotImplementedError(
-            "a feature-sharded solve takes one objective (the LASSO family); "
-            f"this problem has {m}"
-        )
     fsum = feature_sum if sharded else _identity
     solve_sub = make_batch_subproblem_solver(
         g,
@@ -1586,9 +1596,9 @@ def minimize_proximal_gradient(
     ``device="cpu"`` asks for the CPU); every tensor of the solve stays
     there.  An ``x0`` tagged as a block of a feature-sharded iterate
     (``parallel.sharding.feature_sharding``) makes a feature-sharded
-    single-objective solve (see the module note; the callables reduce over
-    the ranks themselves); ``initial_state`` then holds whole iterates, as
-    the result does.
+    solve at any objective count (see the module note; the callables
+    reduce over the ranks themselves); ``initial_state`` then holds whole
+    iterates, as the result does.
 
     Options, as in the JAX package: backtracking (``decay_rate < 1``) or a
     fixed step (``decay_rate == 1``), ``max_backtrack_iter``,
@@ -1679,11 +1689,6 @@ def minimize_proximal_gradient(
     f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
         f_b, g_b, jac_b, prox_b, x0
     )
-    if fsh is not None and m != 1:
-        raise NotImplementedError(
-            "a feature-sharded solve takes one objective (the LASSO family); "
-            f"this problem has {m}"
-        )
 
     if check_every is None:
         check_every = _default_check_every(

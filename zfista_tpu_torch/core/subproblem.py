@@ -45,6 +45,22 @@ with :math:`u_w = y - lr\,J^\top w` and
   one iteration a step, with no read.
 
 ``SubproblemResult.nit`` adds up exactly as the JAX package's does.
+
+On a feature-sharded solve each rank holds a block of ``y`` and of the
+Jacobian's columns, and the weight ``w`` is the same on every rank.  The
+dual's sums over features are all-reduced (``feature_sum``, one
+all-reduce for every lane and trial under ``vmap``); ``g`` reduces its
+own.  The Hessian takes the first of two exact routes: the all-reduce's
+derivative is the identity on this rank's operand (the other ranks'
+operands held fixed; :mod:`zfista_tpu_torch.parallel.sharding`), so
+``jacrev`` gives each rank its blocks' share of ``d grad / dw``, and one
+more all-reduce sums the shares (:func:`dual_hessian`).  That sum is the
+whole Hessian because every path from ``w`` to the gradient crosses one
+all-reduce, ``g``'s or the product ``J (x_w - y)``'s: the prox is
+elementwise and the shift does not depend on ``w``.  The other route, a
+forward-mode rule that all-reduces each tangent, would need eager
+forward mode, the slow one here.  Every rank gets the same bits, so every
+rank takes the same host decisions.
 """
 
 from __future__ import annotations
@@ -82,14 +98,23 @@ class _Dual(NamedTuple):
     value_and_primal: Callable[[Array], tuple[Array, Array]]
 
 
-def _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated: bool) -> _Dual:
+def _make_dual(
+    f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated: bool, feature_sum=None
+) -> _Dual:
     """Closures for the dual objective and gradient at a weight ``w``.
 
     The JAX version returns ``value_and_grad`` and lets XLA drop whichever
     half a caller ignores; eager PyTorch has no dead-code elimination, so
     the gradient-only and value-only halves are closures of their own.
+
+    ``feature_sum`` (``y`` and ``jac_f_y`` are a rank's feature blocks,
+    and ``g`` reduces over the ranks itself) all-reduces the sums over
+    features: the gradient's product ``J (x_w - y)`` is one all-reduce, the
+    value's two squared norms another, and ``value_and_grad`` takes all
+    three in one.  The prox is elementwise and stays local.
     """
     shift = torch.zeros_like(f_y) if deprecated else F_old - f_y
+    fsum = feature_sum if feature_sum is not None else (lambda v: v)
 
     def _eval(w: Array):
         wsum_jac = _DOT(w, jac_f_y)
@@ -97,34 +122,61 @@ def _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated: bool) -> 
         x_w = prox_wsum_g(lr * w, u)
         return wsum_jac, u, x_w
 
-    def _fun(w, wsum_jac, u, x_w, g_xw):
+    def _sums(wsum_jac, u, x_w, product: bool):
+        """``(||x_w - u||^2, ||J^T w||^2, J (x_w - y) or None)``."""
         diff = x_w - u
-        return (
-            -_VDOT(w, g_xw)
-            - _VDOT(diff, diff) / (2 * lr)
-            + (lr / 2) * _VDOT(wsum_jac, wsum_jac)
-            + _VDOT(w, shift)
-        )
+        dd, jj = _VDOT(diff, diff), _VDOT(wsum_jac, wsum_jac)
+        prod = _DOT(jac_f_y, x_w - y) if product else None
+        if feature_sum is None:
+            return dd, jj, prod
+        s = feature_sum(torch.cat([dd[None], jj[None]] + ([prod] if product else [])))
+        return s[0], s[1], s[2:] if product else None
+
+    def _fun(w, g_xw, dd, jj):
+        return -_VDOT(w, g_xw) - dd / (2 * lr) + (lr / 2) * jj + _VDOT(w, shift)
 
     def grad(w: Array) -> Array:
         _, _, x_w = _eval(w)
-        return -g(x_w) - _DOT(jac_f_y, x_w - y) + shift
+        return -g(x_w) - fsum(_DOT(jac_f_y, x_w - y)) + shift
 
     def value(w: Array) -> Array:
         wsum_jac, u, x_w = _eval(w)
-        return _fun(w, wsum_jac, u, x_w, g(x_w))
+        dd, jj, _ = _sums(wsum_jac, u, x_w, False)
+        return _fun(w, g(x_w), dd, jj)
 
     def value_and_grad(w: Array):
         wsum_jac, u, x_w = _eval(w)
         g_xw = g(x_w)
-        fun = _fun(w, wsum_jac, u, x_w, g_xw)
-        return fun, -g_xw - _DOT(jac_f_y, x_w - y) + shift
+        dd, jj, prod = _sums(wsum_jac, u, x_w, True)
+        return _fun(w, g_xw, dd, jj), -g_xw - prod + shift
 
     def value_and_primal(w: Array):
         wsum_jac, u, x_w = _eval(w)
-        return _fun(w, wsum_jac, u, x_w, g(x_w)), x_w
+        dd, jj, _ = _sums(wsum_jac, u, x_w, False)
+        return _fun(w, g(x_w), dd, jj), x_w
 
     return _Dual(grad, value, value_and_grad, value_and_primal)
+
+
+def dual_hessian(grad: Callable[[Array], Array], w: Array, feature_sum=None) -> Array:
+    """The Jacobian of the dual gradient ``grad`` at ``w``, the Newton
+    step's generalized Hessian, by ``torch.func.jacrev``.
+
+    On feature blocks (``feature_sum``) the weight ``w`` is the same on
+    every rank, and ``grad`` reaches it through all-reduces whose
+    derivative is taken with respect to this rank's own operand
+    (:mod:`zfista_tpu_torch.parallel.sharding`): the cotangent passes
+    through each unchanged, so ``jacrev`` gives this rank's blocks' share
+    ``sum over its features of d(terms)/dw``.  The whole Hessian is the sum
+    of the shares over the ranks, one all-reduce, and the same bits on
+    every rank.  It is exact because every path from ``w`` to ``grad``
+    crosses one all-reduce: ``g``'s own sum over features or that of the
+    product ``J (x_w - y)``; ``x_w`` is elementwise in ``u = y - lr J^T w``
+    and ``shift`` does not depend on ``w``.  The JAX package gets the same
+    sum from XLA (``jax.jacfwd`` over a sharded program).
+    """
+    H = torch.func.jacrev(grad)(w)
+    return H if feature_sum is None else feature_sum(H)
 
 
 def solve_small_linear(K: Array, b: Array) -> Array:
@@ -177,9 +229,15 @@ def make_subproblem_solver(
 ) -> Callable[..., SubproblemResult]:
     """Build ``solve(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult``.
 
-    ``feature_sum`` (m == 1 only: the solver refuses a feature-sharded
-    solve of more objectives) all-reduces the model value's sums over
-    features across the ranks of a feature-sharded solve."""
+    ``feature_sum`` (a feature-sharded solve: ``y`` and ``jac_f_y`` are a
+    rank's feature blocks, ``g`` reduces over the ranks itself) all-reduces
+    the sums over features across the ranks: the m = 1 model value's, and
+    the dual's (:func:`_make_dual`) at m >= 2.  One m = 2 ``psi`` then
+    costs two all-reduces (``g``'s and the product's) and the bisection
+    reads nothing; one m >= 3 Newton iteration costs eight (see
+    :func:`make_newton`).  Every quantity a host decision reads (the
+    Newton loop's exit test, ``nit``) is computed from all-reduced values,
+    so every rank takes it alike."""
     m = n_objectives
     fsum = feature_sum if feature_sum is not None else (lambda v: v)
 
@@ -208,7 +266,9 @@ def make_subproblem_solver(
         )
 
         def solve_m2(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult:
-            dual = _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated)
+            dual = _make_dual(
+                f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated, feature_sum
+            )
 
             def psi(t):
                 # Directional derivative of phi along w = [t, 1-t].
@@ -247,7 +307,10 @@ def make_subproblem_solver(
 
     # m >= 3: semismooth projected Newton on the simplex (see the JAX
     # module for the design and make_newton here for the parts).
-    parts = make_newton(g, prox_wsum_g, m, tol=tol, max_iter=max_iter, deprecated=deprecated)
+    parts = make_newton(
+        g, prox_wsum_g, m, tol=tol, max_iter=max_iter, deprecated=deprecated,
+        feature_sum=feature_sum,
+    )
 
     def solve_mk(lr, F_old, y, f_y, jac_f_y, w0) -> SubproblemResult:
         """The JAX ``lax.while_loop`` as a host loop over
@@ -344,6 +407,7 @@ def make_newton(
     tol: float,
     max_iter: int,
     deprecated: bool = False,
+    feature_sum: Callable[[Array], Array] | None = None,
 ) -> NewtonParts:
     """The m >= 3 semismooth projected Newton solver of one lane as
     :class:`NewtonParts`: the JAX ``init``, ``body`` and ``cond`` of
@@ -359,22 +423,26 @@ def make_newton(
     ``vmap`` over the trials, its Jacobian expanded so that no product is
     one GEMM over them), so a trial's value does not depend on the trials
     or lanes beside it.  Every part runs under ``torch.func.vmap`` over
-    lanes (:func:`make_batch_newton`)."""
+    lanes (:func:`make_batch_newton`).
+
+    ``feature_sum`` (feature blocks, as :func:`make_subproblem_solver`
+    takes it) reduces the dual's sums, the scale's ``trace(J J^T)`` and
+    the Hessian (:func:`dual_hessian`) over the ranks.  One iteration then
+    costs eight all-reduces, each one for every lane and trial under
+    ``vmap``: the scale, ``g``'s and the dual's in ``value_and_grad``, the
+    two that ``jacrev`` runs forward and the Hessian's, ``g``'s and the
+    value's over the 80 arc trials at once (``g`` adds a max for a box)."""
     m = n_objectives
     newton_cap = min(max_iter, 30)
+    fsum = feature_sum if feature_sum is not None else (lambda v: v)
 
-    def setup(lr, F_old, y, f_y, jac_f_y):
-        dual = _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated)
-        # Gradient-mapping scale: trace(J Jᵀ) >= lambda_max, no eigensolver.
-        Ls = torch.clamp_min(lr * sum_hp(jac_f_y * jac_f_y), 1.0)
-        return dual, Ls
+    def dual_at(lr, F_old, y, f_y, jac_f_y) -> _Dual:
+        return _make_dual(f_y, jac_f_y, F_old, g, prox_wsum_g, lr, y, deprecated, feature_sum)
 
     def trial_values(W, lr, F_old, y, f_y, jac_f_y):
         """The dual's value at each row of ``W (T, m)``."""
         J = jac_f_y.expand(W.shape[0], *jac_f_y.shape)
-        value = lambda w, Jt: _make_dual(  # noqa: E731
-            f_y, Jt, F_old, g, prox_wsum_g, lr, y, deprecated
-        ).value(w)
+        value = lambda w, Jt: dual_at(lr, F_old, y, f_y, Jt).value(w)  # noqa: E731
         return torch.func.vmap(value)(W, J)
 
     def start(lr, F_old, y, f_y, jac_f_y, w0) -> Newton:
@@ -392,14 +460,16 @@ def make_newton(
         return c.done | (c.k >= newton_cap)
 
     def iterate(c: Newton, lr, F_old, y, f_y, jac_f_y) -> Newton:
-        dual, Ls = setup(lr, F_old, y, f_y, jac_f_y)
+        dual = dual_at(lr, F_old, y, f_y, jac_f_y)
+        # Gradient-mapping scale: trace(J Jᵀ) >= lambda_max, no eigensolver.
+        Ls = torch.clamp_min(lr * fsum(sum_hp(jac_f_y * jac_f_y)), 1.0)
         dtype, dev = y.dtype, y.device
         eps = _eps(dtype)
         delta = 1e-12 if dtype == torch.float64 else 1e-6
         stat_tol = max(tol, 100 * eps)
         w = c.w
         phi, grad = dual.value_and_grad(w)
-        H = torch.func.jacrev(dual.grad)(w) + delta * torch.eye(m, dtype=dtype, device=dev)
+        H = dual_hessian(dual.grad, w, feature_sum) + delta * torch.eye(m, dtype=dtype, device=dev)
 
         # Active set from the projected-gradient point (multiplier-correct
         # on the simplex): free iff w_pg > 0.
@@ -441,8 +511,7 @@ def make_newton(
         return Newton(*(torch.where(going, u, v) for u, v in zip(new, c)))
 
     def finish(c: Newton, lr, F_old, y, f_y, jac_f_y) -> SubproblemResult:
-        dual, _ = setup(lr, F_old, y, f_y, jac_f_y)
-        phi_star, x = dual.value_and_primal(c.w)
+        phi_star, x = dual_at(lr, F_old, y, f_y, jac_f_y).value_and_primal(c.w)
         return SubproblemResult(x=x, fun=-phi_star, weight=c.w, nit=c.nit)
 
     return NewtonParts(start, iterate, ended, finish)
@@ -489,9 +558,10 @@ def make_batch_subproblem_solver(
     is used: the m>=3 loops start with the others done, so they never run
     longer for them.  ``nit (B,)`` is each lane's own count, as the single
     solver counts it; ``fun`` is ``None`` when ``f_y`` is (m=1).
-    ``feature_sum`` (m == 1, lanes that are feature blocks) reduces the
-    model value's sums over the ranks inside ``vmap``: one all-reduce for
-    every lane (:func:`zfista_tpu_torch.parallel.sharding.all_reduce_sum`).
+    ``feature_sum`` (lanes that are feature blocks, any m) reduces the sums
+    over features over the ranks inside ``vmap``, as the single solver
+    does: one all-reduce for every lane
+    (:func:`zfista_tpu_torch.parallel.sharding.all_reduce_sum`).
     """
     m = n_objectives
 
@@ -538,7 +608,8 @@ def make_batch_subproblem_solver(
     # not live) passes through each iteration; a host loop runs them while
     # any lane iterates: one read per Newton round, whatever the lanes.
     newton = make_batch_newton(
-        g, prox_wsum_g, m, params, tol=tol, max_iter=max_iter, deprecated=deprecated
+        g, prox_wsum_g, m, params, tol=tol, max_iter=max_iter, deprecated=deprecated,
+        feature_sum=feature_sum,
     )
 
     def solve_mk_batched(lr, F_old, y, f_y, jac_f_y, w0, live) -> SubproblemResult:
@@ -562,6 +633,7 @@ def make_batch_newton(
     tol: float,
     max_iter: int,
     deprecated: bool = False,
+    feature_sum: Callable[[Array], Array] | None = None,
 ) -> NewtonParts:
     """:func:`make_newton`'s parts over a leading lane axis, with one
     lane's callables ``g(x, *p)`` and ``prox_wsum_g(w, x, *p)`` (params
@@ -572,7 +644,7 @@ def make_batch_newton(
     def lane(*p) -> NewtonParts:
         return make_newton(
             lambda x: g(x, *p), lambda w, x: prox_wsum_g(w, x, *p), n_objectives,
-            tol=tol, max_iter=max_iter, deprecated=deprecated,
+            tol=tol, max_iter=max_iter, deprecated=deprecated, feature_sum=feature_sum,
         )
 
     def start(lr, F_old, y, f_y, J, w0, *p):

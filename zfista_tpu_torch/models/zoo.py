@@ -6,6 +6,14 @@ formulas, default sizes and box bounds, each with its analytic Jacobian
 free of Python branches on tensor values, so ``torch.func`` transforms run
 through them.  Constants are host float64 arrays copied once per
 ``(dtype, device)``.
+
+The four problems whose size is a parameter (``JOS1``, ``FDS``, ``ZDT1``,
+``LinearFunctionRank1``) take ``sharding=feature_sharding(mesh)``
+(:class:`~zfista_tpu_torch.models.base.Problem`): each then computes on
+this rank's block of the features, its index-weighted constants taken at
+the block's global offset, and reduces every sum over features in one
+all-reduce per call.  ``SD``, ``TOI4`` and ``TRIDIA`` have 3-4 features
+and refuse a sharding.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.models.base import Problem
 from zfista_tpu_torch.ops.precision import dot_hp
 from zfista_tpu_torch.ops.prox import DeviceConstants
+from zfista_tpu_torch.parallel.sharding import NamedSharding
 
 _dot = dot_hp
 
@@ -38,12 +47,12 @@ class JOS1(Problem):
         l1_ratios: Sequence[float] | None = None,
         l1_shifts: Sequence[float] | None = None,
         bounds: tuple[Any, Any] | None = None,
+        sharding: NamedSharding | None = None,
     ) -> None:
-        super().__init__(n_features, 2, l1_ratios, l1_shifts, bounds)
+        super().__init__(n_features, 2, l1_ratios, l1_shifts, bounds, sharding)
 
     def f(self, x: Array) -> Array:
-        n = self.n_features
-        return torch.stack([_dot(x, x) / n, _dot(x - 2, x - 2) / n])
+        return self._fsum(torch.stack([_dot(x, x), _dot(x - 2, x - 2)])) / self.n_features
 
     def jac_f(self, x: Array) -> Array:
         n = self.n_features
@@ -57,8 +66,10 @@ class SD(Problem):
     _C1 = np.array([2.0, _SQRT2, _SQRT2, 1.0])
     _C2 = np.array([2.0, 2 * _SQRT2, 2 * _SQRT2, 2.0])
 
-    def __init__(self) -> None:
-        super().__init__(4, 2, bounds=(1e-6, math.inf))
+    shardable = False
+
+    def __init__(self, sharding: NamedSharding | None = None) -> None:
+        super().__init__(4, 2, bounds=(1e-6, math.inf), sharding=sharding)
         self._c = DeviceConstants(c1=self._C1, c2=self._C2)
 
     def f(self, x: Array) -> Array:
@@ -81,27 +92,29 @@ class FDS(Problem):
         l1_ratios: Sequence[float] | None = None,
         l1_shifts: Sequence[float] | None = None,
         bounds: tuple[Any, Any] | None = None,
+        sharding: NamedSharding | None = None,
     ) -> None:
-        super().__init__(n_features, 3, l1_ratios, l1_shifts, bounds)
+        super().__init__(n_features, 3, l1_ratios, l1_shifts, bounds, sharding)
         k = np.arange(1, n_features + 1)
-        # k * (n - k + 1), the triangular convolution weights of f3
-        self._c = DeviceConstants(k=k, conv=k * k[::-1])
+        # k * (n - k + 1), the triangular convolution weights of f3 (the
+        # block's, at its global offset)
+        self._c = DeviceConstants(k=self._features(k), conv=self._features(k * k[::-1]))
 
     def f(self, x: Array) -> Array:
         n = self.n_features
         c = self._c.on(x)
         k = c["k"]
-        f1 = _dot(k, (x - k) ** 4) / n**2
-        f2 = torch.exp(torch.sum(x) / n) + _dot(x, x)
-        f3 = _dot(c["conv"], torch.exp(-x)) / (n * (n + 1))
-        return torch.stack([f1, f2, f3])
+        s = self._fsum(torch.stack(
+            [_dot(k, (x - k) ** 4), self._sum(x), _dot(x, x), _dot(c["conv"], torch.exp(-x))]
+        ))
+        return torch.stack([s[0] / n**2, torch.exp(s[1] / n) + s[2], s[3] / (n * (n + 1))])
 
     def jac_f(self, x: Array) -> Array:
         n = self.n_features
         c = self._c.on(x)
         k = c["k"]
         j1 = 4 / n**2 * k * (x - k) ** 3
-        j2 = torch.exp(torch.sum(x) / n) / n + 2 * x
+        j2 = torch.exp(self._fsum(self._sum(x)) / n) / n + 2 * x
         j3 = -c["conv"] * torch.exp(-x) / (n * (n + 1))
         return torch.stack([j1, j2, j3])
 
@@ -110,18 +123,39 @@ class ZDT1(Problem):
     r"""Classic ZDT1 with sqrt coupling (Zitzler, Deb & Thiele 2000),
     default n=30, bounds (1e-6, inf)."""
 
-    def __init__(self, n_features: int = 30) -> None:
-        super().__init__(n_features, 2, bounds=(1e-6, math.inf))
+    def __init__(self, n_features: int = 30, sharding: NamedSharding | None = None) -> None:
+        super().__init__(n_features, 2, bounds=(1e-6, math.inf), sharding=sharding)
+        # 1 at the global feature 0 (on the first block), 0 elsewhere.
+        self._c = DeviceConstants(first=self._features(np.arange(n_features) == 0))
+
+    def _head(self, x: Array) -> tuple[Array, Array]:
+        """``(x[0], h)`` of a block: ``x[0]`` lives on the first block, so it
+        travels masked (``-0.0`` elsewhere, an exact zero for the sum) in the
+        one all-reduce that also sums ``x[1:]``."""
+        n = self.n_features
+        first = self._c.on(x)["first"] > 0
+        mine = torch.where(first, x, -0.0)
+        s = self._fsum(torch.stack([self._sum(mine), self._sum(torch.where(first, -0.0, x))]))
+        return s[0], 1 + 9 / (n - 1) * s[1]
 
     def f(self, x: Array) -> Array:
         n = self.n_features
-        f1 = x[0]
-        h = 1 + 9 / (n - 1) * torch.sum(x[1:])
+        if self._sharded:
+            f1, h = self._head(x)
+        else:
+            f1 = x[0]
+            h = 1 + 9 / (n - 1) * torch.sum(x[1:])
         f2 = h * (1 - torch.sqrt(f1 / h))
         return torch.stack([f1, f2])
 
     def jac_f(self, x: Array) -> Array:
         n = self.n_features
+        if self._sharded:
+            x0, h = self._head(x)
+            first = self._c.on(x)["first"]
+            tail = 9 * (2 - torch.sqrt(x0 / h)) / (2 * (n - 1))
+            head = -torch.sqrt(h / x0) / 2
+            return torch.stack([first, torch.where(first > 0, head, tail)])
         h = 1 + 9 / (n - 1) * torch.sum(x[1:])
         # The JAX .at[0].set writes, as concatenations.
         e0 = torch.cat(
@@ -136,13 +170,16 @@ class ZDT1(Problem):
 class TOI4(Problem):
     r"""Partially separable quadratics (Toint 1983, problem 4), n=4."""
 
+    shardable = False
+
     def __init__(
         self,
         l1_ratios: Sequence[float] | None = None,
         l1_shifts: Sequence[float] | None = None,
         bounds: tuple[Any, Any] | None = None,
+        sharding: NamedSharding | None = None,
     ) -> None:
-        super().__init__(4, 2, l1_ratios, l1_shifts, bounds)
+        super().__init__(4, 2, l1_ratios, l1_shifts, bounds, sharding)
 
     def f(self, x: Array) -> Array:
         f1 = x[0] ** 2 + x[1] ** 2 + 1
@@ -161,13 +198,16 @@ class TOI4(Problem):
 class TRIDIA(Problem):
     r"""Tridiagonal quadratics (Toint 1983), n=3, m=3."""
 
+    shardable = False
+
     def __init__(
         self,
         l1_ratios: Sequence[float] | None = None,
         l1_shifts: Sequence[float] | None = None,
         bounds: tuple[Any, Any] | None = None,
+        sharding: NamedSharding | None = None,
     ) -> None:
-        super().__init__(3, 3, l1_ratios, l1_shifts, bounds)
+        super().__init__(3, 3, l1_ratios, l1_shifts, bounds, sharding)
 
     def f(self, x: Array) -> Array:
         return torch.stack(
@@ -200,18 +240,23 @@ class LinearFunctionRank1(Problem):
         l1_ratios: Sequence[float] | None = None,
         l1_shifts: Sequence[float] | None = None,
         bounds: tuple[Any, Any] | None = None,
+        sharding: NamedSharding | None = None,
     ) -> None:
-        super().__init__(n_features, n_objectives, l1_ratios, l1_shifts, bounds)
+        super().__init__(n_features, n_objectives, l1_ratios, l1_shifts, bounds, sharding)
         self._c = DeviceConstants(
-            i=np.arange(1, n_objectives + 1), j=np.arange(1, n_features + 1)
+            i=np.arange(1, n_objectives + 1), j=self._features(np.arange(1, n_features + 1))
         )
+
+    def _jx(self, x: Array) -> Array:
+        """``<j, x>`` over every feature."""
+        return self._fsum(_dot(self._c.on(x)["j"], x))
 
     def f(self, x: Array) -> Array:
         c = self._c.on(x)
-        return (c["i"] * _dot(c["j"], x) - 1) ** 2
+        return (c["i"] * self._jx(x) - 1) ** 2
 
     def jac_f(self, x: Array) -> Array:
         c = self._c.on(x)
         i, j = c["i"], c["j"]
-        r = i * _dot(j, x) - 1  # (m,)
+        r = i * self._jx(x) - 1  # (m,)
         return 2 * (i * r)[:, None] * j[None, :]

@@ -27,6 +27,7 @@ Gloo and holds their sharded solves against unsharded ones.
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 from typing import Any, Sequence
 
@@ -57,6 +58,7 @@ def initialize(
     process_id: int | None = None,
     local_device_ids: Sequence[int] | None = None,
     backend: str | None = None,
+    timeout: float | None = None,
 ) -> None:
     """Join (or create) the process group.
 
@@ -72,6 +74,10 @@ def initialize(
     A Gloo rank without ``local_device_ids`` leaves the current device as
     it is, and its data go where the caller puts them
     (:func:`~zfista_tpu_torch.parallel.sharding.rank_device`'s ``device``).
+
+    ``timeout`` (seconds; default the backend's) bounds how long a
+    collective waits for the other ranks: a rank that stops taking part
+    makes the others raise instead of waiting on.
 
     Idempotent: a second call with the same arguments does nothing; one
     with other arguments, or after a process group this module did not
@@ -89,6 +95,7 @@ def initialize(
         coordinator_address, num_processes, process_id,
         None if local_device_ids is None else tuple(int(d) for d in local_device_ids),
         backend,
+        timeout,
     )
     if dist.is_initialized():
         if args == _INIT:
@@ -111,6 +118,8 @@ def initialize(
         torch.cuda.set_device(local)
         if backend == "nccl":
             kw["device_id"] = torch.device("cuda", local)
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id, **kw,

@@ -41,7 +41,6 @@ import torch
 import torch.distributed as dist
 
 from zfista_tpu_torch.core.solver import data_device
-from zfista_tpu_torch.ops.precision import _over_lanes
 
 AXIS_NAMES = ("batch", "model")
 #: The attribute that tags a local block with its placement.
@@ -315,17 +314,6 @@ def shard_batch(x0s: Any, mesh: Mesh | None = None, device: Any = None) -> torch
 #: All-reduces this process has issued, by kind ("sum", "max", "gather"):
 #: the tests and ``chip_smoke.py`` count collectives per step with it.
 collective_counts = {"sum": 0, "max": 0, "gather": 0}
-#: The process groups the collectives below were called on, by the key the
-#: custom operators take (an operator's arguments cannot be a group).
-_GROUPS: list = []
-
-
-def _group_key(group) -> int:
-    for i, g in enumerate(_GROUPS):
-        if g is group:
-            return i
-    _GROUPS.append(group)
-    return len(_GROUPS) - 1
 
 
 def _sum_now(t: torch.Tensor, group) -> torch.Tensor:
@@ -345,41 +333,86 @@ def _max_now(t: torch.Tensor, group) -> torch.Tensor:
     return torch.where(packed[k:] > 0, torch.nan, packed[:k]).reshape(t.shape)
 
 
-# The two reductions as operators with a batching rule, so that the
-# callables the batch solver runs under ``torch.func.vmap`` can reduce over
-# the ranks: ``dist.all_reduce`` writes in place and cannot run on a lane
-# of a vmapped tensor.  The rule reduces the whole tensor of every lane at
-# once, so a vmapped product costs one all-reduce for all of a rank's
-# lanes, never one per lane.  Each element is reduced alone, so every lane
-# gets the bits a call on that lane alone would give.
-@torch.library.custom_op("zfista_tpu_torch::all_reduce_sum", mutates_args=())
-def _sum_op(t: torch.Tensor, group: int) -> torch.Tensor:
-    return _sum_now(t, _GROUPS[group])
+# The two reductions as ``torch.autograd.Function``s with a batching rule
+# and derivatives, so that the callables the solvers run under
+# ``torch.func`` transforms can reduce over the ranks: ``dist.all_reduce``
+# writes in place and cannot run on a lane of a vmapped tensor or on a
+# tensor that ``jacrev`` tracks.  The batching rule reduces the whole tensor
+# of every lane at once, so a vmapped product costs one all-reduce for all
+# of a rank's lanes (or an arc's trials), never one per lane.  Each element
+# is reduced alone, so every lane gets the bits a call on that lane alone
+# would give.
+#
+# The derivative of the sum is taken with respect to this rank's own
+# operand, the other ranks' operands held fixed: ``Σ_r t_r`` moves with
+# ``t`` as ``t`` itself does, so the tangent (forward mode) and the
+# cotangent (reverse mode) pass through unchanged and nothing is
+# communicated for them.  For an input that is a rank's feature block that
+# is its block of the whole Jacobian.  For an input that every rank holds
+# alike (the m >= 3 dual's weight), the whole derivative is the sum over
+# the ranks of what each rank computes, one more all-reduce: exact when
+# every path from the input to the output crosses one all-reduce
+# (:func:`zfista_tpu_torch.core.subproblem.dual_hessian`).  The max is a
+# test (bounds, convergence) and carries no derivative.
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(t: torch.Tensor, group) -> torch.Tensor:
+        return _sum_now(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+    @staticmethod
+    def jvp(ctx, t_dot, _group):
+        return t_dot
+
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        return _AllReduceSum.apply(t, group), in_dims[0]
 
 
-@_sum_op.register_vmap
-def _sum_op_lanes(info, in_dims, t, group):
-    return _sum_now(t, _GROUPS[group]), in_dims[0]
+class _AllReduceMax(torch.autograd.Function):
+    @staticmethod
+    def forward(t: torch.Tensor, group) -> torch.Tensor:
+        return _max_now(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def jvp(ctx, t_dot, _group):
+        return torch.zeros_like(t_dot)
+
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        return _AllReduceMax.apply(t, group), in_dims[0]
 
 
-@torch.library.custom_op("zfista_tpu_torch::all_reduce_max", mutates_args=())
-def _max_op(t: torch.Tensor, group: int) -> torch.Tensor:
-    return _max_now(t, _GROUPS[group])
-
-
-@_max_op.register_vmap
-def _max_op_lanes(info, in_dims, t, group):
-    return _max_now(t, _GROUPS[group]), in_dims[0]
+def _transformed(t: torch.Tensor) -> bool:
+    """Whether ``t`` is seen by a ``torch.func`` transform (``vmap``'s
+    lanes, ``jacrev``'s tracking)."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over the ranks of ``group`` (a fresh tensor); ``t``
     itself with no group.  Under ``torch.func.vmap`` one all-reduce serves
-    every lane."""
+    every lane; under ``torch.func.jacrev``/``jacfwd`` its derivative is
+    the identity (see the note above)."""
     if group is None:
         return t
-    if _over_lanes(t):
-        return _sum_op(t, _group_key(group))
+    if _transformed(t):
+        return _AllReduceSum.apply(t, group)
     return _sum_now(t, group)
 
 
@@ -398,8 +431,8 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     ``torch.func.vmap`` one for every lane."""
     if group is None:
         return t
-    if _over_lanes(t):
-        return _max_op(t, _group_key(group))
+    if _transformed(t):
+        return _AllReduceMax.apply(t, group)
     return _max_now(t, group)
 
 
