@@ -19,6 +19,7 @@ Each JAX batch is solved once per module (a vmapped JAX program takes
 seconds to compile on the CPU).
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import warnings
 
 import jax.numpy as jnp
@@ -176,19 +177,122 @@ def test_lane_sum_is_a_fixed_tree(n):
 
 
 def test_sweep_lanes_do_not_depend_on_the_lane_count():
-    """Every per-lane field of a backtracking λ sweep, its objective and
-    model value too, is bitwise the same for a lane solved among 16 or
-    among 4: the lane-sharded batch's contract."""
+    """Every per-lane field of a λ sweep, its objective and model value
+    too, is bitwise the same for a lane solved among 17 or among 1, 3, 4,
+    5 or 16, at any place among them, by backtracking and by the fixed
+    step: the lane-sharded batch's contract.  The sweep's products with
+    the shared operator are GEMMs, whose rounding would otherwise follow
+    the lane count."""
     A, b, _ = _dense(seed=3, m=24, n=40)
     fns = tl.make_lasso_lambda_sweep(A, b, device="cpu")
-    lams = np.linspace(0.01, 0.3, 16)
-    kw = dict(lr=1.0, decay_rate=0.5, nesterov=True, max_iter=300)
-    many = tb.minimize_proximal_gradient_batch(*fns, np.zeros((16, 40)), batch_params=lams,
+    lams = np.linspace(0.01, 0.3, 17)
+    lr = 1.0 / float(np.linalg.norm(A, 2) ** 2 * 2)
+    for kw in (dict(lr=1.0, decay_rate=0.5, nesterov=True, max_iter=300),
+               dict(lr=lr, decay_rate=1, nesterov=True, max_iter=300)):
+        many = tb.minimize_proximal_gradient_batch(*fns, np.zeros((17, 40)), batch_params=lams,
+                                                   device="cpu", **kw)
+        for width, start in ((1, 9), (3, 14), (4, 8), (5, 2), (16, 1)):
+            few = tb.minimize_proximal_gradient_batch(
+                *fns, np.zeros((width, 40)), batch_params=lams[start:start + width],
+                device="cpu", **kw)
+            for name, u, v in zip(State._fields, many.state, few.state):
+                np.testing.assert_array_equal(u[start:start + width], v,
+                                              err_msg=f"{name}, {width} lanes from {start}")
+
+
+def test_sweep_lanes_do_not_depend_on_their_block(monkeypatch):
+    """With ``LANE_WORK`` below one row of the operator the shared products
+    run in blocks of 16 lanes (the floor), so 40 lanes span three blocks: a
+    lane's every field is bitwise the same whichever block it falls in and
+    wherever in it, across a block's edge too."""
+    from zfista_tpu_torch.ops import precision
+
+    monkeypatch.setattr(precision, "LANE_WORK", 1)
+    A, b, _ = _dense(seed=3, m=24, n=40)
+    fns = tl.make_lasso_lambda_sweep(A, b, device="cpu")
+    lams = np.linspace(0.01, 0.3, 40)
+    kw = dict(lr=1.0, decay_rate=0.5, nesterov=True, max_iter=200)
+    many = tb.minimize_proximal_gradient_batch(*fns, np.zeros((40, 40)), batch_params=lams,
                                                device="cpu", **kw)
-    few = tb.minimize_proximal_gradient_batch(*fns, np.zeros((4, 40)), batch_params=lams[8:12],
-                                              device="cpu", **kw)
-    for name, u, v in zip(State._fields, many.state, few.state):
-        np.testing.assert_array_equal(u[8:12], v, err_msg=name)
+    for width, start in ((16, 3), (8, 12), (5, 30)):
+        few = tb.minimize_proximal_gradient_batch(
+            *fns, np.zeros((width, 40)), batch_params=lams[start:start + width], device="cpu", **kw)
+        for name, u, v in zip(State._fields, many.state, few.state):
+            np.testing.assert_array_equal(u[start:start + width], v,
+                                          err_msg=f"{name}, {width} lanes from {start}")
+
+
+@pytest.mark.parametrize("lane_work", [1 << 29, 1])
+@pytest.mark.parametrize("form", ["S @ v", "v @ S", "S @ V", "V @ S"])
+def test_shared_products_do_not_depend_on_the_block(monkeypatch, form, lane_work):
+    """``matmul_hp`` of a shared matrix under ``vmap``: each lane's product
+    is bitwise the same among 40 lanes or among a few from any place, and
+    agrees with ``torch.matmul`` to rounding.  At ``LANE_WORK = 1`` the
+    work quotient is 0 (an operator of more than ``LANE_WORK`` elements)
+    and the blocks take their floor of 16 rows, so the slices cross blocks'
+    edges."""
+    from zfista_tpu_torch.ops import precision
+
+    monkeypatch.setattr(precision, "LANE_WORK", lane_work)
+    rng = np.random.default_rng(11)
+    S = torch.as_tensor(rng.standard_normal((24, 37)))
+    left = form.startswith("S")
+    lane = {"S @ v": (37,), "v @ S": (24,), "S @ V": (37, 3), "V @ S": (5, 24)}[form]
+    V = torch.as_tensor(rng.standard_normal((40, *lane)))
+
+    def fn(v):
+        return precision.matmul_hp(S, v) if left else precision.matmul_hp(v, S)
+
+    many = torch.func.vmap(fn)(V)
+    for lo, hi in ((0, 1), (3, 19), (13, 21), (30, 35), (15, 40)):
+        assert torch.equal(torch.func.vmap(fn)(V[lo:hi]), many[lo:hi]), (lo, hi)
+    plain = torch.stack([S @ v if left else v @ S for v in V])
+    np.testing.assert_allclose(many, plain, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("lane_work", [1 << 29, 1])
+def test_shared_products_under_a_derivative_are_the_same_blocks(monkeypatch, lane_work):
+    """A lane operand that ``jvp`` or ``grad`` differentiates inside the
+    ``vmap`` goes through ``_SharedOperator``'s batching rule, a plain one
+    straight to the blocks: the products are the same bits, and their
+    derivatives are the operator and its adjoint."""
+    from zfista_tpu_torch.ops import precision
+
+    monkeypatch.setattr(precision, "LANE_WORK", lane_work)
+    rng = np.random.default_rng(5)
+    S = torch.as_tensor(rng.standard_normal((24, 37)))
+    V, T = (torch.as_tensor(rng.standard_normal((40, 37))) for _ in range(2))
+
+    def prod(v):
+        return precision.matmul_hp(S, v)
+
+    plain = torch.func.vmap(prod)(V)
+    primal, tangent = torch.func.vmap(lambda v, t: torch.func.jvp(prod, (v,), (t,)))(V, T)
+    assert torch.equal(primal, plain)
+    assert torch.equal(tangent, torch.func.vmap(prod)(T))
+    grad = torch.func.vmap(torch.func.grad(lambda v: 0.5 * precision.dot_hp(prod(v), prod(v))))(V)
+    np.testing.assert_allclose(grad, plain @ S, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["SD", "FDS", "ZDT1"])
+def test_zoo_sums_under_vmap_are_lane_sums(name):
+    """A zoo problem's sums over a lane's features run as :func:`lane_sum`
+    trees under ``vmap`` (a reduction kernel orders a row by the number of
+    rows on the card), and as ``torch.sum`` on one point."""
+    from zfista_tpu_torch.models import FDS, SD, ZDT1
+    from zfista_tpu_torch.ops.precision import lane_sum
+
+    p = {"SD": SD, "FDS": lambda: FDS(n_features=100), "ZDT1": lambda: ZDT1(n_features=100)}[name]()
+    X = torch.as_tensor(np.random.default_rng(2).uniform(0.1, 2.0, (8, p.n_features)))
+    got = torch.func.vmap(p.f)(X)
+    if name == "ZDT1":
+        h = 1 + 9 / 99 * lane_sum(X[:, 1:])
+        assert torch.equal(got[:, 1], h * (1 - torch.sqrt(X[:, 0] / h)))
+    elif name == "SD":
+        assert torch.equal(got[:, 1], lane_sum(p._c.on(X)["c2"] / X))
+    else:
+        assert torch.equal(got[:, 1], torch.exp(lane_sum(X) / 100) + lane_sum(X * X))
+    np.testing.assert_allclose(got, torch.stack([p.f(x) for x in X]), rtol=1e-14)
 
 
 def test_elastic_net_and_group_lasso_sweeps_match_jax():

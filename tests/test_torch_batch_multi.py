@@ -14,6 +14,7 @@ Each JAX batch is solved once per module (a vmapped m>=3 JAX program
 takes seconds to compile on the CPU).
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import functools
 import warnings
 

@@ -13,6 +13,7 @@
   parity class, restart or not.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import json
 import warnings
 

@@ -14,6 +14,7 @@
   on the CPU writes a Chrome trace holding the annotation.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import json
 
 import numpy as np

@@ -6,6 +6,7 @@ fixed-step solver's generic prox branch, and the warm-dual
 chip_smoke.py runs the same path on the card through the CUDA kernels.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import warnings
 from typing import NamedTuple
 

@@ -15,9 +15,7 @@ equal ``nit``, x within 1e-10).
 
 from __future__ import annotations
 
-import os
-import socket
-import subprocess
+from torch_env import RANKS_TIMEOUT, child_env, run_world
 import sys
 from pathlib import Path
 
@@ -29,37 +27,18 @@ from zfista_tpu.models.lasso import Lasso
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("n_processes", [2, 4])
 def test_sharded_solves_match_unsharded(n_processes, tmp_path):
-    port = _free_port()
     out = tmp_path / "tp.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-m", "zfista_tpu_torch.parallel.distributed",
-             "--coordinator", f"localhost:{port}", "--num-processes", str(n_processes),
-             "--process-id", str(i), "--platform", "cpu", "--backend", "gloo",
-             "--out", str(out)],
-            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for i in range(n_processes)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for i, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{text[-3000:]}"
+    procs = run_world(
+        lambda i, port: [sys.executable, "-m", "zfista_tpu_torch.parallel.distributed",
+                         "--coordinator", f"localhost:{port}", "--num-processes", str(n_processes),
+                         "--process-id", str(i), "--platform", "cpu", "--backend", "gloo",
+                         "--out", str(out)],
+        n_processes, cwd=REPO, timeout=RANKS_TIMEOUT, env=child_env(PYTHONPATH=str(REPO)),
+    )
+    for i, (code, text) in enumerate(procs):
+        assert code == 0, f"process {i} failed:\n{text[-3000:]}"
         assert f"PARITY_OK process={i}/{n_processes}" in text, text[-2000:]
         assert f"TP_PARITY_OK process={i}/{n_processes}" in text, text[-2000:]
         assert f"MESH2D_PARITY_OK process={i}/{n_processes}" in text, text[-2000:]

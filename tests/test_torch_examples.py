@@ -5,6 +5,7 @@ one.  Each writes only there (the scripts that write files do so under
 ``--out``, default ``bench_results/torch/``) and imports nothing of JAX.
 The two kernel benches exit with status 1 and a message without a card."""
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import os
 import subprocess
 import sys

@@ -7,6 +7,7 @@ The CUDA kernel itself is checked against the plain version on the card
 by chip_smoke.py.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -30,6 +30,7 @@ tests/test_torch_graph_tv.py does the same for the TV solves and the
 m = 2 fixed step, with this file's stand-in.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import gc
 import warnings
 

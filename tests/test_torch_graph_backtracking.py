@@ -25,6 +25,7 @@ the launch counters held) and graphs allowed on the CPU:
   ``check_every=1`` batch, with and without a per-lane momentum pair.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

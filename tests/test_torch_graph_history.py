@@ -34,6 +34,7 @@ the launch counters held) and graphs allowed on the CPU:
 * ``bench.history_bench``'s first solves in turns, on the stand-in graph.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -37,6 +37,7 @@ the launch counters held) and graphs allowed on the CPU:
   ``tol_internal``.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

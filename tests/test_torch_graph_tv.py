@@ -19,6 +19,7 @@ driver runs its own logic on small float64 problems:
   steps that differ in one baked option.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import functools
 
 import jax.numpy as jnp

@@ -3,6 +3,7 @@
 nit and trial counts, x to 1e-10), the ``group_size`` check,
 ``model_from_jax``, and the card by default."""
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,11 +18,9 @@ dir``); rank 0 writes the results.
 
 from __future__ import annotations
 
+from torch_env import RANKS_TIMEOUT, child_env, run_world
 import argparse
 import functools
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -118,35 +116,16 @@ def _worker(rank: int, world: int, port: int, out: Path) -> None:
         td.shutdown()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("group_sharded")
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    procs = [
-        subprocess.Popen(
-            [sys.executable, __file__, "--rank", str(r), "--world", "4", "--port", str(port),
-             "--out", str(out)],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(4)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{text[-3000:]}"
+    ranks = run_world(
+        lambda r, port: [sys.executable, __file__, "--rank", str(r), "--world", "4",
+                         "--port", str(port), "--out", str(out)],
+        4, cwd=ROOT, timeout=RANKS_TIMEOUT, env=child_env(PYTHONPATH=str(ROOT)),
+    )
+    for r, (code, text) in enumerate(ranks):
+        assert code == 0, f"rank {r} failed:\n{text[-3000:]}"
         assert f"GROUP_SHARDED_OK rank={r}" in text
     return dict(np.load(out / "group_sharded.npz"))
 

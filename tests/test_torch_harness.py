@@ -16,6 +16,7 @@ The JAX batches are solved once per module (a vmapped JAX program takes
 seconds to compile on the CPU).
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import os
 import subprocess
 import sys

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX at import, a clean static gate,
 and chip_smoke.py refusing to run without a CUDA device."""
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import os
 import subprocess
 import sys

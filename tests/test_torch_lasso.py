@@ -5,6 +5,7 @@ Same numpy inputs through ``zfista_tpu.models.lasso`` and
 order of their matvecs, so values agree at 1e-12.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

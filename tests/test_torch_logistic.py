@@ -9,6 +9,7 @@
   card by default.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

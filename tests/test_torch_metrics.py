@@ -10,6 +10,7 @@
 * the port's native kernels against its own numpy paths.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 

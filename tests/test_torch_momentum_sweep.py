@@ -6,6 +6,7 @@
 * ``lane_chunk`` bitwise against no chunking (a ragged last chunk).
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import warnings
 from fractions import Fraction
 

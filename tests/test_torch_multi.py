@@ -15,6 +15,7 @@ JAX problems are module-level so that repeated solves reuse their compiled
 programs.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import re
 import warnings
 

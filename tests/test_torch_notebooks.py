@@ -5,6 +5,7 @@ real executed outputs with no error, pin their device in the first code
 cell, and import nothing of JAX or of the JAX package (as
 ``tests/test_notebooks.py`` holds the JAX notebooks)."""
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import re
 from pathlib import Path
 

@@ -5,6 +5,7 @@ the generalized derivatives at ties, which the m>=3 Newton dual's Hessian
 is built from.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

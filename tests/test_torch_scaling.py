@@ -5,6 +5,7 @@ the JAX package's shape, a count above the devices raises as there, and
 
 from __future__ import annotations
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 

@@ -24,10 +24,8 @@ timeout, so a rank that decides alone fails the test instead of hanging it.
 
 from __future__ import annotations
 
+from torch_env import child_env, run_world
 import argparse
-import os
-import socket
-import subprocess
 import sys
 import threading
 import warnings
@@ -162,34 +160,14 @@ def _worker(rank: int, world: int, port: int, out: Path) -> None:
         td.shutdown()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_world(world: int, out: Path) -> dict:
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    procs = [
-        subprocess.Popen(
-            [sys.executable, __file__, "--rank", str(r), "--world", str(world), "--port", str(port),
-             "--out", str(out)],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(world)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{text[-3000:]}"
+    ranks = run_world(
+        lambda r, port: [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+                         "--port", str(port), "--out", str(out)],
+        world, cwd=ROOT, timeout=RANK_TIMEOUT, env=child_env(PYTHONPATH=str(ROOT)),
+    )
+    for r, (code, text) in enumerate(ranks):
+        assert code == 0, f"rank {r} of {world} failed:\n{text[-3000:]}"
         assert f"SHARDED_MULTI_OK rank={r}" in text
     return dict(np.load(out / f"world{world}.npz"))
 

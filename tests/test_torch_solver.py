@@ -7,6 +7,7 @@ tests/test_solver_scalar.py.  The backtracking and multiobjective options
 are in tests/test_torch_multi.py.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import warnings
 
 import jax.numpy as jnp

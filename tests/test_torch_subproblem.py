@@ -12,6 +12,7 @@ the CPU.
 One jitted JAX solver per objective count, reused across instances.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import functools
 
 import jax

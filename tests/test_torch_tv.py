@@ -8,6 +8,7 @@ whole-image loop bitwise.  The CUDA kernels themselves are held against
 the plain versions on the card by chip_smoke.py.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ float64 on the CPU.
 * validation, ``model_from_jax``, and the card by default.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import warnings
 
 import jax

@@ -7,6 +7,7 @@ with ``interop.problem_from_spec``; analytic Jacobians against
 shape validation; array bounds in ``g``; ``solve_batch``.
 """
 
+import torch_env  # noqa: F401  (one torch thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

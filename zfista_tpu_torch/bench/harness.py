@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from zfista_tpu_torch.core.result import SolveResult
+from zfista_tpu_torch.core.solver import data_device
 from zfista_tpu_torch.metrics import calculate_metrics
 from zfista_tpu_torch.models.base import Problem
 from zfista_tpu_torch.models.zoo import (
@@ -333,6 +334,10 @@ def main(argv: Sequence[str] | None = None) -> None:
         "--device", default="cuda", help="where the batches solve (cuda or cpu)"
     )
     args = parser.parse_args(argv)
+    try:
+        data_device(args.device)
+    except RuntimeError as exc:  # no card for --device cuda: say so, exit 1
+        raise SystemExit(str(exc)) from None
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING)
     out_dir = args.out

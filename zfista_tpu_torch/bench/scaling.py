@@ -25,7 +25,6 @@ import argparse
 import multiprocessing as mp
 import os
 import queue as queue_mod
-import socket
 import time
 from typing import Sequence
 
@@ -35,12 +34,6 @@ import torch
 #: Seconds a rank process may take for its whole run before the harness
 #: gives up on it.
 _RANK_TIMEOUT_S = 900
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _rank_run(rank: int, world: int, port: int, device: str, cfg: dict, out) -> None:
@@ -55,6 +48,8 @@ def _rank_run(rank: int, world: int, port: int, device: str, cfg: dict, out) -> 
 
     if device == "cpu":
         torch.set_num_threads(1)
+    # The rendezvous's store is the parent's (see _world_seconds).
+    os.environ["TORCHELASTIC_USE_AGENT_STORE"] = "True"
     cuda = device == "cuda"
     distributed.initialize(
         f"localhost:{port}", world, rank,
@@ -101,10 +96,17 @@ def _rank_run(rank: int, world: int, port: int, device: str, cfg: dict, out) -> 
 
 def _world_seconds(world: int, device: str, cfg: dict) -> float:
     """Start ``world`` rank processes and return the slowest rank's best
-    window."""
+    window.  The rendezvous's store is served from this process, on a port
+    that the OS picks and that stays bound here until the ranks have
+    ended; the ranks join it as clients (``TORCHELASTIC_USE_AGENT_STORE``,
+    which torch's ``tcp://`` rendezvous reads), so no other process can
+    take the port before they start."""
+    from torch.distributed import TCPStore
+
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = _free_port()
+    store = TCPStore("localhost", 0, world, is_master=True, wait_for_workers=False)
+    port = store.port
     procs = [
         ctx.Process(target=_rank_run, args=(r, world, port, device, cfg, out))
         for r in range(world)
@@ -133,6 +135,7 @@ def _world_seconds(world: int, device: str, cfg: dict) -> float:
             if p.is_alive():
                 p.kill()
                 p.join()
+        del store
     return seconds
 
 

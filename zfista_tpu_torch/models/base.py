@@ -186,10 +186,10 @@ class Problem:
         return all_reduce_sum(v, self._group)
 
     def _sum(self, v: Array) -> Array:
-        """A sum over the last axis: on a block under ``torch.func.vmap``
-        :func:`lane_sum` (a lane's bits whatever lanes are beside it), else
-        ``torch.sum``, as the unsharded problem sums."""
-        return lane_sum(v) if self._sharded and _over_lanes(v) else torch.sum(v, dim=-1)
+        """A sum over the last axis: under ``torch.func.vmap``
+        :func:`lane_sum` (a lane's bits whatever lanes are beside it, on
+        every device), else ``torch.sum``."""
+        return lane_sum(v) if _over_lanes(v) else torch.sum(v, dim=-1)
 
     # -- smooth part --------------------------------------------------------
     def f(self, x: Array) -> Array:

@@ -74,7 +74,7 @@ class SD(Problem):
 
     def f(self, x: Array) -> Array:
         c = self._c.on(x)
-        return torch.stack([_dot(c["c1"], x), torch.sum(c["c2"] / x)])
+        return torch.stack([_dot(c["c1"], x), self._sum(c["c2"] / x)])
 
     def jac_f(self, x: Array) -> Array:
         c = self._c.on(x)
@@ -144,7 +144,7 @@ class ZDT1(Problem):
             f1, h = self._head(x)
         else:
             f1 = x[0]
-            h = 1 + 9 / (n - 1) * torch.sum(x[1:])
+            h = 1 + 9 / (n - 1) * self._sum(x[1:])
         f2 = h * (1 - torch.sqrt(f1 / h))
         return torch.stack([f1, f2])
 
@@ -156,7 +156,7 @@ class ZDT1(Problem):
             tail = 9 * (2 - torch.sqrt(x0 / h)) / (2 * (n - 1))
             head = -torch.sqrt(h / x0) / 2
             return torch.stack([first, torch.where(first > 0, head, tail)])
-        h = 1 + 9 / (n - 1) * torch.sum(x[1:])
+        h = 1 + 9 / (n - 1) * self._sum(x[1:])
         # The JAX .at[0].set writes, as concatenations.
         e0 = torch.cat(
             [torch.ones_like(x[:1]), torch.zeros(n - 1, dtype=x.dtype, device=x.device)]
