@@ -783,7 +783,9 @@ def zero(counts: dict[str, int]) -> None:
 
 
 def graph_counts() -> dict[str, int]:
-    """Chunk graphs the solver has captured and replayed since import."""
+    """The solver's chunk-graph counters now (``solver.graph_counts``: the
+    graphs captured and replayed since import, and the captures' steps,
+    nodes and host ns)."""
     from zfista_tpu_torch.core import solver
 
     return dict(solver.graph_counts)
@@ -796,14 +798,16 @@ def graph_replays() -> int:
 
 def graphs_since(before: dict[str, int]) -> dict[str, int]:
     """Captures and replays since ``before`` (a :func:`graph_counts`)."""
-    return {k: v - before[k] for k, v in graph_counts().items()}
+    now = graph_counts()
+    return {k: now[k] - before[k] for k in ("captures", "replays")}
 
 
-def last_capture_ms() -> float:
-    """The host ms of the most recent chunk graph's capture."""
-    from zfista_tpu_torch.core import solver
-
-    return next(reversed(solver._GRAPHS.values())).capture_ms
+def last_capture_ms(before: dict[str, int]) -> float:
+    """The host ms of the chunk-graph captures since ``before`` (a
+    :func:`graph_counts`): their recording and instantiation, from the
+    solver's capture timers (the eager first chunk before each is apart)."""
+    now = graph_counts()
+    return 1e-6 * sum(now[k] - before[k] for k in ("record_ns", "instantiate_ns"))
 
 
 @contextlib.contextmanager
@@ -921,7 +925,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]], 
         "prox_iter 30)"
         f".solve(max_iter=500, tol=0): nit={res.nit} status={res.status} "
         f"fun={float(np.ravel(res.fun)[0])!r} lr={res.lr!r} wall {wall:.3f} s (with the "
-        f"capture, {last_capture_ms():.1f} ms); prox_kernel {meta['prox_kernel']}; kernel "
+        f"capture, {last_capture_ms(before):.1f} ms); prox_kernel {meta['prox_kernel']}; kernel "
         f"launches {launched}; chunk graphs {graphs}"
     )
     if res.nit != 500 or res.x.shape != (CAMERAMAN**2,) or not np.all(np.isfinite(res.x)):
@@ -987,8 +991,9 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]], 
     steps, capture = 500, []
 
     def first():
+        before = graph_counts()
         quiet(TVDeblur(b32, **kw).solve, lr=lr, max_iter=steps, tol=0)
-        capture.append(last_capture_ms())
+        capture.append(last_capture_ms(before))
 
     def eager():
         with eager_chunks():
@@ -1023,6 +1028,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]], 
         wall = time.perf_counter() - t0
         used = dict(counts)
         graphs = graphs_since(before)
+        capture_ms = last_capture_ms(before)
         with warm_check_every(1):
             w1 = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method=method).solve_warm(**warm)
         wp = TVDeblur(b, tv_ratio=tv_ratio, kernel=kernel, prox_method="xla").solve_warm(**warm)
@@ -1030,7 +1036,7 @@ def phase7(dev, card: str) -> tuple[dict[str, int], dict[str, tuple[int, int]], 
         log(
             f"phase 7 [{card}]: solve_warm(max_iter=200, prox_iter=8) at {size}x{size} f32: "
             f"prox_method {method!r} runs {kind}; nit={w['nit']} fun={w['fun']!r} "
-            f"wall {wall:.3f} s (with the capture, {last_capture_ms():.1f} ms); "
+            f"wall {wall:.3f} s (with the capture, {capture_ms:.1f} ms); "
             f"launches {used}; chunk graphs {graphs}; == check_every=1 bitwise (x, F, nit, "
             f"err): {same1}; == plain-prox solve_warm bitwise: {same}"
         )
@@ -1349,9 +1355,10 @@ def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]
         for k in ("first", "repeat", "repeat", "first"):
             if k == "first":
                 fresh = Lasso(A, b, LAM)
+                before = graph_counts()
                 first.append(1e3 * sync_time(
                     lambda: quiet(fresh.solve_fixed_step, x0, lr=lr_f, tol=0, max_iter=iters)))
-                capture.append(next(reversed(solver._GRAPHS.values())).capture_ms)
+                capture.append(last_capture_ms(before))
             else:
                 repeat.append(1e3 * sync_time(public))
         out["capture"] = {"capture_ms": min(capture), "first_ms": min(first), "repeat_ms": min(repeat)}
@@ -1445,7 +1452,7 @@ def phase9(dev, card: str, A, b, A_np, b_np, lr_fixed: float) -> dict:
         walls[k].append(time.perf_counter() - t0)
         graphs[k].append(graphs_since(before))
         if graphs[k][-1]["captures"]:
-            capture[k].append(last_capture_ms())
+            capture[k].append(last_capture_ms(before))
     ref = out["default (check_every=1)"]
     log(
         f"phase 9 [{card}]: {what}: status={ref.status} nit={ref.nit} "
@@ -1659,7 +1666,7 @@ def carried_newton_solve(problem, x0, kw: dict, ref) -> dict:
         np.array_equal(a, c, equal_nan=True) and a.dtype == c.dtype
         for a, c in zip(got.state, ref.state)
     )
-    capture = last_capture_ms() if solver._GRAPHS else float("nan")
+    capture = last_capture_ms(before) if solver._GRAPHS else float("nan")
     return dict(same=same, graphs=graphs_since(before), wall=wall, capture_ms=capture)
 
 
@@ -2090,6 +2097,7 @@ def phase11b(card: str, dev) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             graphs = graphs_since(before)
+            capture_ms = last_capture_ms(before)
             same_state(got.state, ref.state, f"phase 11b: {what}, check_every={ce} against 1")
             if graphs != {"captures": 1, "replays": -(-got.nit // ce) - 1}:
                 raise AssertionError(f"phase 11b: {what}, check_every={ce}: graphs {graphs}")
@@ -2103,7 +2111,7 @@ def phase11b(card: str, dev) -> None:
             steps = steps_run(got.nit, ce)
             log(
                 f"phase 11b [{card}]: {what}, check_every={ce}: bitwise check_every=1 in every "
-                f"State field; first solve {wall:.3f} s (the capture {last_capture_ms():.1f} ms "
+                f"State field; first solve {wall:.3f} s (the capture {capture_ms:.1f} ms "
                 f"of host time; chunk graphs {graphs}); ms a step over the {steps} steps run, in "
                 f"turns: cached graph {per_step(walls['graph'], steps)}, eager chunks "
                 f"{per_step(walls['eager'], steps)}"
@@ -2762,7 +2770,7 @@ def phase12b(card: str, dev) -> None:
         before = graph_counts()
         t0 = time.perf_counter()
         got = minimize_proximal_gradient_batch(*fns, x0s, max_iter=HARNESS_MAX_ITER, check_every=8, **kw)
-        graphed[k] = (time.perf_counter() - t0, graphs_since(before))
+        graphed[k] = (time.perf_counter() - t0, graphs_since(before), last_capture_ms(before))
         same_state(got.state, res.state, f"phase 12b: the {k} check_every=8 sweep against check_every=1")
     chunks = -(-int(np.max(res.nit)) // 8)
     if graphed["first"][1] != {"captures": 1, "replays": chunks - 1} or graphed["repeat"][1] != {
@@ -2771,7 +2779,7 @@ def phase12b(card: str, dev) -> None:
     log(
         f"phase 12b [{card}]: check_every=8 on replayed graphs, bitwise the check_every=1 sweep "
         f"in every field of every lane: a first sweep {graphed['first'][0]:.3f} s (the capture "
-        f"{last_capture_ms():.1f} ms of host time; {graphed['first'][1]}), a repeat "
+        f"{graphed['first'][2]:.1f} ms of host time; {graphed['first'][1]}), a repeat "
         f"{graphed['repeat'][0]:.3f} s ({graphed['repeat'][1]}), beside check_every=1's {wall:.3f} s"
     )
     worst = 0.0
@@ -2825,14 +2833,14 @@ def phase12c(card: str, dev) -> None:
         before = graph_counts()
         t0 = time.perf_counter()
         got = p.solve_batch(x0s, nesterov=True, tol=1e-5, check_every=8)
-        graphed[k] = (time.perf_counter() - t0, graphs_since(before))
+        graphed[k] = (time.perf_counter() - t0, graphs_since(before), last_capture_ms(before))
         same_state(got.state, res.state, f"phase 12c: the {k} check_every=8 batch against check_every=1")
     if graphed["first"][1]["captures"] != 1 or graphed["repeat"][1]["captures"] != 0:
         raise AssertionError(f"phase 12c: chunk graphs {graphed}")
     log(
         f"phase 12c [{card}]: check_every=8 (per-lane carried trials on replayed graphs), "
         f"bitwise the check_every=1 batch in every field of every lane: a first batch "
-        f"{graphed['first'][0]:.3f} s (the capture {last_capture_ms():.1f} ms of host time; "
+        f"{graphed['first'][0]:.3f} s (the capture {graphed['first'][2]:.1f} ms of host time; "
         f"{graphed['first'][1]}), a repeat {graphed['repeat'][0]:.3f} s "
         f"({graphed['repeat'][1]}), beside check_every=1's {wall:.3f} s"
     )
@@ -3757,14 +3765,14 @@ def phase14a(card: str, dev) -> dict:
     as one batch over the first ``AGREE_ITERS`` iterations, through the
     example's ``momentum_sweep`` (held against the CPU later)."""
     from zfista_tpu_torch.bench.momentum_sweep import momentum_sweep
-    from zfista_tpu_torch.core import solver
     from zfista_tpu_torch.models import WaveletDeblur
     from zfista_tpu_torch.ops import fused
 
     truth, kernel, observed = cameraman_scene(torch.float32, dev)
     prob = WaveletDeblur(observed, l1_ratio=WL_L1, kernel=kernel)
-    runs, walls, launches, replays = {}, {}, {}, {}
+    runs, walls, launches, replays, capture_ms = {}, {}, {}, {}, {}
     for ce in (None, 8, 1):
+        counts = graph_counts()
         before = graph_replays()
         zero(fused.launch_counts)  # a main-path solve starts here
         t0 = time.perf_counter()
@@ -3773,6 +3781,8 @@ def phase14a(card: str, dev) -> dict:
         walls[ce] = time.perf_counter() - t0
         launches[ce] = fused.launch_counts["lasso_step_tail"]  # ... and ends here
         replays[ce] = graph_replays() - before
+        if graphs_since(counts)["captures"]:
+            capture_ms[chunk_of(ce, dev)] = last_capture_ms(counts)
     # The solve again, on the cached graph, and with its chunks launched
     # eagerly (the driver before the graphs): wall per step of each.
     for ce, label in ((None, "graph, repeat"), ("eager", "eager chunks of 64")):
@@ -3783,7 +3793,6 @@ def phase14a(card: str, dev) -> dict:
         walls[label] = time.perf_counter() - t0
         same_state(again.state, runs[1].state, f"phase 14a: the {label} solve against check_every=1")
     res = runs[None]
-    capture_ms = {k[1]: e.capture_ms for k, e in solver._GRAPHS.items() if k[3][0][1] == (WL_SIDE**2,)}
     steps = {ce: -(-runs[ce].nit // chunk_of(ce, dev)) * chunk_of(ce, dev) for ce in runs}
     log(
         f"phase 14a [{card}]: WaveletDeblur(cameraman {WL_SIDE}x{WL_SIDE} f32, l1_ratio {WL_L1}, "
@@ -4877,6 +4886,7 @@ def phase4(card: str, dev, lz: dict) -> dict[str, int]:
     x0 = torch.zeros(N, dtype=torch.float32, device=dev)
     lasso_launches = {}
     prob = Lasso(A, b, LAM)
+    counts = graph_counts()
     replays = graph_replays()
     zero(fused.launch_counts)  # the main-path solve starts here
     t0 = time.perf_counter()
@@ -4890,7 +4900,7 @@ def phase4(card: str, dev, lz: dict) -> dict[str, int]:
     log(
         f"phase 4 [{card}]: Lasso.solve_fixed_step(tol=0, max_iter=4000): nit={res.nit} "
         f"status={res.status} fun={float(res.fun[0])!r} lr={res.lr!r} kernel launches={launched}; "
-        f"chunks: 1 eager then captured ({entry.capture_ms:.3f} ms), {replays} graph replays "
+        f"chunks: 1 eager then captured ({last_capture_ms(counts):.3f} ms), {replays} graph replays "
         f"of {entry.launches} launches each; wall {wall:.3f} s (with the capture)"
     )
     if res.nit != 4000 or not np.all(np.isfinite(res.x)) or res.x.shape != (N,):

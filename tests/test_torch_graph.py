@@ -387,10 +387,12 @@ def test_launch_counts_count_replayed_launches(graphed, counted):
     """The eager first chunk counts through the wrapper; each replay adds
     the launches its capture recorded (one ``lasso_step_tail`` per step);
     the capture itself adds none.  A solve that stops at ``nit`` has
-    launched its step ``nit`` rounded up to the chunk."""
+    launched its step ``nit`` rounded up to the chunk.  The one capture
+    adds its steps and its three host timers to ``graph_counts``."""
     A, b, lr = _lasso(23)
     x0 = np.zeros(A.shape[1])
     prob = Lasso(A, b, 0.05, device="cpu")
+    before = dict(solver.graph_counts)
     for k in range(2):  # a miss (eager chunk, capture, replays), then a hit
         counted["lasso_step_tail"] = 0
         res = prob.solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=7)
@@ -401,7 +403,9 @@ def test_launch_counts_count_replayed_launches(graphed, counted):
         "fused_prox_momentum": 0, "fista_tail": 0, "lasso_step_tail": 7,
         "fgp_resident": 0, "fgp_tiles": 0, "fgp_tiles_pipelined": 0,
     }
-    assert entry.capture_ms is not None and entry.capture_ms >= 0
+    grew = {k: solver.graph_counts[k] - before[k] for k in before}
+    assert grew["captures"] == 1 and grew["steps"] == 7
+    assert grew["first_chunk_ns"] > 0 and grew["record_ns"] > 0 and grew["instantiate_ns"] >= 0
 
 
 def test_host_scalar_inside_a_capture_raises(monkeypatch):

@@ -132,7 +132,7 @@ def in_turns(
             with history_steps(m, s):
                 out, wall = first_solve(run)
             walls[str(s)].append(wall)
-            graphs[str(s)] = {k: v - before[k] for k, v in solver.graph_counts.items()}
+            graphs[str(s)] = {k: solver.graph_counts[k] - before[k] for k in ("captures", "replays")}
             got = arrays(out)
             if ref is None:
                 ref = got

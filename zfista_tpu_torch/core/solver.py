@@ -96,6 +96,8 @@ from zfista_tpu_torch.core.subproblem import (
 from zfista_tpu_torch.ops import fused, tv_cuda
 from zfista_tpu_torch.ops.fused import fused_prox_momentum, lasso_step_tail
 from zfista_tpu_torch.ops.precision import dot_hp
+from zfista_tpu_torch.utils import profiling
+from zfista_tpu_torch.utils.profiling import annotate, device_to_host, read_flag
 
 # Private seam between the LASSO params callables and the step.  A
 # params-style prox ``prox(w, x, p)`` carrying ``_SOFT_THRESHOLD_LAM_OF``
@@ -371,7 +373,7 @@ def _make_step(
             ok = accept_test(state, f_y, f_t, F_t, sub.fun)
             w = sub.weight if warm_start else w
             x, sub_fun, nits = sub.x, sub.fun, nits + sub.nit
-            if bool(ok):  # the one host read per trial
+            if read_flag(ok):  # the one host read per trial
                 return _LS(lr, True, x, F_t, w, sub_fun, nits)
             lr = lr * decay_rate
         return _LS(lr, False, x, F_t, w, sub_fun, nits)
@@ -692,7 +694,7 @@ def _make_batch_step(
         x, F_t, sub_fun = state.x, state.F_x, torch.zeros_like(state.t)
         searching, done = active, ~active
         for k in range(max_backtrack_iter):
-            if k and not bool(torch.any(searching)):  # one host read per round
+            if k and not read_flag(torch.any(searching)):  # one host read per round
                 break
             sub, f_t, F_c = trial(state, lr, w, f_y, jac_y, searching)
             ok = accept_test(state, f_y, f_t, F_c, sub.fun)
@@ -919,6 +921,7 @@ def _chunk_body(step: Callable[[Any], Any], active: Callable[[Any], Array]):
     return step if getattr(step, "masks_itself", False) else _masked(step, active)
 
 
+@annotate("zt.drive", call="drive")
 def run_masked(
     step: Callable[[Any], Any],
     carry: Any,
@@ -938,7 +941,7 @@ def run_masked(
     # A chunk is entered only from an active carry, where the mask is the
     # identity: with one step per chunk it is left out.
     body = step if check_every == 1 else _chunk_body(step, active)
-    while bool(active(carry)):  # the one host read per chunk
+    while read_flag(active(carry)):  # the one host read per chunk
         for _ in range(check_every):
             carry = body(carry)
     return carry
@@ -1056,12 +1059,15 @@ def graph_chunk(
 
 
 class CudaChunkGraph:
-    """``chunk(static)`` captured as one CUDA graph on ``stream``, with a
-    private memory pool; :meth:`replay` launches it on the current stream.
-    A capture that fails raises: nothing falls back to eager launches."""
+    """``chunk(static)`` recorded as one CUDA graph on ``stream``, with a
+    private memory pool, and kept (``keep_graph``), so that :meth:`nodes`
+    can count it; :meth:`instantiate` makes it launchable and
+    :meth:`replay` launches it on the current stream.  The graph that is
+    instantiated is the one ``capture_end`` would instantiate itself.  A
+    capture that fails raises: nothing falls back to eager launches."""
 
     def __init__(self, chunk: Callable[[Any], None], static: Any, stream) -> None:
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(stream):
             self.graph.capture_begin()
             try:
@@ -1072,18 +1078,32 @@ class CudaChunkGraph:
                 raise
             self.graph.capture_end()
 
+    def instantiate(self) -> None:
+        self.graph.instantiate()
+
+    def nodes(self) -> int:
+        return profiling.cuda_graph_nodes(self.graph)
+
     def replay(self) -> None:
         self.graph.replay()
 
 
-#: The graph factory ``(chunk, static, stream) -> object with replay()``:
-#: a test on the CPU puts a stand-in here.
+#: The graph factory ``(chunk, static, stream) -> object with replay()``,
+#: and ``instantiate()`` and ``nodes()`` where it has them: a test on the
+#: CPU puts a stand-in here.
 CHUNK_GRAPH: Callable[..., Any] = CudaChunkGraph
 #: Chunk graphs kept, least recently used out first.
 GRAPH_CACHE_SIZE = 8
 #: Chunk graphs captured and replays launched since import (or since a
-#: caller reset an entry to 0).
-graph_counts: dict[str, int] = {"captures": 0, "replays": 0}
+#: caller reset an entry to 0); the steps the captured graphs hold (their
+#: ``check_every``, summed); the host ns of the captures' three parts
+#: (:meth:`_GraphEntry.capture`), summed; and ``nodes``, the captured CUDA
+#: graphs' nodes, summed, once a card has captured one.  The tracing
+#: registry's group ``graph``.
+graph_counts: dict[str, int] = profiling.register("graph", {
+    "captures": 0, "replays": 0, "steps": 0,
+    "first_chunk_ns": 0, "record_ns": 0, "instantiate_ns": 0,
+})
 
 
 def _launch_counters() -> tuple[dict[str, int], ...]:
@@ -1097,7 +1117,8 @@ class _GraphEntry:
     the step tail's scratch words (for a step that takes them), a history
     driver's record buffers (one row a step), the graph (with its private
     memory pool), the kernel launches one replay makes, and weak
-    references to the tensors and callables it reads."""
+    references to the tensors and callables it reads.  Its capture and its
+    replays count in :data:`graph_counts`."""
 
     def __init__(
         self, carry: Any, refs: list, scratch: bool, record=None, check_every: int = 1
@@ -1118,7 +1139,6 @@ class _GraphEntry:
         self.refs = refs
         self.graph = None
         self.launches: dict[str, int] = {}
-        self.capture_ms: float | None = None
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
@@ -1126,10 +1146,12 @@ class _GraphEntry:
     def capture(self, step, active, check_every: int) -> None:
         """Run one chunk eagerly on the capture stream (the run's first
         chunk; it also warms cuBLAS's workspace for that stream and the
-        wrappers' host caches), then capture the same chunk.  The launches
-        the capture recorded are what each replay adds to the wrappers'
-        ``launch_counts``: the wrappers ran once at capture, and those were
-        not launches."""
+        wrappers' host caches), then record the same chunk as a graph and
+        instantiate it, each part a span (``zt.graph.first_chunk``,
+        ``zt.graph.record``, ``zt.graph.instantiate``) whose host ns add to
+        :data:`graph_counts`.  The launches the capture recorded are what
+        each replay adds to the wrappers' ``launch_counts``: the wrappers
+        ran once at capture, and those were not launches."""
         chunk = graph_chunk(step, active, check_every, self.scratch, self.record)
         # What the graph reads and writes: the carry's static buffers and
         # the record rows, as one flat tuple.
@@ -1143,14 +1165,29 @@ class _GraphEntry:
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(stream.device))
         counters = _launch_counters()
+        clock = _time.perf_counter_ns
         with _on_stream(stream):
-            run(buffers)
+            t0 = clock()
+            with annotate("zt.graph.first_chunk"):
+                run(buffers)
+            t1 = clock()
             before = [dict(c) for c in counters]
-            t0 = _time.perf_counter()
             try:
-                self.graph = CHUNK_GRAPH(run, buffers, stream)
-                self.capture_ms = 1e3 * (_time.perf_counter() - t0)
+                with annotate("zt.graph.record"):
+                    graph = CHUNK_GRAPH(run, buffers, stream)
+                t2 = clock()
+                with annotate("zt.graph.instantiate"):
+                    getattr(graph, "instantiate", lambda: None)()
+                t3 = clock()
+                self.graph = graph
                 graph_counts["captures"] += 1
+                graph_counts["steps"] += int(check_every)
+                graph_counts["first_chunk_ns"] += t1 - t0
+                graph_counts["record_ns"] += t2 - t1
+                graph_counts["instantiate_ns"] += t3 - t2
+                nodes = getattr(graph, "nodes", None)
+                if nodes is not None:
+                    graph_counts["nodes"] = graph_counts.get("nodes", 0) + nodes()
                 self.launches = {
                     k: c[k] - b[k] for c, b in zip(counters, before) for k in b
                 }
@@ -1161,7 +1198,8 @@ class _GraphEntry:
             torch.cuda.current_stream(stream.device).wait_stream(stream)
 
     def replay(self) -> None:
-        self.graph.replay()
+        with annotate("zt.graph.replay"):
+            self.graph.replay()
         graph_counts["replays"] += 1
         for counts in _launch_counters():
             for k in counts.keys() & self.launches.keys():
@@ -1249,6 +1287,7 @@ def _graph_entry(step, carry, check_every: int, owners, record=None) -> _GraphEn
     return entry
 
 
+@annotate("zt.drive", call="drive")
 def run_graphed(
     step: Callable[..., Any],
     carry: Any,
@@ -1272,7 +1311,7 @@ def run_graphed(
     static = entry.static
     for s, v in zip(static, carry):
         s.copy_(v)
-    while bool(active(static)):  # the one host read per chunk
+    while read_flag(active(static)):  # the one host read per chunk
         if entry.graph is None:
             entry.capture(step, active, check_every)
         else:
@@ -1282,6 +1321,7 @@ def run_graphed(
     return type(carry)(*(s.clone() for s in static))
 
 
+@annotate("zt.drive", call="drive")
 def run_recorded(
     step: Callable[..., Any],
     carry: Any,
@@ -1305,7 +1345,7 @@ def run_recorded(
 
     def flush() -> None:
         if pending:
-            sink(tuple(torch.cat(v).cpu().numpy() for v in zip(*pending)))
+            sink(tuple(device_to_host(torch.cat(v)).numpy() for v in zip(*pending)))
             pending.clear()
 
     def take(rows: tuple) -> None:
@@ -1393,6 +1433,7 @@ def _history_steps(step, carry, max_iter: int, owners, n_objectives: int) -> int
     return steps if graphed else 0
 
 
+@annotate("zt.drive", call="drive")
 def _run_history(step, state: State, max_iter: int, chunk: int):
     """The per-step history driver: step while active, recording ``(x,
     F_x, err)`` of every step that ran and did not fail the line search.
@@ -1408,13 +1449,13 @@ def _run_history(step, state: State, max_iter: int, chunk: int):
 
     def flush():
         if pending:
-            x, F, e, rec = (torch.stack(v).cpu().numpy() for v in zip(*pending))
+            x, F, e, rec = (device_to_host(torch.stack(v)).numpy() for v in zip(*pending))
             xs.extend(x[rec])
             fs.extend(F[rec])
             errs.extend(e[rec])
             pending.clear()
 
-    while bool(_active(state, max_iter)):
+    while read_flag(_active(state, max_iter)):
         state = step(state)
         pending.append((state.x, state.F_x, state.err, ~state.failed))
         if len(pending) >= chunk:
@@ -1641,242 +1682,247 @@ def minimize_proximal_gradient(
     ``x, fun, success, status, message, nit, nit_internal, time, weight``
     as numpy values, and ``state``, the final :class:`State` as numpy.
     """
-    if deprecated:
-        warnings.warn(
-            "The `deprecated` subproblem condition has no global-convergence "
-            "proof; prefer the default condition.",
-            stacklevel=2,
-        )
-    if check_every is not None:
-        check_every = int(check_every)
-        if check_every < 1:
-            raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if tol_rel < 0:
-        raise ValueError(f"tol_rel must be >= 0, got {tol_rel}")
-    if tol_internal_rel < 0:
-        raise ValueError(f"tol_internal_rel must be >= 0, got {tol_internal_rel}")
-    if iter_chunk is not None and int(iter_chunk) < 1:
-        raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
-    start = _time.perf_counter()
-
-    dev = _solve_device(x0, params, device)
-    fsh = _feature_placement(x0)
-    x0 = torch.as_tensor(x0, device=dev)
-    if not x0.is_floating_point():
-        x0 = x0.to(torch.get_default_dtype())
-    feature_sum = feature_max = None
-    to_host = state_to_numpy
-    if fsh is not None:
-        from zfista_tpu_torch.parallel import sharding as shd
-
-        group = fsh.group
-        feature_sum = lambda v: shd.all_reduce_sum(v, group)
-        feature_max = lambda v: shd.all_reduce_max(v, group)
-
-        def to_host(s: State) -> State:
-            # The whole iterates on every rank (JAX: _device_get_global).
-            return state_to_numpy(s._replace(x=shd.gather(s.x, fsh), y=shd.gather(s.y, fsh)))
-
-        x0_res = shd.gather(x0, fsh).cpu().numpy()
-    else:
-        # The host copy of x0 for the result, taken before the device does
-        # any work (a faulted solve must not read the device again).
-        x0_res = x0.detach().cpu().numpy().copy()
-    if params is not None:
-        f_b, g_b, jac_b, prox_b = _bind_params(f, g, jac_f, prox_wsum_g, params)
-    else:
-        f_b, g_b, jac_b, prox_b = f, g, jac_f, prox_wsum_g
-    f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
-        f_b, g_b, jac_b, prox_b, x0
-    )
-
-    if check_every is None:
-        check_every = _default_check_every(
-            dev.type, m, decay_rate, per_iteration=return_all or verbose or iter_chunk is not None
-        )
-    # Single-objective fixed-step solves with no per-iteration consumer of
-    # F skip the objective in the step and recompute it once at the end.
-    skip_F = decay_rate == 1 and m == 1 and not return_all and not verbose
-    max_iter = int(max_iter)
-    if iter_chunk is not None and not return_all:
-        iter_chunk = int(iter_chunk)
-        if check_every > 1 and iter_chunk < max_iter:
+    with annotate("zt.solve", call="entry"):
+        if deprecated:
             warnings.warn(
-                "check_every > 1 is ignored when iter_chunk bounds the "
-                "kernel (the host-chunked driver re-dispatches every "
-                "iter_chunk steps).",
+                "The `deprecated` subproblem condition has no global-convergence "
+                "proof; prefer the default condition.",
                 stacklevel=2,
             )
-            check_every = 1
+        if check_every is not None:
+            check_every = int(check_every)
+            if check_every < 1:
+                raise ValueError(f"check_every must be >= 1, got {check_every}")
+        if tol_rel < 0:
+            raise ValueError(f"tol_rel must be >= 0, got {tol_rel}")
+        if tol_internal_rel < 0:
+            raise ValueError(f"tol_internal_rel must be >= 0, got {tol_internal_rel}")
+        if iter_chunk is not None and int(iter_chunk) < 1:
+            raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
+        start = _time.perf_counter()
+        with annotate("zt.setup"):
+            dev = _solve_device(x0, params, device)
+            fsh = _feature_placement(x0)
+            x0 = torch.as_tensor(x0, device=dev)
+            if not x0.is_floating_point():
+                x0 = x0.to(torch.get_default_dtype())
+            feature_sum = feature_max = None
+            to_host = state_to_numpy
+            if fsh is not None:
+                from zfista_tpu_torch.parallel import sharding as shd
 
-    step = _make_step(
-        f_v,
-        g_v,
-        jac_v,
-        prox_v,
-        m,
-        tol=tol,
-        tol_rel=float(tol_rel),
-        tol_internal=tol_internal,
-        tol_internal_rel=float(tol_internal_rel),
-        max_iter_internal=int(max_iter_internal),
-        max_backtrack_iter=int(max_backtrack_iter),
-        warm_start=warm_start,
-        decay_rate=decay_rate,
-        nesterov=nesterov,
-        nesterov_ratio=tuple(nesterov_ratio),
-        deprecated=deprecated,
-        verbose=verbose,
-        adaptive_restart=bool(adaptive_restart),
-        project_momentum=bool(project_momentum),
-        track_objective=not skip_F,
-        max_iter=max_iter,
-        feature_sum=feature_sum,
-        feature_max=feature_max,
-    )
+                group = fsh.group
+                feature_sum = lambda v: shd.all_reduce_sum(v, group)
+                feature_max = lambda v: shd.all_reduce_max(v, group)
 
-    if verbose:
-        hdr = ["niter", "nit int", "max|xk - yk|", "subprob func", "lr"]
-        widths = [6, 8, 13, 13, 10]
-        print("|" + "|".join(h.center(w) for h, w in zip(hdr, widths)) + "|")
-        print("|" + "|".join("-" * w for w in widths) + "|")
+                def to_host(s: State) -> State:
+                    # The whole iterates on every rank (JAX: _device_get_global).
+                    whole = s._replace(x=shd.gather(s.x, fsh), y=shd.gather(s.y, fsh))
+                    return state_to_numpy(whole)
 
-    if initial_state is not None:
-        state = State(*(_to_device(v, dev) for v in initial_state))
-        if fsh is not None:
-            state = state._replace(x=shd.block(state.x, fsh), y=shd.block(state.y, fsh))
-    else:
-        lr_t = torch.as_tensor(lr, dtype=x0.dtype, device=dev)
-        state = init_state(x0, f_v(x0) + g_v(x0), m, lr_t)
-
-    device_faulted = False
-    allvecs = allfuns = allerrs = None
-    # What the step reads by pointer: a chunk graph's cache key.
-    leaves = params if isinstance(params, (tuple, list)) else (params,)
-    owners = (f, g, jac_f, prox_wsum_g, *leaves)
-    if return_all:
-        if check_every != 1:
-            warnings.warn(
-                "check_every > 1 is ignored when return_all=True (the "
-                "history driver records every iteration).",
-                stacklevel=2,
+                x0_res = device_to_host(shd.gather(x0, fsh)).numpy()
+            else:
+                # The host copy of x0 for the result, taken before the device
+                # does any work (a faulted solve must not read the device again).
+                x0_res = device_to_host(x0).numpy().copy()
+            if params is not None:
+                f_b, g_b, jac_b, prox_b = _bind_params(f, g, jac_f, prox_wsum_g, params)
+            else:
+                f_b, g_b, jac_b, prox_b = f, g, jac_f, prox_wsum_g
+            f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
+                f_b, g_b, jac_b, prox_b, x0
             )
-        chunk = int(history_chunk)
-        if chunk < 1:
-            raise ValueError(f"history_chunk must be >= 1, got {chunk}")
-        if iter_chunk is not None:
-            chunk = min(chunk, int(iter_chunk))
-        # The history head: the resume iterate on a resumed solve, so that
-        # allvecs[k] and allfuns[k] stay paired.
-        head_x = x0_res if initial_state is None else to_host(state).x
-        head_F = state.F_x.cpu().numpy()
-        # On a card: the fixed step at m <= 2, or the line search as
-        # carried steps (a row where a step ends its iteration), on
-        # replayed graphs.
-        search = getattr(step, "carried_search", None)
-        graph_step = step if search is None else search
-        steps = _history_steps(graph_step, state, max_iter, owners, m)
-        if steps:
-            carry = state if search is None else search.start(state)
-            carry, xs, fs, allerrs = _run_history_graphed(
-                graph_step, carry, max_iter, steps, owners, chunk
+
+            if check_every is None:
+                per_iteration = return_all or verbose or iter_chunk is not None
+                check_every = _default_check_every(
+                    dev.type, m, decay_rate, per_iteration=per_iteration
+                )
+            # Single-objective fixed-step solves with no per-iteration consumer of
+            # F skip the objective in the step and recompute it once at the end.
+            skip_F = decay_rate == 1 and m == 1 and not return_all and not verbose
+            max_iter = int(max_iter)
+            if iter_chunk is not None and not return_all:
+                iter_chunk = int(iter_chunk)
+                if check_every > 1 and iter_chunk < max_iter:
+                    warnings.warn(
+                        "check_every > 1 is ignored when iter_chunk bounds the "
+                        "kernel (the host-chunked driver re-dispatches every "
+                        "iter_chunk steps).",
+                        stacklevel=2,
+                    )
+                    check_every = 1
+
+            step = _make_step(
+                f_v,
+                g_v,
+                jac_v,
+                prox_v,
+                m,
+                tol=tol,
+                tol_rel=float(tol_rel),
+                tol_internal=tol_internal,
+                tol_internal_rel=float(tol_internal_rel),
+                max_iter_internal=int(max_iter_internal),
+                max_backtrack_iter=int(max_backtrack_iter),
+                warm_start=warm_start,
+                decay_rate=decay_rate,
+                nesterov=nesterov,
+                nesterov_ratio=tuple(nesterov_ratio),
+                deprecated=deprecated,
+                verbose=verbose,
+                adaptive_restart=bool(adaptive_restart),
+                project_momentum=bool(project_momentum),
+                track_objective=not skip_F,
+                max_iter=max_iter,
+                feature_sum=feature_sum,
+                feature_max=feature_max,
             )
-            state = carry if search is None else carry.state()
-        else:
-            state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
-        if fsh is not None and xs:
-            xs = list(shd.gather_numpy(np.stack(xs), fsh, dev, axis=1))
-        allvecs = [head_x] + xs
-        allfuns_arr = [head_F] + fs
-        if scalar_mode:
-            allfuns = [float(v[0]) for v in allfuns_arr]
-        else:
-            allfuns = allfuns_arr
-    elif iter_chunk is not None and iter_chunk < max_iter:
-        # Host-chunked driving: at most iter_chunk masked steps between
-        # host copies of the state.  Frozen steps no-op, so the result is
-        # bitwise the while driver's.  The host copy taken after each good
-        # chunk is the partial result if the device faults in the next.
-        masked = _chunk_body(step, lambda s: _active(s, max_iter))
-        host = to_host(state)
-        while bool(_active(host, max_iter)):
-            try:
-                for _ in range(iter_chunk):
-                    state = masked(state)
-                host = to_host(state)
-            except torch.AcceleratorError as exc:  # how CUDA faults surface
+
+            if verbose:
+                hdr = ["niter", "nit int", "max|xk - yk|", "subprob func", "lr"]
+                widths = [6, 8, 13, 13, 10]
+                print("|" + "|".join(h.center(w) for h, w in zip(hdr, widths)) + "|")
+                print("|" + "|".join("-" * w for w in widths) + "|")
+
+            if initial_state is not None:
+                state = State(*(_to_device(v, dev) for v in initial_state))
+                if fsh is not None:
+                    state = state._replace(x=shd.block(state.x, fsh), y=shd.block(state.y, fsh))
+            else:
+                lr_t = torch.as_tensor(lr, dtype=x0.dtype, device=dev)
+                state = init_state(x0, f_v(x0) + g_v(x0), m, lr_t)
+
+            device_faulted = False
+            allvecs = allfuns = allerrs = None
+            # What the step reads by pointer: a chunk graph's cache key.
+            leaves = params if isinstance(params, (tuple, list)) else (params,)
+            owners = (f, g, jac_f, prox_wsum_g, *leaves)
+        if return_all:
+            if check_every != 1:
                 warnings.warn(
-                    f"device fault after {int(host.nit)} iterations — "
-                    f"returning partial result (success=False). Original "
-                    f"error: {type(exc).__name__}: {str(exc)[:200]}",
+                    "check_every > 1 is ignored when return_all=True (the "
+                    "history driver records every iteration).",
                     stacklevel=2,
                 )
-                # Stay off the device from here on: the partial result is
-                # the host copy.  Under skip_F its F_x was never updated,
-                # so NaN is the honest objective.
-                host = host._replace(failed=np.asarray(True))
-                if skip_F:
-                    host = host._replace(F_x=np.full_like(host.F_x, np.nan))
-                device_faulted = True
-                break
-    else:
-        search = getattr(step, "carried_search", None)
-        if search is not None and check_every > 1:
-            # The line search as carried steps: check_every counts them.
-            run = make_while_driver(search, max_iter, check_every, owners)
-            state = run(search.start(state)).state()
+            chunk = int(history_chunk)
+            if chunk < 1:
+                raise ValueError(f"history_chunk must be >= 1, got {chunk}")
+            if iter_chunk is not None:
+                chunk = min(chunk, int(iter_chunk))
+            # The history head: the resume iterate on a resumed solve, so that
+            # allvecs[k] and allfuns[k] stay paired.
+            head_x = x0_res if initial_state is None else to_host(state).x
+            head_F = device_to_host(state.F_x).numpy()
+            # On a card: the fixed step at m <= 2, or the line search as
+            # carried steps (a row where a step ends its iteration), on
+            # replayed graphs.
+            search = getattr(step, "carried_search", None)
+            graph_step = step if search is None else search
+            steps = _history_steps(graph_step, state, max_iter, owners, m)
+            if steps:
+                carry = state if search is None else search.start(state)
+                carry, xs, fs, allerrs = _run_history_graphed(
+                    graph_step, carry, max_iter, steps, owners, chunk
+                )
+                state = carry if search is None else carry.state()
+            else:
+                state, xs, fs, allerrs = _run_history(step, state, max_iter, chunk)
+            if fsh is not None and xs:
+                xs = list(shd.gather_numpy(np.stack(xs), fsh, dev, axis=1))
+            allvecs = [head_x] + xs
+            allfuns_arr = [head_F] + fs
+            if scalar_mode:
+                allfuns = [float(v[0]) for v in allfuns_arr]
+            else:
+                allfuns = allfuns_arr
+        elif iter_chunk is not None and iter_chunk < max_iter:
+            # Host-chunked driving: at most iter_chunk masked steps between
+            # host copies of the state.  Frozen steps no-op, so the result is
+            # bitwise the while driver's.  The host copy taken after each good
+            # chunk is the partial result if the device faults in the next.
+            masked = _chunk_body(step, lambda s: _active(s, max_iter))
+            with annotate("zt.drive", call="drive"):
+                host = to_host(state)
+                while bool(_active(host, max_iter)):
+                    try:
+                        for _ in range(iter_chunk):
+                            state = masked(state)
+                        host = to_host(state)
+                    except torch.AcceleratorError as exc:  # how CUDA faults surface
+                        warnings.warn(
+                            f"device fault after {int(host.nit)} iterations — "
+                            f"returning partial result (success=False). Original "
+                            f"error: {type(exc).__name__}: {str(exc)[:200]}",
+                            stacklevel=2,
+                        )
+                        # Stay off the device from here on: the partial result is
+                        # the host copy.  Under skip_F its F_x was never updated,
+                        # so NaN is the honest objective.
+                        host = host._replace(failed=np.asarray(True))
+                        if skip_F:
+                            host = host._replace(F_x=np.full_like(host.F_x, np.nan))
+                        device_faulted = True
+                        break
         else:
-            state = make_while_driver(step, max_iter, check_every, owners)(state)
+            search = getattr(step, "carried_search", None)
+            if search is not None and check_every > 1:
+                # The line search as carried steps: check_every counts them.
+                run = make_while_driver(search, max_iter, check_every, owners)
+                state = run(search.start(state)).state()
+            else:
+                state = make_while_driver(step, max_iter, check_every, owners)(state)
 
-    if not device_faulted:
-        if skip_F:
-            # The step skips F (see _make_step): recompute it once at the end.
-            state = state._replace(F_x=f_v(state.x) + g_v(state.x))
-        host = to_host(state)
-    elapsed = _time.perf_counter() - start
+        with annotate("zt.pack"):
+            if not device_faulted:
+                if skip_F:
+                    # The step skips F (see _make_step): recompute it once at the end.
+                    state = state._replace(F_x=f_v(state.x) + g_v(state.x))
+                host = to_host(state)
+            elapsed = _time.perf_counter() - start
 
-    fun = host.F_x[0] if scalar_mode else host.F_x
-    res = SolveResult(
-        x0=x0_res,
-        tol=tol,
-        tol_rel=tol_rel,
-        tol_internal=tol_internal,
-        tol_internal_rel=tol_internal_rel,
-        nesterov=nesterov,
-        nesterov_ratio=nesterov_ratio,
-        x=host.x,
-        fun=np.asarray(fun),
-        weight=host.w,
-        nit=int(host.nit),
-        nit_internal=int(host.nit_internal),
-        lr=float(host.lr),
-        error_criterion=float(host.err),
-        time=elapsed,
-        allvecs=allvecs,
-        allfuns=allfuns,
-        allerrs=allerrs,
-        state=host,
-    )
-    if bool(host.failed):
-        res.success = False
-        res.status = 2
-        # A device fault is not a line-search failure.
-        res.message = (
-            f"Error: device fault — partial result at iteration "
-            f"{int(host.nit)} (success=False)."
-            if device_faulted
-            else TERMINATION_MESSAGES[2]
-        )
-    elif bool(host.converged):
-        res.success = True
-        res.status = 1
-        res.message = TERMINATION_MESSAGES[1]
-    else:
-        res.success = False
-        res.status = 0
-        res.message = TERMINATION_MESSAGES[0]
-        warnings.warn(res.message, stacklevel=2)
-    return res
+            fun = host.F_x[0] if scalar_mode else host.F_x
+            res = SolveResult(
+                x0=x0_res,
+                tol=tol,
+                tol_rel=tol_rel,
+                tol_internal=tol_internal,
+                tol_internal_rel=tol_internal_rel,
+                nesterov=nesterov,
+                nesterov_ratio=nesterov_ratio,
+                x=host.x,
+                fun=np.asarray(fun),
+                weight=host.w,
+                nit=int(host.nit),
+                nit_internal=int(host.nit_internal),
+                lr=float(host.lr),
+                error_criterion=float(host.err),
+                time=elapsed,
+                allvecs=allvecs,
+                allfuns=allfuns,
+                allerrs=allerrs,
+                state=host,
+            )
+            if bool(host.failed):
+                res.success = False
+                res.status = 2
+                # A device fault is not a line-search failure.
+                res.message = (
+                    f"Error: device fault — partial result at iteration "
+                    f"{int(host.nit)} (success=False)."
+                    if device_faulted
+                    else TERMINATION_MESSAGES[2]
+                )
+            elif bool(host.converged):
+                res.success = True
+                res.status = 1
+                res.message = TERMINATION_MESSAGES[1]
+            else:
+                res.success = False
+                res.status = 0
+                res.message = TERMINATION_MESSAGES[0]
+                warnings.warn(res.message, stacklevel=2)
+        return res
 
 
 def _default_check_every(
@@ -1902,5 +1948,6 @@ def _default_check_every(
 
 
 def state_to_numpy(state: State) -> State:
-    """``state`` with every field copied to the host as a numpy array."""
-    return State(*(v.detach().cpu().numpy() for v in state))
+    """``state`` with every field copied to the host as a numpy array (a
+    counted read a field)."""
+    return State(*(device_to_host(v).numpy() for v in state))

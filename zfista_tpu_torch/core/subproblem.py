@@ -74,6 +74,7 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, matmul_hp, sum_hp
 from zfista_tpu_torch.ops.prox import DeviceConstants, project_simplex
+from zfista_tpu_torch.utils.profiling import annotate, device_to_host, read_flag
 
 _DOT = matmul_hp
 _VDOT = dot_hp
@@ -320,7 +321,9 @@ def make_subproblem_solver(
         args = (lr, F_old, y, f_y, jac_f_y)
         c = parts.start(*args, w0)
         while True:
-            nit, ended = torch.stack([c.nit, parts.ended(c).to(torch.int32)]).tolist()
+            with annotate("zt.host_read"):
+                flags = torch.stack([c.nit, parts.ended(c).to(torch.int32)])
+                nit, ended = device_to_host(flags).tolist()
             if ended:
                 break
             c = parts.iterate(c, *args)
@@ -616,7 +619,7 @@ def make_batch_subproblem_solver(
         args = (lr, F_old, y, f_y, jac_f_y)
         c = newton.start(*args, w0)
         c = c._replace(done=c.done | ~live)
-        while bool(torch.any(~newton.ended(c))):  # the one read per Newton round
+        while read_flag(torch.any(~newton.ended(c))):  # the one read per Newton round
             c = newton.iterate(c, *args)
         return newton.finish(c, *args)
 

@@ -45,6 +45,7 @@ from zfista_tpu_torch.parallel.sharding import (
     sharding_of,
     tag,
 )
+from zfista_tpu_torch.utils.profiling import annotate, device_to_host
 
 _DOT = matmul_hp
 
@@ -212,15 +213,17 @@ class Lasso(_OnOperator):
     def prox_wsum_g(self, weight, x: Array) -> Array:
         return soft_threshold(x, weight * self.l1_ratio)
 
+    @annotate("zt.lipschitz")
     def lipschitz(
         self, n_iter: int = 50, generator: torch.Generator | None = None
     ) -> float:
         """``L = 2 λ_max(AᵀA) (+ μ)`` — use ``lr = 1/L`` with
         ``decay_rate=1`` for the fixed-step fast path."""
-        return float(
+        return float(device_to_host(
             2 * operator_norm_sq(self.A, n_iter, generator=generator) + self.l2_ratio
-        )
+        ))
 
+    @annotate("zt.solve", call="entry")
     def solve_fixed_step(self, x0, **kwargs):
         """Fixed-step FISTA at ``lr = 1/L`` (no backtracking) — the
         bandwidth-bound hot path.
@@ -292,8 +295,9 @@ class GroupLasso(_OnOperator):
     def prox_wsum_g(self, weight, x: Array) -> Array:
         return self._groups.prox(x, weight * self.l1_ratio)
 
+    @annotate("zt.lipschitz")
     def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
-        return float(2 * operator_norm_sq(self.A, n_iter, generator=generator))
+        return float(device_to_host(2 * operator_norm_sq(self.A, n_iter, generator=generator)))
 
 
 class _Groups:

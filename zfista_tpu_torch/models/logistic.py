@@ -33,6 +33,7 @@ from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.lasso import operator_norm_sq
 from zfista_tpu_torch.ops.precision import matmul_hp, mean_hp, sum_hp
 from zfista_tpu_torch.ops.prox import soft_threshold
+from zfista_tpu_torch.utils.profiling import annotate, device_to_host
 
 _DOT = matmul_hp
 
@@ -89,10 +90,13 @@ class SparseLogistic:
             torch.as_tensor(weight, dtype=x.dtype, device=x.device), x, self._params
         )
 
+    @annotate("zt.lipschitz")
     def lipschitz(self, n_iter: int = 50, generator: torch.Generator | None = None) -> float:
         """Global bound ``L = lambda_max(AᵀA) / (4 m)`` (the logistic loss's
         second derivative is at most 1/4)."""
-        return float(operator_norm_sq(self.A, n_iter, generator=generator) / (4 * self.n_samples))
+        return float(device_to_host(
+            operator_norm_sq(self.A, n_iter, generator=generator) / (4 * self.n_samples)
+        ))
 
     def solve(self, x0=None, **kwargs):
         """Backtracking FISTA by default (the global ``1/L`` step is

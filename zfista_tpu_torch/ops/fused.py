@@ -44,18 +44,20 @@ from zfista_tpu_torch._typing import Array, Scalar
 from zfista_tpu_torch.ops import _build
 from zfista_tpu_torch.ops.precision import matmul_hp
 from zfista_tpu_torch.ops.prox import soft_threshold
+from zfista_tpu_torch.utils.profiling import register
 
 #: Kernel launches made by each wrapper since import (or since a caller
 #: reset the entry to 0).  Incremented only where the CUDA kernel is
 #: launched, never on the plain CPU path, so a run can show that its main
 #: path went through the kernel.  A replayed CUDA graph runs no wrapper:
 #: the solver adds the launches its capture recorded at each replay
-#: (``core.solver.run_graphed``), and takes back the capture's own.
-launch_counts: dict[str, int] = {
+#: (``core.solver.run_graphed``), and takes back the capture's own.  The
+#: tracing registry's group ``fused``.
+launch_counts: dict[str, int] = register("fused", {
     "fused_prox_momentum": 0,
     "fista_tail": 0,
     "lasso_step_tail": 0,
-}
+})
 
 _SOURCE = "fused_prox_momentum"
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -46,6 +46,7 @@ import torch
 from zfista_tpu_torch._typing import Array, Scalar
 from zfista_tpu_torch.ops import _build
 from zfista_tpu_torch.ops.tv import _div2d, _grad2d
+from zfista_tpu_torch.utils.profiling import register
 
 #: Kernel launches made by each wrapper since import (or since a caller
 #: reset the entry to 0).  Incremented only where a CUDA kernel is
@@ -53,12 +54,12 @@ from zfista_tpu_torch.ops.tv import _div2d, _grad2d
 #: launch of a call: one per sweep, plus the pass that recovers ``u``.  A
 #: replayed CUDA graph runs no wrapper: the solver adds the launches its
 #: capture recorded at each replay (``core.solver.run_graphed``), and
-#: takes back the capture's own.
-launch_counts: dict[str, int] = {
+#: takes back the capture's own.  The tracing registry's group ``tv_cuda``.
+launch_counts: dict[str, int] = register("tv_cuda", {
     "fgp_resident": 0,
     "fgp_tiles": 0,
     "fgp_tiles_pipelined": 0,
-}
+})
 
 #: Iterations one tile sweep advances, and the halo that makes them exact:
 #: the FGP body reads one cell in each direction per iteration, so after

@@ -75,6 +75,7 @@ from zfista_tpu_torch.core.solver import (
     run_recorded,
     state_to_numpy,
 )
+from zfista_tpu_torch.utils.profiling import annotate, device_to_host, read_flag
 from zfista_tpu_torch.parallel.sharding import (
     NamedSharding,
     P,
@@ -241,7 +242,7 @@ def _lane_chunked_solve(
         return _tree_map(one, tree)
 
     def _host(a):
-        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return device_to_host(a).numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
     def _failed_part(template: BatchResult, s: int, e: int) -> BatchResult:
         """A chunk result marking every lane failed (status 2, x = x0, NaN
@@ -580,113 +581,114 @@ def minimize_proximal_gradient_batch(
 
     Returns a :class:`BatchResult`; per-solve views via ``.to_list()``.
     """
-    start = _time.perf_counter()
-    sharding = in_sharding if in_sharding is not None else sharding_of(x0s)
-    op = operator_of(f, g, jac_f, prox_wsum_g)
-    if op is not None:
-        # Callables on a feature-sharded operator: the lanes lie on its
-        # mesh, by features too.
-        sharding = lanes_on_operator(op, sharding)
-    dev = _solve_device(x0s, batch_params, device)
-    x0s = torch.as_tensor(x0s, device=dev)
-    if x0s.ndim != 2:
-        raise ValueError(f"x0s must be (batch, n_features); got {tuple(x0s.shape)}")
-    if tol_rel < 0:
-        raise ValueError(f"tol_rel must be >= 0, got {tol_rel}")
-    if tol_internal_rel < 0:
-        raise ValueError(f"tol_internal_rel must be >= 0, got {tol_internal_rel}")
-    # The global momentum pair as a tuple: an array-valued pair stored in the
-    # result as an ndarray would be taken for a per-lane field by the merge.
-    if isinstance(nesterov_ratio, torch.Tensor):
-        nesterov_ratio = tuple(nesterov_ratio.detach().cpu().numpy().ravel().tolist())
-    elif isinstance(nesterov_ratio, np.ndarray):
-        nesterov_ratio = tuple(nesterov_ratio.ravel().tolist())
-    else:
-        nesterov_ratio = tuple(nesterov_ratio)
-    if len(nesterov_ratio) != 2:
-        raise ValueError(f"nesterov_ratio must be a pair (a, b); got {nesterov_ratio!r}")
-    if not x0s.is_floating_point():
-        x0s = x0s.to(torch.get_default_dtype())
+    with annotate("zt.solve_batch", call="entry"):
+        start = _time.perf_counter()
+        sharding = in_sharding if in_sharding is not None else sharding_of(x0s)
+        op = operator_of(f, g, jac_f, prox_wsum_g)
+        if op is not None:
+            # Callables on a feature-sharded operator: the lanes lie on its
+            # mesh, by features too.
+            sharding = lanes_on_operator(op, sharding)
+        dev = _solve_device(x0s, batch_params, device)
+        x0s = torch.as_tensor(x0s, device=dev)
+        if x0s.ndim != 2:
+            raise ValueError(f"x0s must be (batch, n_features); got {tuple(x0s.shape)}")
+        if tol_rel < 0:
+            raise ValueError(f"tol_rel must be >= 0, got {tol_rel}")
+        if tol_internal_rel < 0:
+            raise ValueError(f"tol_internal_rel must be >= 0, got {tol_internal_rel}")
+        # The global momentum pair as a tuple: an array-valued pair stored in the
+        # result as an ndarray would be taken for a per-lane field by the merge.
+        if isinstance(nesterov_ratio, torch.Tensor):
+            nesterov_ratio = tuple(device_to_host(nesterov_ratio).numpy().ravel().tolist())
+        elif isinstance(nesterov_ratio, np.ndarray):
+            nesterov_ratio = tuple(nesterov_ratio.ravel().tolist())
+        else:
+            nesterov_ratio = tuple(nesterov_ratio)
+        if len(nesterov_ratio) != 2:
+            raise ValueError(f"nesterov_ratio must be a pair (a, b); got {nesterov_ratio!r}")
+        if not x0s.is_floating_point():
+            x0s = x0s.to(torch.get_default_dtype())
 
-    # What a part of the batch (a lane chunk, a rank's lanes) is solved with.
-    solver_kwargs = dict(
-        lr=lr,
-        tol=tol,
-        tol_rel=tol_rel,
-        tol_internal=tol_internal,
-        tol_internal_rel=tol_internal_rel,
-        max_iter=max_iter,
-        max_iter_internal=max_iter_internal,
-        max_backtrack_iter=max_backtrack_iter,
-        warm_start=warm_start,
-        decay_rate=decay_rate,
-        nesterov=nesterov,
-        nesterov_ratio=nesterov_ratio,
-        deprecated=deprecated,
-        history=history,
-        history_chunk=history_chunk,
-        record_vecs=record_vecs,
-        check_every=check_every,
-        adaptive_restart=adaptive_restart,
-        project_momentum=project_momentum,
-        iter_chunk=iter_chunk,
-        device=dev,
-    )
-    if lane_chunk is not None:
-        if int(lane_chunk) < 1:
-            raise ValueError(f"lane_chunk must be >= 1; got {lane_chunk}")
+        # What a part of the batch (a lane chunk, a rank's lanes) is solved with.
+        solver_kwargs = dict(
+            lr=lr,
+            tol=tol,
+            tol_rel=tol_rel,
+            tol_internal=tol_internal,
+            tol_internal_rel=tol_internal_rel,
+            max_iter=max_iter,
+            max_iter_internal=max_iter_internal,
+            max_backtrack_iter=max_backtrack_iter,
+            warm_start=warm_start,
+            decay_rate=decay_rate,
+            nesterov=nesterov,
+            nesterov_ratio=nesterov_ratio,
+            deprecated=deprecated,
+            history=history,
+            history_chunk=history_chunk,
+            record_vecs=record_vecs,
+            check_every=check_every,
+            adaptive_restart=adaptive_restart,
+            project_momentum=project_momentum,
+            iter_chunk=iter_chunk,
+            device=dev,
+        )
+        if lane_chunk is not None:
+            if int(lane_chunk) < 1:
+                raise ValueError(f"lane_chunk must be >= 1; got {lane_chunk}")
+            if sharding is not None:
+                # Checked whenever lane_chunk is passed (not only when it
+                # splits), as the JAX package does.
+                raise ValueError(
+                    "lane_chunk cannot be combined with in_sharding: "
+                    "chunking is a single-process device-capacity knob — "
+                    "shard OR chunk the batch axis, not both"
+                )
+            if int(lane_chunk) < int(x0s.shape[0]):
+                return _lane_chunked_solve(
+                    f,
+                    g,
+                    jac_f,
+                    prox_wsum_g,
+                    x0s,
+                    batch_params=batch_params,
+                    batch_nesterov_ratio=batch_nesterov_ratio,
+                    initial_states=initial_states,
+                    lane_chunk=int(lane_chunk),
+                    keep_state=keep_state,
+                    start=start,
+                    solver_kwargs=solver_kwargs,
+                )
         if sharding is not None:
-            # Checked whenever lane_chunk is passed (not only when it
-            # splits), as the JAX package does.
-            raise ValueError(
-                "lane_chunk cannot be combined with in_sharding: "
-                "chunking is a single-process device-capacity knob — "
-                "shard OR chunk the batch axis, not both"
-            )
-        if int(lane_chunk) < int(x0s.shape[0]):
-            return _lane_chunked_solve(
+            return _sharded_solve(
                 f,
                 g,
                 jac_f,
                 prox_wsum_g,
                 x0s,
+                sharding,
                 batch_params=batch_params,
                 batch_nesterov_ratio=batch_nesterov_ratio,
                 initial_states=initial_states,
-                lane_chunk=int(lane_chunk),
                 keep_state=keep_state,
                 start=start,
                 solver_kwargs=solver_kwargs,
             )
-    if sharding is not None:
-        return _sharded_solve(
+        return _solve_lanes(
             f,
             g,
             jac_f,
             prox_wsum_g,
             x0s,
-            sharding,
             batch_params=batch_params,
             batch_nesterov_ratio=batch_nesterov_ratio,
             initial_states=initial_states,
             keep_state=keep_state,
             start=start,
-            solver_kwargs=solver_kwargs,
+            features=None,
+            **solver_kwargs,
         )
-    return _solve_lanes(
-        f,
-        g,
-        jac_f,
-        prox_wsum_g,
-        x0s,
-        batch_params=batch_params,
-        batch_nesterov_ratio=batch_nesterov_ratio,
-        initial_states=initial_states,
-        keep_state=keep_state,
-        start=start,
-        features=None,
-        **solver_kwargs,
-    )
 
 
 def _solve_lanes(
@@ -729,114 +731,115 @@ def _solve_lanes(
     (``P("model")`` on the mesh) means the lanes are this rank's feature
     blocks: the step reduces over the ``"model"`` ranks, and the result
     holds whole iterates."""
-    dev = device
-    check_every = int(check_every)
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if iter_chunk is not None:
-        iter_chunk = int(iter_chunk)
-        if iter_chunk < 1:
-            raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
-        if check_every != 1 and not (history or record_vecs):
-            warnings.warn(
-                "check_every > 1 is ignored when iter_chunk is set (the "
-                "chunked driver runs plain masked steps and re-checks "
-                "between chunks).",
-                stacklevel=3,
-            )
-    to_numpy = state_to_numpy
-    feature_sum = feature_max = None
-    if features is not None:
-        group = features.group
-        feature_sum = lambda v: all_reduce_sum(v, group)
-        feature_max = lambda v: all_reduce_max(v, group)
-
-        def whole(t: torch.Tensor) -> torch.Tensor:
-            """The lanes' whole iterates from their feature blocks."""
-            return gather(t, features, axis=t.dim() - 1)
-
-        def to_numpy(s: State) -> State:
-            return state_to_numpy(s._replace(x=whole(s.x), y=whole(s.y)))
-
-        x0s_res = whole(x0s).cpu().numpy()
-    else:
-        # The host copy of x0s for the result, before the device does any work.
-        x0s_res = x0s.detach().cpu().numpy().copy()
-    B = int(x0s.shape[0])
-
-    params = None
-    lane0: tuple = ()
-    if batch_params is not None:
-        params = _tree_map(lambda a: _to_device(a, dev), batch_params)
-        lane0 = (_tree_map(lambda a: a[0], params),)
-    # One lane's vector-form callables, the objective count from the first
-    # lane (the JAX package traces eval_shape).
-    f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
-        f, g, jac_f, prox_wsum_g, x0s[0], *lane0
-    )
-
-    has_ab = batch_nesterov_ratio is not None
-    if has_ab:
-        ab = torch.as_tensor(
-            batch_nesterov_ratio.detach().cpu().numpy()
-            if isinstance(batch_nesterov_ratio, torch.Tensor)
-            else np.asarray(batch_nesterov_ratio),
-            dtype=x0s.dtype,
-            device=dev,
-        )
-        if tuple(ab.shape) != (B, 2):
-            raise ValueError(f"batch_nesterov_ratio must be (batch, 2); got {tuple(ab.shape)}")
-        # A per-lane momentum grid implies acceleration.
-        nesterov = True
-    if record_vecs:
-        history = True  # iterate recording rides the history driver
-    # Single-objective fixed-step batches with no history consumer skip the
-    # per-iteration F and recompute it once at the end (bitwise the same
-    # trajectory; see core.solver._make_step's track_objective).
-    skip_F = decay_rate == 1 and m == 1 and not history
-    max_iter = int(max_iter)
-
-    step = _make_batch_step(
-        f_v,
-        g_v,
-        jac_v,
-        prox_v,
-        m,
-        params,
-        tol=tol,
-        tol_rel=float(tol_rel),
-        tol_internal=tol_internal,
-        tol_internal_rel=float(tol_internal_rel),
-        max_iter_internal=int(max_iter_internal),
-        max_backtrack_iter=int(max_backtrack_iter),
-        warm_start=warm_start,
-        decay_rate=decay_rate,
-        nesterov=nesterov,
-        nesterov_ratio=(ab[:, 0], ab[:, 1]) if has_ab else nesterov_ratio,
-        deprecated=deprecated,
-        adaptive_restart=bool(adaptive_restart),
-        project_momentum=bool(project_momentum),
-        track_objective=not skip_F,
-        max_iter=max_iter,
-        feature_sum=feature_sum,
-        feature_max=feature_max,
-    )
-    v_F = _over_lanes(lambda x, *p: f_v(x, *p) + g_v(x, *p), 1, params)
-
-    if initial_states is not None:
-        states = State(*(_to_device(v, dev) for v in initial_states))
+    with annotate("zt.setup"):
+        dev = device
+        check_every = int(check_every)
+        if check_every < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        if iter_chunk is not None:
+            iter_chunk = int(iter_chunk)
+            if iter_chunk < 1:
+                raise ValueError(f"iter_chunk must be >= 1, got {iter_chunk}")
+            if check_every != 1 and not (history or record_vecs):
+                warnings.warn(
+                    "check_every > 1 is ignored when iter_chunk is set (the "
+                    "chunked driver runs plain masked steps and re-checks "
+                    "between chunks).",
+                    stacklevel=3,
+                )
+        to_numpy = state_to_numpy
+        feature_sum = feature_max = None
         if features is not None:
-            # Whole iterates, as a result's state holds them: this rank's block.
-            split = NamedSharding(features.mesh, P(None, "model"))
-            states = states._replace(x=block(states.x, split), y=block(states.y, split))
-    else:
-        states = _init_states(x0s, v_F(x0s), m, lr)
-    any_active = lambda s: torch.any(_active(s, max_iter))
-    # What the step reads by pointer: a chunk graph's cache key.
-    owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
-    # A backtracking step at m <= 2, any step at m >= 3: its line search as
-    # per-lane carried steps (a trial, or a Newton iteration, a step).
-    search = getattr(step, "carried_search", None)
+            group = features.group
+            feature_sum = lambda v: all_reduce_sum(v, group)
+            feature_max = lambda v: all_reduce_max(v, group)
+
+            def whole(t: torch.Tensor) -> torch.Tensor:
+                """The lanes' whole iterates from their feature blocks."""
+                return gather(t, features, axis=t.dim() - 1)
+
+            def to_numpy(s: State) -> State:
+                return state_to_numpy(s._replace(x=whole(s.x), y=whole(s.y)))
+
+            x0s_res = device_to_host(whole(x0s)).numpy()
+        else:
+            # The host copy of x0s for the result, before the device does any work.
+            x0s_res = device_to_host(x0s).numpy().copy()
+        B = int(x0s.shape[0])
+
+        params = None
+        lane0: tuple = ()
+        if batch_params is not None:
+            params = _tree_map(lambda a: _to_device(a, dev), batch_params)
+            lane0 = (_tree_map(lambda a: a[0], params),)
+        # One lane's vector-form callables, the objective count from the first
+        # lane (the JAX package traces eval_shape).
+        f_v, g_v, jac_v, prox_v, m, scalar_mode = _normalize_problem(
+            f, g, jac_f, prox_wsum_g, x0s[0], *lane0
+        )
+
+        has_ab = batch_nesterov_ratio is not None
+        if has_ab:
+            ab = torch.as_tensor(
+                device_to_host(batch_nesterov_ratio).numpy()
+                if isinstance(batch_nesterov_ratio, torch.Tensor)
+                else np.asarray(batch_nesterov_ratio),
+                dtype=x0s.dtype,
+                device=dev,
+            )
+            if tuple(ab.shape) != (B, 2):
+                raise ValueError(f"batch_nesterov_ratio must be (batch, 2); got {tuple(ab.shape)}")
+            # A per-lane momentum grid implies acceleration.
+            nesterov = True
+        if record_vecs:
+            history = True  # iterate recording rides the history driver
+        # Single-objective fixed-step batches with no history consumer skip the
+        # per-iteration F and recompute it once at the end (bitwise the same
+        # trajectory; see core.solver._make_step's track_objective).
+        skip_F = decay_rate == 1 and m == 1 and not history
+        max_iter = int(max_iter)
+
+        step = _make_batch_step(
+            f_v,
+            g_v,
+            jac_v,
+            prox_v,
+            m,
+            params,
+            tol=tol,
+            tol_rel=float(tol_rel),
+            tol_internal=tol_internal,
+            tol_internal_rel=float(tol_internal_rel),
+            max_iter_internal=int(max_iter_internal),
+            max_backtrack_iter=int(max_backtrack_iter),
+            warm_start=warm_start,
+            decay_rate=decay_rate,
+            nesterov=nesterov,
+            nesterov_ratio=(ab[:, 0], ab[:, 1]) if has_ab else nesterov_ratio,
+            deprecated=deprecated,
+            adaptive_restart=bool(adaptive_restart),
+            project_momentum=bool(project_momentum),
+            track_objective=not skip_F,
+            max_iter=max_iter,
+            feature_sum=feature_sum,
+            feature_max=feature_max,
+        )
+        v_F = _over_lanes(lambda x, *p: f_v(x, *p) + g_v(x, *p), 1, params)
+
+        if initial_states is not None:
+            states = State(*(_to_device(v, dev) for v in initial_states))
+            if features is not None:
+                # Whole iterates, as a result's state holds them: this rank's block.
+                split = NamedSharding(features.mesh, P(None, "model"))
+                states = states._replace(x=block(states.x, split), y=block(states.y, split))
+        else:
+            states = _init_states(x0s, v_F(x0s), m, lr)
+        any_active = lambda s: torch.any(_active(s, max_iter))
+        # What the step reads by pointer: a chunk graph's cache key.
+        owners = (f, g, jac_f, prox_wsum_g, *_tree_leaves(params), *((ab,) if has_ab else ()))
+        # A backtracking step at m <= 2, any step at m >= 3: its line search as
+        # per-lane carried steps (a trial, or a Newton iteration, a step).
+        search = getattr(step, "carried_search", None)
 
     allfuns = allerrs = hist_mask = allvecs = F0 = vec_head = None
     if history:
@@ -853,7 +856,7 @@ def _solve_lanes(
             chunk = min(chunk, iter_chunk)
         # F at the start (F(x0), or the resume point's), first in each lane's
         # history; the resume iterate heads allvecs on a resumed run.
-        F0 = states.F_x.cpu().numpy()
+        F0 = device_to_host(states.F_x).numpy()
         if record_vecs and initial_states is not None:
             vec_head = to_numpy(states).x
         # On a card: the fixed-lr step at m <= 2, or the carried steps, on
@@ -882,29 +885,30 @@ def _solve_lanes(
         if skip_F:
             states = states._replace(F_x=v_F(states.x))
 
-    host = to_numpy(states)
-    elapsed = _time.perf_counter() - start
-    return _pack_result(
-        host,
-        x0s_res,
-        scalar_mode,
-        elapsed,
-        tol,
-        tol_internal,
-        nesterov,
-        # Per-lane momentum pairs become a (B, 2) field, so to_list()
-        # reports each lane's own pair.
-        ab.cpu().numpy() if has_ab else nesterov_ratio,
-        allfuns,
-        allerrs,
-        hist_mask,
-        keep_state,
-        allvecs=allvecs,
-        F0=F0,
-        vec_head=vec_head,
-        tol_rel=tol_rel,
-        tol_internal_rel=tol_internal_rel,
-    )
+    with annotate("zt.pack"):
+        host = to_numpy(states)
+        elapsed = _time.perf_counter() - start
+        return _pack_result(
+            host,
+            x0s_res,
+            scalar_mode,
+            elapsed,
+            tol,
+            tol_internal,
+            nesterov,
+            # Per-lane momentum pairs become a (B, 2) field, so to_list()
+            # reports each lane's own pair.
+            device_to_host(ab).numpy() if has_ab else nesterov_ratio,
+            allfuns,
+            allerrs,
+            hist_mask,
+            keep_state,
+            allvecs=allvecs,
+            F0=F0,
+            vec_head=vec_head,
+            tol_rel=tol_rel,
+            tol_internal_rel=tol_internal_rel,
+        )
 
 
 def _init_states(x0s: torch.Tensor, F0: torch.Tensor, m: int, lr: float) -> State:
@@ -930,6 +934,7 @@ def _init_states(x0s: torch.Tensor, F0: torch.Tensor, m: int, lr: float) -> Stat
     )
 
 
+@annotate("zt.drive", call="drive")
 def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bool):
     """The per-step history driver: step while any lane is active (one
     host read per step), recording every lane's ``(F_x, err, recorded)``
@@ -948,12 +953,12 @@ def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bo
     def flush():
         if pending:
             for i, v in enumerate(zip(*pending)):
-                rows[i].append(torch.stack(v, dim=1).cpu().numpy())
+                rows[i].append(device_to_host(torch.stack(v, dim=1)).numpy())
             pending.clear()
 
     while True:
         active = _active(states, max_iter)
-        if not bool(torch.any(active)):  # the one host read per step
+        if not read_flag(torch.any(active)):  # the one host read per step
             break
         states = step(states)
         rec = (states.F_x, states.err, active & ~states.failed)
@@ -962,7 +967,8 @@ def _run_history(step, states: State, max_iter: int, chunk: int, record_vecs: bo
             flush()
     flush()
     if not rows[0]:  # no step ran: empty histories of the right dtypes
-        rows = [[v[:, None][:, :0].cpu().numpy()] for v in (states.F_x, states.err, states.failed, states.x)]
+        empty = (states.F_x, states.err, states.failed, states.x)
+        rows = [[device_to_host(v[:, None][:, :0]).numpy()] for v in empty]
     out = [np.concatenate(r, axis=1) for r in rows[:3]]
     return (states, *out, np.concatenate(rows[3], axis=1) if record_vecs else None)
 
@@ -983,7 +989,7 @@ def _run_history_graphed(
     iterations any lane ended, the per-step driver's step count.
 
     Returns the final carry and the histories, as :func:`_run_history`."""
-    nit0 = carry.nit.cpu().numpy()
+    nit0 = device_to_host(carry.nit).numpy()
     kept: list[list[np.ndarray]] = []
 
     def sink(rows: tuple) -> None:

@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from zfista_tpu_torch.core.solver import data_device
+from zfista_tpu_torch.utils.profiling import device_to_host, register
 
 AXIS_NAMES = ("batch", "model")
 #: The attribute that tags a local block with its placement.
@@ -312,8 +313,9 @@ def shard_batch(x0s: Any, mesh: Mesh | None = None, device: Any = None) -> torch
 
 
 #: All-reduces this process has issued, by kind ("sum", "max", "gather"):
-#: the tests and ``chip_smoke.py`` count collectives per step with it.
-collective_counts = {"sum": 0, "max": 0, "gather": 0}
+#: the tests and ``chip_smoke.py`` count collectives per step with it.  The
+#: tracing registry's group ``collectives``.
+collective_counts = register("collectives", {"sum": 0, "max": 0, "gather": 0})
 
 
 def _sum_now(t: torch.Tensor, group) -> torch.Tensor:
@@ -474,4 +476,4 @@ def gather_numpy(a: np.ndarray, sharding: NamedSharding, device: torch.device, a
     """:func:`gather` of a host array, through ``device`` (the backend's:
     NCCL takes only CUDA tensors)."""
     t = torch.as_tensor(np.ascontiguousarray(a)).to(device)
-    return gather(t, sharding, axis).cpu().numpy()
+    return device_to_host(gather(t, sharding, axis)).numpy()
