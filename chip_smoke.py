@@ -33,7 +33,9 @@ of them against its plain PyTorch version:
 
 * dense LASSO (m=2000, n=10,000, float32, lambda=0.01, the recipe of
   bench.py) solved by fixed-step FISTA through
-  ``zfista_tpu_torch.models.Lasso.solve_fixed_step`` (phases 2-5);
+  ``zfista_tpu_torch.models.Lasso.solve_fixed_step`` (phases 2-5; 5b
+  holds its gradient's single-pass kernel, ``lasso_normal_gemv``, to
+  float64 and to itself);
 * TV-regularized deblurring (``examples/tv_deblur.py``'s workload: the
   synthetic cameraman at 256x256, Gaussian 9x9 sigma=4, noise 1e-3,
   tv_ratio 2e-4) through ``zfista_tpu_torch.models.TVDeblur``, whose TV
@@ -308,8 +310,10 @@ import numpy as np
 import torch
 
 M, N, LAM = 2000, 10_000, 0.01
-#: Bytes of HBM one FISTA iteration must read: A (80 MB in float32) twice,
-#: once per matvec (it exceeds the 50 MB L2); the n-vectors add <1 MB.
+#: Bytes of HBM one FISTA iteration reads: A (80 MB in float32) twice,
+#: once per matvec (it exceeds the 50 MB L2), in the raw dense steps; once
+#: through the single-pass gradient of the public solve.  The n-vectors add
+#: <1 MB.
 BYTES_PER_ITER = 2 * M * N * 4
 KERNEL_SOURCE = "zfista_tpu_torch/csrc/fused_prox_momentum.cu"
 #: The fused LASSO kernel's entries (zfista_tpu_torch.ops.fused wrappers):
@@ -338,7 +342,14 @@ KERNEL_TIME_SIZES = (
 #: the bound on their relative 2-norm difference: float32 rounding
 #: (eps 6e-8) amplified over 200 momentum steps.
 AGREE_ITERS, AGREE_RTOL = 200, 1e-4
-SOURCES = ("fused_prox_momentum", "fgp_resident", "fgp_tiles")
+SOURCES = ("fused_prox_momentum", "lasso_normal_gemv", "fgp_resident", "fgp_tiles")
+#: Phase 5b: the single-pass gradient's shapes (m, n): the main path's,
+#: ragged rows and columns, one column, one row, the kernel's row budget
+#: (``fused.NORMAL_GEMV_MAX_N``), and a row under four floats; each with A
+#: aligned and with A 4 bytes past an aligned address (rows off 16-byte
+#: boundaries: the kernel's one-float loads).
+GEMV_CHECK_SHAPES = ((M, N), (1999, 10_001), (M, 1), (1, N), (7, 12_288), (300, 3))
+GEMV_SOURCE = "zfista_tpu_torch/csrc/lasso_normal_gemv.cu"
 #: Phase 6: images on which every FGP kernel is held against the plain loop
 #: (the whole-image kernel where its bands fit shared memory).
 TV_CHECK_CASES = (
@@ -680,7 +691,8 @@ def phase2(dev) -> dict[str, float]:
                 f"lasso_step_tail (states {list(cases)}) == plain bitwise (tolerance 0); "
                 f"launches +{launched}; step tail (converged, nit, err) {flags}"
             )
-            want = {"fused_prox_momentum": 1, "fista_tail": 1, "lasso_step_tail": len(cases)}
+            want = {"fused_prox_momentum": 1, "fista_tail": 1, "lasso_step_tail": len(cases),
+                    "lasso_normal_gemv": 0}
             if launched != want:
                 raise AssertionError(f"phase 2 launches {launched}, expected {want}")
             if not (flags["converging"][0] and not flags["active"][0]
@@ -1278,6 +1290,21 @@ def eager_chunks():
     finally:
         if real is not None:
             solver._graphs_run_on = real
+
+
+@contextlib.contextmanager
+def two_products():
+    """The LASSO gradient by its two cuBLAS products, as a feature-sharded
+    operator's column block computes it, where a whole operator would take
+    the single-pass kernel."""
+    from zfista_tpu_torch.models import lasso
+
+    real = lasso._one_pass
+    lasso._one_pass = lambda A, b, x: False
+    try:
+        yield
+    finally:
+        lasso._one_pass = real
 
 
 def lasso_loops(dev, card: str, iters: int = 256) -> dict[str, dict[str, float]]:
@@ -4144,7 +4171,8 @@ def phase15a(card: str, dev) -> dict:
     torch.cuda.synchronize()
     launched = dict(fused.launch_counts)  # ... and ends here
     rec = json.loads(out.getvalue().strip().splitlines()[-1])
-    if launched != {"fused_prox_momentum": 0, "fista_tail": 2 * LARGE_ITERS, "lasso_step_tail": 0}:
+    if launched != {"fused_prox_momentum": 0, "fista_tail": 2 * LARGE_ITERS, "lasso_step_tail": 0,
+                    "lasso_normal_gemv": 0}:
         raise AssertionError(f"phase 15a: large_lasso launched {launched}")
     gbps = copy_gbps(dev)
     bound_ms = 1e3 * 2 * LARGE_M * LARGE_N * 4 / PEAK_BYTES_PER_S
@@ -4215,8 +4243,11 @@ def same_batch(u, v) -> bool:
 def phase15b(card: str, dev, A_np, b_np, lr: float) -> dict:
     """A world of one NCCL rank on the card: the headline LASSO through
     ``Lasso`` on ``distribute_global(A, mesh, operator_sharding)`` to
-    convergence, bitwise the unsharded solve, through the composed tail;
-    the lambda sweep with ``in_sharding`` bitwise the unsharded sweep."""
+    convergence, bitwise the unsharded solve through the same two
+    gradient products (``two_products``: the whole operator's own solve
+    takes the single-pass kernel, its result logged beside), through the
+    composed tail; the lambda sweep with ``in_sharding`` bitwise the
+    unsharded sweep."""
     from zfista_tpu_torch.models import Lasso
     from zfista_tpu_torch.ops import fused
     from zfista_tpu_torch.parallel import batch_sharding, distributed
@@ -4232,9 +4263,17 @@ def phase15b(card: str, dev, A_np, b_np, lr: float) -> dict:
         res_sh = sharded.solve_fixed_step(x0, lr=lr)
         torch.cuda.synchronize()
         launched = dict(fused.launch_counts)  # ... and ends here
-        res = Lasso(torch.as_tensor(A_np, device=dev), b, LAM).solve_fixed_step(
-            torch.zeros(N, dtype=torch.float32, device=dev), lr=lr
+        x_whole = torch.zeros(N, dtype=torch.float32, device=dev)
+        with two_products():
+            res = Lasso(torch.as_tensor(A_np, device=dev), b, LAM).solve_fixed_step(x_whole, lr=lr)
+        one = Lasso(torch.as_tensor(A_np, device=dev), b, LAM).solve_fixed_step(x_whole, lr=lr)
+        log(
+            f"phase 15b [{card}]: the unsharded solve by the single-pass gradient: nit={one.nit} "
+            f"status={one.status}; x relative 2-norm diff from the two products' "
+            f"{float(np.linalg.norm(one.x - res.x) / np.linalg.norm(res.x))!r}"
         )
+        if one.status != 1:
+            raise AssertionError("phase 15b: the single-pass solve did not converge")
         chunk = chunk_of(None, dev)
         steps = chunk * math.ceil(res_sh.nit / chunk)  # the solver runs whole chunks
         log(
@@ -4245,7 +4284,8 @@ def phase15b(card: str, dev, A_np, b_np, lr: float) -> dict:
         )
         if res_sh.status != 1 or res_sh.nit != res.nit or not np.array_equal(res_sh.x, res.x):
             raise AssertionError("phase 15b: the sharded solve differs from the unsharded one")
-        if launched != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0}:
+        if launched != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0,
+                        "lasso_normal_gemv": 0}:
             raise AssertionError(f"phase 15b: launches {launched}, expected {steps} of fused_prox_momentum")
         A_t = torch.as_tensor(A_np, device=dev)
         lams = torch.linspace(0.005, 0.05, SWEEP15_LANES, dtype=torch.float32, device=dev)
@@ -4332,7 +4372,8 @@ def phase15c(card: str, dev) -> dict:
         )
         if got["status"] != 1 or got["nit"] != ref.nit or not dx <= GLOO_XTOL:
             raise AssertionError(f"phase 15c: rank {r}'s sharded solve is outside the m=1 class")
-        if got["launched"] != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0}:
+        if got["launched"] != {"fused_prox_momentum": steps, "fista_tail": 0, "lasso_step_tail": 0,
+                               "lasso_normal_gemv": 0}:
             raise AssertionError(f"phase 15c: rank {r} launched {got['launched']}, expected {steps} "
                                  "of fused_prox_momentum")
         if differ:
@@ -4897,6 +4938,7 @@ def phase4(card: str, dev, lz: dict) -> dict[str, int]:
     replays = graph_replays() - replays
     entry = next(reversed(solver._GRAPHS.values()))
     lasso_launches["lasso_step_tail"] = launched["lasso_step_tail"]
+    lasso_launches["lasso_normal_gemv"] = launched["lasso_normal_gemv"]
     log(
         f"phase 4 [{card}]: Lasso.solve_fixed_step(tol=0, max_iter=4000): nit={res.nit} "
         f"status={res.status} fun={float(res.fun[0])!r} lr={res.lr!r} kernel launches={launched}; "
@@ -5051,10 +5093,11 @@ def phase5(card: str, dev, lz: dict) -> tuple[int, dict]:
             rates[k].append(iters / sync_time(runs[k]))
     for k, v in rates.items():
         med = statistics.median(v)
+        per_iter = BYTES_PER_ITER // 2 if k == "public" else BYTES_PER_ITER
         log(
             f"phase 5 [{card}]: {k}: {med:.1f} iter/s median of {[round(r, 1) for r in v]}; "
-            f"{med * BYTES_PER_ITER / 1e9:.1f} GB/s against "
-            f"{BYTES_PER_ITER / 1e6:.0f} MB/iter"
+            f"{med * per_iter / 1e9:.1f} GB/s against "
+            f"{per_iter / 1e6:.0f} MB/iter"
             + (" (a fresh Lasso per run: its capture included)" if k == "public" else "")
         )
 
@@ -5094,9 +5137,96 @@ def phase5(card: str, dev, lz: dict) -> tuple[int, dict]:
     return fista_launches, kern_ms
 
 
+def gemv_chain(m: int, n: int) -> int:
+    """The single-pass gradient's longest chain of float32 roundings into
+    one entry: a row's dot product (at most 24 products a thread, 5
+    butterfly levels, 16 warps, − b) and a column's sum (its block's rows;
+    a slice of at most 17 of the 132 partials; 8 slices).  The doubling is
+    exact."""
+    from zfista_tpu_torch.ops import fused
+
+    rows = math.ceil(m / min(m, fused.NORMAL_GEMV_BLOCKS))
+    return math.ceil(n / 512) + 5 + 16 + 1 + rows + 17 + 8
+
+
+def phase5b(card: str, dev, lz: dict) -> dict:
+    """The single-pass LASSO gradient ``lasso_normal_gemv`` (two launches:
+    one pass over A's rows, the partials' sum) on the card.  At every shape
+    of ``GEMV_CHECK_SHAPES``, A aligned and 4 bytes past: against the
+    float64 gradient within the a-priori bound of its sums, 2·γ_K·|A|ᵀ(|A||y|
+    + |b|) with γ_K = K·u/(1 − K·u), u = 2⁻²⁴, K = ``gemv_chain`` + 1 (the
+    residual's rounding carried through the second sum); bitwise from one
+    launch to the next and against a replayed CUDA graph of it; one launch
+    counted a call (the capture's call counts, its replays run no wrapper).
+    Then its device time at the main path's shape (phase 4's A and b) by
+    ``held_ms``, in turns with the two cuBLAS products and two elementwise
+    launches it replaces (``library_ms``), beside its bound: A's bytes once
+    at 3.35 TB/s."""
+    from zfista_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(3)
+    counts = fused.launch_counts
+    worst, max_abs = 0.0, 0.0
+    for m, n in GEMV_CHECK_SHAPES:
+        for offset in (0, 1):
+            if (m, n, offset) == (M, N, 0):
+                A, b = lz["A"], lz["b"]
+            else:
+                host = (rng.standard_normal((m, n)) / math.sqrt(m)).astype(np.float32)
+                A = torch.empty(m * n + offset, dtype=torch.float32, device=dev)[offset:].view(m, n)
+                A.copy_(torch.as_tensor(host))
+                b = torch.as_tensor(rng.standard_normal(m).astype(np.float32), device=dev)
+            y = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+            before = counts["lasso_normal_gemv"]
+            got = fused.lasso_normal_gemv(A, b, y)
+            again = fused.lasso_normal_gemv(A, b, y)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = fused.lasso_normal_gemv(A, b, y)
+            graph.replay()
+            graph.replay()
+            torch.cuda.synchronize()
+            launched = counts["lasso_normal_gemv"] - before
+            A64, b64, y64 = A.double(), b.double(), y.double()
+            want = 2 * (A64.T @ (A64 @ y64 - b64))
+            u, k = 2.0**-24, gemv_chain(m, n) + 1
+            bound = 2 * (k * u / (1 - k * u)) * (A64.abs().T @ (A64.abs() @ y64.abs() + b64.abs()))
+            err = (got.double() - want).abs()
+            ratio = float(torch.max(err / bound.clamp_min(1e-300)))
+            worst, max_abs = max(worst, ratio), max(max_abs, float(torch.max(err)))
+            same = same_bits(got, again) and same_bits(got, replayed)
+            log(
+                f"phase 5b: lasso_normal_gemv m={m} n={n} (A {4 * offset} bytes past aligned): "
+                f"max |g - g64| {float(torch.max(err))!r}, at most {ratio:.4f} of its a-priori bound "
+                f"(K={k}); bitwise across launches and a replayed graph: {same}; launches +{launched}"
+            )
+            if not (ratio <= 1.0 and same and launched == 3):
+                raise AssertionError(f"phase 5b: lasso_normal_gemv at m={m} n={n} offset {offset}")
+
+    A, b = lz["A"], lz["b"]
+    y = torch.as_tensor(rng.standard_normal(N).astype(np.float32), device=dev)
+    times: dict[str, list[float]] = {"kernel": [], "library": []}
+    calls = {
+        "kernel": lambda: fused.lasso_normal_gemv(A, b, y),
+        "library": lambda: fused.lasso_normal_gemv_plain(A, b, y),
+    }
+    for k in ("kernel", "library", "library", "kernel"):
+        times[k].append(event_ms(calls[k], 200))
+    k_ms, lib_ms = min(times["kernel"]), min(times["library"])
+    bound_ms = 1e3 * M * N * 4 / PEAK_BYTES_PER_S
+    log(
+        f"phase 5b [{card}]: lasso_normal_gemv at m={M} n={N} f32: {k_ms * 1e3:.2f} us a call "
+        f"({[round(t * 1e3, 2) for t in times['kernel']]}; {M * N * 4 / (k_ms * 1e-3) / 1e12:.3f} "
+        f"TB/s of A once), the cuBLAS pair with - b and * 2 (library_ms) {lib_ms * 1e3:.2f} us "
+        f"({[round(t * 1e3, 2) for t in times['library']]}), in turns; bound {bound_ms * 1e3:.2f} us "
+        f"(A's {M * N * 4 / 1e6:.0f} MB once at 3.35 TB/s): {bound_ms / k_ms:.1%} of it"
+    )
+    return {"err": max_abs, "ratio": worst, "ms": k_ms, "library_ms": lib_ms}
+
+
 #: Every phase, in the order of the full run (``--phases`` selects some).
 PHASES = (
-    "1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "11b",
+    "1", "2", "3", "4", "5", "5b", "6", "7", "8", "9", "10", "11", "11b",
     "12a", "12b", "12c", "12d", "12e", "12f", "12g",
     "13a", "13b", "13c", "13d", "13e", "13f", "13g",
     "14a", "14b", "14c", "14d", "14e",
@@ -5225,6 +5355,31 @@ def kernels_line(runs: dict) -> list[dict]:
                 "by_path": paths,
             }
         )
+    gemv, gemv_launches = runs.get("gemv"), launches.get("lasso_normal_gemv")
+    if gemv or gemv_launches is not None:
+        kernels.append(
+            {
+                "name": "lasso_normal_gemv",
+                "route": "cuda",
+                "source": GEMV_SOURCE,
+                # No TPU kernel: the JAX package leaves the step's two
+                # matvecs to XLA (zfista_tpu/ops/fused.py:144).
+                "replaces": None,
+                "launches": gemv_launches,
+                "max_abs_err": gemv["err"] if gemv else None,
+                "ms": gemv["ms"] if gemv else None,
+                # Its plain version is the pair it replaces.
+                "plain_ms": gemv["library_ms"] if gemv else None,
+                "bound_ms": 1e3 * M * N * 4 / PEAK_BYTES_PER_S,
+                "bound_by": "bytes",
+                # Two cuBLAS GEMVs and the - b and * 2 launches.
+                "library_ms": gemv["library_ms"] if gemv else None,
+                "by_path": [
+                    {"path": "Lasso.solve_fixed_step (phase 4)", "m": M, "n": N,
+                     "dtype": "float32", "launches": gemv_launches}
+                ] if gemv_launches is not None else [],
+            }
+        )
     tv_err, tv_launches, tv_runs, tv_ms, tv_graph_us = (
         runs.get(k) for k in ("tv_err", "tv_launches", "tv_runs", "tv_ms", "tv_graph_us"))
     for name, (source, replaces) in TV_KERNELS.items():
@@ -5330,6 +5485,7 @@ def main(argv: list[str] | None = None) -> None:
         ("3", "3", lambda: runs.update(step_err=phase3(dev, lz()))),
         ("4", "4", lambda: runs["lasso_launches"].update(phase4(smi, dev, lz()))),
         ("5", "5", lambda: runs.update(zip(("fista", "kern_ms"), phase5(smi, dev, lz())))),
+        ("5b", "5b", lambda: runs.update(gemv=phase5b(smi, dev, lz()))),
         ("6", "6", lambda: runs.update(tv_err=phase6(dev))),
         ("7", "7", lambda: runs.update(zip(("tv_launches", "tv_runs", "tv_step_ms"), phase7(dev, smi)))),
         ("8", "8", lambda: runs.update(tv_ms=phase8(dev, smi))),

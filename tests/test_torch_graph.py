@@ -400,12 +400,37 @@ def test_launch_counts_count_replayed_launches(graphed, counted):
         assert counted["fused_prox_momentum"] == counted["fista_tail"] == 0
     (entry,) = graphed.values()
     assert entry.launches == {
-        "fused_prox_momentum": 0, "fista_tail": 0, "lasso_step_tail": 7,
+        "fused_prox_momentum": 0, "fista_tail": 0, "lasso_step_tail": 7, "lasso_normal_gemv": 0,
         "fgp_resident": 0, "fgp_tiles": 0, "fgp_tiles_pipelined": 0,
     }
     grew = {k: solver.graph_counts[k] - before[k] for k in before}
     assert grew["captures"] == 1 and grew["steps"] == 7
     assert grew["first_chunk_ns"] > 0 and grew["record_ns"] > 0 and grew["instantiate_ns"] >= 0
+
+
+def test_single_pass_gradient_counts_one_launch_a_graph_step(graphed, counted, monkeypatch):
+    """Where the dispatch takes the single-pass gradient, it counts one
+    ``lasso_normal_gemv`` launch a step, eager or replayed, beside the step
+    tail's: the plain version stands in for the kernel on the CPU, bitwise
+    the two products it replaces, so the solve is the same."""
+    def counting(A, b, y):
+        fused.launch_counts["lasso_normal_gemv"] += 1
+        return fused.lasso_normal_gemv_plain(A, b, y)
+
+    A, b, lr = _lasso(23)
+    x0 = np.zeros(A.shape[1])
+    ref = Lasso(A, b, 0.05, device="cpu").solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=7)
+    monkeypatch.setattr(tl, "_one_pass", lambda A, b, x: True)
+    monkeypatch.setattr(fused, "lasso_normal_gemv", counting)
+    prob = Lasso(A, b, 0.05, device="cpu")
+    for k in range(2):  # a miss (eager chunk, capture, replays), then a hit
+        counted["lasso_step_tail"] = counted["lasso_normal_gemv"] = 0
+        res = prob.solve_fixed_step(x0, lr=lr, tol=1e-8, check_every=7)
+        steps = -(-res.nit // 7) * 7
+        assert counted["lasso_normal_gemv"] == counted["lasso_step_tail"] == steps
+        _bitwise(res.state, ref.state)
+    entry = next(reversed(graphed.values()))
+    assert entry.launches["lasso_normal_gemv"] == entry.launches["lasso_step_tail"] == 7
 
 
 def test_host_scalar_inside_a_capture_raises(monkeypatch):

@@ -4,8 +4,10 @@ PyTorch-port counterpart of :mod:`zfista_tpu.models.lasso`:
 ``min_x ||A x - b||² + λ‖x‖₁ (+ (μ/2)‖x‖²)`` with dense ``A (m, n)``, and
 ``GroupLasso`` with ``λ Σ_g ||x_g||₂`` in place of the ℓ1 term.
 
-* ``f``/``jac_f`` are two dense matvecs in full fp32 (cuBLAS on a card,
-  :mod:`zfista_tpu_torch.ops.precision`).
+* ``f`` is a dense matvec in full fp32 (cuBLAS on a card,
+  :mod:`zfista_tpu_torch.ops.precision`); ``jac_f`` is two, except where
+  :func:`_normal_grad` takes the single-pass kernel that reads ``A`` once
+  (:func:`~zfista_tpu_torch.ops.fused.lasso_normal_gemv`).
 * ``prox`` is the closed-form soft-threshold.  On the fixed-step solve the
   solver runs it, together with the momentum extrapolation, as one launch
   of the fused CUDA kernel (:mod:`zfista_tpu_torch.ops.fused`).
@@ -33,6 +35,7 @@ import torch
 from zfista_tpu_torch._typing import Array
 from zfista_tpu_torch.core.solver import data_device, minimize_proximal_gradient
 from zfista_tpu_torch.models.base import Problem
+from zfista_tpu_torch.ops import fused
 from zfista_tpu_torch.ops.precision import dot_hp, lane_sum, matmul_hp, sum_hp
 from zfista_tpu_torch.ops.prox import shrink_groups, soft_threshold
 from zfista_tpu_torch.parallel.sharding import (
@@ -48,6 +51,26 @@ from zfista_tpu_torch.parallel.sharding import (
 from zfista_tpu_torch.utils.profiling import annotate, device_to_host
 
 _DOT = matmul_hp
+
+
+def _one_pass(A: Array, b: Array, x: Array) -> bool:
+    """Whether :func:`_normal_grad` takes the single-pass kernel: for a
+    whole operator (not a feature-sharded one's column block) whose
+    operands the kernel takes
+    (:func:`~zfista_tpu_torch.ops.fused.normal_gemv_takes`: a row-major
+    float32 ``A`` on a card, rows no wider than the kernel's, nothing
+    batched by ``vmap`` or tracked for a gradient)."""
+    return sharding_of(A) is None and fused.normal_gemv_takes(A, b, x)
+
+
+def _normal_grad(A: Array, b: Array, x: Array) -> Array:
+    """``2·Aᵀ(A x − b)``, the gradient of ``‖A x − b‖²``: one read of ``A``
+    by the single-pass kernel where :func:`_one_pass` allows it, else two
+    full-fp32 products, ``A x`` all-reduced over a feature-sharded ``A``'s
+    ranks."""
+    if _one_pass(A, b, x):
+        return fused.lasso_normal_gemv(A, b, x)
+    return 2 * _DOT(A.T, feature_sum(A, _DOT(A, x)) - b)
 
 
 def _operator(A: Array) -> Array:
@@ -200,7 +223,7 @@ class Lasso(_OnOperator):
         return torch.reshape(val, (1,))
 
     def jac_f(self, x: Array) -> Array:
-        grad = 2 * _DOT(self.A.T, feature_sum(self.A, _DOT(self.A, x)) - self.b)
+        grad = _normal_grad(self.A, self.b, x)
         if self.l2_ratio:
             grad = grad + self.l2_ratio * x
         return torch.reshape(grad, (1, -1))
@@ -384,7 +407,7 @@ def _lasso_f_p(x, p):
 
 def _lasso_jac_p(x, p):
     A, b = p[:2]
-    grad = 2 * _DOT(A.T, feature_sum(A, _DOT(A, x)) - b)
+    grad = _normal_grad(A, b, x)
     if len(p) > 3:
         grad = grad + p[3] * x
     return torch.reshape(grad, (1, -1))

@@ -31,6 +31,13 @@ On a CPU tensor each wrapper takes its plain PyTorch version
 raises.  The kernel is built with ``-fmad=false`` and the plain versions
 compute in the same operation order, so on the card they are bitwise
 equal.
+
+The two matvecs themselves have a kernel too, for the dense LASSO's
+gradient ``2·Aᵀ(A y − b)``: :func:`lasso_normal_gemv`
+(``zfista_tpu_torch/csrc/lasso_normal_gemv.cu``) reads ``A`` from device
+memory once a call where the two cuBLAS GEMVs read it twice.  It sums in
+another order than cuBLAS, so its plain version is the two products it
+replaces, not its bits.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ launch_counts: dict[str, int] = register("fused", {
     "fused_prox_momentum": 0,
     "fista_tail": 0,
     "lasso_step_tail": 0,
+    "lasso_normal_gemv": 0,
 })
 
 _SOURCE = "fused_prox_momentum"
@@ -360,3 +368,93 @@ def fista_step_dense_fused(A: Array, b: Array, lam: Scalar, lr: Scalar, carry):
     x, y, t = carry
     grad = 2 * matmul_hp(A.T, feature_sum(A, matmul_hp(A, y)) - b)
     return fista_tail(y, grad, x, t, lr, lam)
+
+
+_GEMV_SOURCE = "lasso_normal_gemv"
+#: The widest row the single-pass gradient kernel takes: each of its 512
+#: threads holds 24 columns of its partial gradient and of two rows in
+#: registers.
+NORMAL_GEMV_MAX_N = 512 * 24
+#: Blocks of the single-pass gradient kernel, one an SM of an H100 SXM:
+#: each reads every 132nd row and writes one partial gradient, which the
+#: second launch sums in order.  Fixed, so the bits do not follow the
+#: card's SM count.
+NORMAL_GEMV_BLOCKS = 132
+
+
+def _on_card(t: Array) -> bool:
+    """Whether ``t`` lies where the kernels run: on a CUDA card."""
+    return t.device.type == "cuda"
+
+
+def normal_gemv_takes(A: Array, b: Array, y: Array) -> bool:
+    """Whether :func:`lasso_normal_gemv` launches its kernel on these
+    operands: ``A`` a row-major (contiguous) float32 matrix on a card, with
+    ``1 <= n <= NORMAL_GEMV_MAX_N`` columns and at least one row; ``b`` and
+    ``y`` contiguous float32 vectors of its ``m`` and ``n`` on its device;
+    none of the three a ``torch.func`` transform's tensor (the lanes of
+    ``vmap``, the inputs a ``jacrev`` tracks) nor one that requires grad.
+    The kernel has no derivative and no batching rule."""
+    ops = (A, b, y)
+    if not all(isinstance(t, torch.Tensor) for t in ops):
+        return False
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) or t.requires_grad for t in ops):
+        return False
+    if not _on_card(A) or A.dim() != 2 or A.dtype != torch.float32 or not A.is_contiguous():
+        return False
+    m, n = A.shape
+    return (
+        m >= 1
+        and 1 <= n <= NORMAL_GEMV_MAX_N
+        and all(
+            v.dim() == 1 and v.dtype == A.dtype and v.device == A.device and v.is_contiguous()
+            for v in (b, y)
+        )
+        and b.shape[0] == m
+        and y.shape[0] == n
+    )
+
+
+def lasso_normal_gemv_plain(A: Array, b: Array, y: Array) -> Array:
+    """Plain PyTorch version of :func:`lasso_normal_gemv`: the two
+    full-fp32 matvecs it replaces, ``2 * (Aᵀ (A y − b))``."""
+    return 2 * matmul_hp(A.T, matmul_hp(A, y) - b)
+
+
+def lasso_normal_gemv(A: Array, b: Array, y: Array) -> Array:
+    r"""The dense LASSO gradient ``2·Aᵀ(A y − b)``, reading ``A`` once: two
+    launches, a persistent pass over ``A``'s rows that writes one partial
+    gradient a block, then their sum in a fixed order (no atomics: a call
+    is bitwise the next, eager or replayed in a CUDA graph).  Float32
+    operands and float32 accumulation, as the two full-fp32 GEMVs it
+    replaces, summed in another order.
+
+    CPU tensors take :func:`lasso_normal_gemv_plain`.  On a card the
+    operands must be what :func:`normal_gemv_takes` accepts; anything else
+    raises.  Returns a fresh ``(n,)`` tensor.
+    """
+    if A.device.type == "cpu":
+        return lasso_normal_gemv_plain(A, b, y)
+    if not normal_gemv_takes(A, b, y):
+        raise ValueError(
+            "lasso_normal_gemv: A must be a contiguous float32 (m, n) matrix on a card "
+            f"with 1 <= n <= {NORMAL_GEMV_MAX_N} and m >= 1, b and y contiguous float32 "
+            "(m,) and (n,) vectors on its device, none a torch.func tensor or requiring grad; "
+            f"got A {A.dtype} {tuple(A.shape)} on {A.device}, b {b.dtype} {tuple(b.shape)}, "
+            f"y {y.dtype} {tuple(y.shape)}"
+        )
+    m, n = A.shape
+    parts = min(m, NORMAL_GEMV_BLOCKS)
+    partial = torch.empty((parts, n), dtype=A.dtype, device=A.device)
+    grad = torch.empty(n, dtype=A.dtype, device=A.device)
+    fn = _build.entry(
+        _GEMV_SOURCE, "zt_lasso_normal_gemv_f32", 5,
+        (ctypes.c_int64, ctypes.c_int64, ctypes.c_int),
+    )
+    code = fn(
+        A.data_ptr(), b.data_ptr(), y.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+        m, n, parts, A.device.index, _stream(A),
+    )
+    _build.raise_on(code, _GEMV_SOURCE, "lasso_normal_gemv")
+    launch_counts["lasso_normal_gemv"] += 1
+    return grad
